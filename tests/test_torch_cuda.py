@@ -1,0 +1,84 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked `cuda`: each test skips without a CUDA device or nvcc.  On the GPU
+machine (no JAX there, so without the repo's conftest):
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
+"""
+import os
+import random
+
+import pytest
+import torch
+
+from zktpu.curves.host_curve import G1Affine
+from zktpu.fields.host import FQ, FR, GOLDILOCKS
+from zktpu_torch import cuda_lib
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    if cuda_lib.find_nvcc() is None and not os.path.exists(cuda_lib.library_path()):
+        pytest.skip("no nvcc to build the kernels")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("spec", [FR, FQ, GOLDILOCKS], ids=lambda s: s.name)
+def test_mont_mul_kernel_matches_plain(device, spec):
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_plain
+
+    f = field(spec, device)
+    rng = random.Random(1)
+    p = spec.modulus
+    a = [0, 1, p - 1] + [rng.randrange(p) for _ in range(1000)]
+    b = [p - 1, p - 1, p - 1] + [rng.randrange(p) for _ in range(1000)]
+    A, B = f.encode_ints(a), f.encode_ints(b)
+    before = mont_mul.launches[spec.name]
+    got = mont_mul(spec, A, B)
+    assert mont_mul.launches[spec.name] == before + 1
+    assert torch.equal(got, mont_mul_plain(spec, A, B))
+    assert f.decode_ints(got) == [x * y % p for x, y in zip(a, b)]
+    # broadcasting: a (K, m) batch against an (m,) table, and one constant
+    T = A[:10].reshape(2, 5, -1)
+    assert torch.equal(mont_mul(spec, T, B[:5]), mont_mul_plain(spec, T, B[:5]))
+    assert torch.equal(mont_mul(spec, A, B[7]), mont_mul_plain(spec, A, B[7]))
+    with pytest.raises(TypeError):
+        mont_mul(spec, A.to(torch.int64), B)
+
+
+def test_proj_kernels_match_plain(device):
+    from zktpu_torch.curves import g1
+    from zktpu_torch.curves.g1_kernel import proj_add, proj_add_plain, proj_double, proj_double_plain
+
+    G = G1Affine.generator()
+    pts = [G.mul(k) for k in (1, 2, 3, 7, 1, 9)] + [G1Affine.identity()]
+    qts = [G1Affine.identity(), G.mul(5), G.mul(3), G.mul(FR.modulus - 7), G.mul(11), G.mul(9), G1Affine.identity()]
+    P, Q = g1.host_points_to_device(pts, device), g1.host_points_to_device(qts, device)
+    got = proj_add(P, Q)
+    for a, b in zip(got, proj_add_plain(P, Q)):
+        assert torch.equal(a, b)
+    assert g1.proj_to_affine_host(got) == [x + y for x, y in zip(pts, qts)]
+    got = proj_double(P)
+    for a, b in zip(got, proj_double_plain(P)):
+        assert torch.equal(a, b)
+    assert g1.proj_to_affine_host(got) == [x + x for x in pts]
+
+
+def test_msm_on_device_matches_host(device):
+    from zktpu_torch.curves import g1, msm
+
+    G = G1Affine.generator()
+    rng = random.Random(5)
+    pts = [G.mul(rng.randrange(1, 1 << 10)) for _ in range(40)]
+    scalars = [rng.randrange(FR.modulus) for _ in range(40)]
+    want = G1Affine.identity()
+    for s, p in zip(scalars, pts):
+        want = want + p.mul(s)
+    P = g1.host_points_to_device(pts, device)
+    R = msm.msm_proj(g1.scalars_to_u32(scalars, device), *P, c=msm.pick_window(40))
+    assert g1.proj_to_affine_host(tuple(a[None] for a in R)) == [want]

@@ -1,0 +1,84 @@
+"""zktpu_torch Pippenger MSM vs the naive host sum and zktpu's window digits."""
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from zktpu.curves import msm as zmsm
+from zktpu.curves.host_curve import G1Affine
+from zktpu.fields import host
+from zktpu_torch.curves import g1, msm
+
+torch.set_num_threads(1)  # the suite runs one process per core: intra-op threads would oversubscribe it
+
+G = G1Affine.generator()
+R = host.FR_MODULUS
+
+
+def _naive(scalars, points):
+    acc = G1Affine.identity()
+    for s, p in zip(scalars, points):
+        acc = acc + p.mul(s)
+    return acc
+
+
+def _msm(scalars, points, c=None):
+    sc = g1.scalars_to_u32(scalars)
+    R = msm.msm_proj(sc, *points, c=msm.pick_window(len(scalars)) if c is None else c)
+    return g1.proj_to_affine_host(tuple(a[None] for a in R))[0]
+
+
+def _points(n, seed):
+    rng = random.Random(seed)
+    return [G.mul(rng.randrange(1, 1 << 12)) for _ in range(n)]
+
+
+@pytest.mark.parametrize("n", [1, 17, 100])
+def test_msm_matches_naive_sum(n):
+    rng = random.Random(n)
+    pts = _points(n, seed=n)
+    scalars = [rng.randrange(R) for _ in range(n)]
+    if n > 3:
+        scalars[0], scalars[1] = 0, R - 1  # zero scalar, p - 1
+        pts[3] = pts[2]  # a repeated point
+        scalars[3] = scalars[2]
+    assert _msm(scalars, g1.host_points_to_device(pts)) == _naive(scalars, pts)
+
+
+def test_msm_all_digits_maximal():
+    """Every 4-bit window of 2^252 - 1 is 15 (every bucket search lands at 0)
+    and its top window is 0 (every search runs off the end: the identity)."""
+    pts = _points(9, seed=2)
+    scalars = [(1 << 252) - 1] * 9
+    got = _msm(scalars, g1.host_points_to_device(pts), c=4)
+    assert got == _naive(scalars, pts)
+
+
+def test_msm_many_matches_single():
+    pts = _points(12, seed=4)
+    rng = random.Random(8)
+    rows = [[rng.randrange(R) for _ in range(12)] for _ in range(3)]
+    rows[1] = [0] * 12
+    P = g1.host_points_to_device(pts)
+    sc = torch.stack([g1.scalars_to_u32(r) for r in rows])
+    got = g1.proj_to_affine_host(msm.msm_proj_many(sc, *P, c=8))
+    assert got == [_naive(r, pts) for r in rows]
+
+
+@pytest.mark.parametrize("c", [4, 8, 13, 16])
+def test_window_digits_match_zktpu(c):
+    rng = random.Random(c)
+    scalars = [rng.randrange(R) for _ in range(20)] + [0, R - 1, (1 << 252) - 1]
+    want = np.asarray(zmsm.window_digits(np.asarray(_u32(scalars)), c))
+    got = msm.window_digits(g1.scalars_to_u32(scalars), c).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _u32(scalars):
+    return np.array([[(s >> (32 * j)) & 0xFFFFFFFF for j in range(8)] for s in scalars], dtype=np.uint32)
+
+
+def test_pick_window_matches_zktpu():
+    for n in (1, 256, 257, 4096, 4097, 1 << 18, (1 << 18) + 1, 1 << 22):
+        assert msm.pick_window(n) == zmsm.pick_window(n)

@@ -1,0 +1,56 @@
+// Kernel 1: the batched Montgomery product a * b * R^{-1} mod p.
+//
+// Replaces zktpu/fields/pallas_mont.py::_mont_mul_call (the Pallas kernel
+// behind mont_mul_pallas).  One thread per element runs CIOS over L u32 limbs
+// in registers (field.cuh::fmul), instantiated for L = 12 (Fq), 8 (Fr) and
+// 2 (Goldilocks).  Operands broadcast by a modulo on the row index, which
+// covers the shapes the port uses (a full batch times one constant, or a
+// (K, m) batch times an (m,) table).  Plain C interface, loaded with ctypes.
+#include <cuda_runtime.h>
+
+#include "field.cuh"
+
+template <int L>
+__global__ void __launch_bounds__(256)
+mont_mul_kernel(const uint32_t* __restrict__ a, int64_t na, const uint32_t* __restrict__ b,
+                int64_t nb, uint32_t* __restrict__ out, int64_t n, FieldConsts<L> f) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int64_t ia = na == n ? i : i % na;
+  const int64_t ib = nb == n ? i : i % nb;
+  uint32_t x[L], y[L], r[L];
+  copy_limbs<L>(x, a + ia * L);
+  copy_limbs<L>(y, b + ib * L);
+  fmul<L>(r, x, y, f);
+  copy_limbs<L>(out + i * L, r);
+}
+
+template <int L>
+static int launch_mont_mul(const uint32_t* p, uint32_t pinv, const void* a, int64_t na,
+                           const void* b, int64_t nb, void* out, int64_t n, cudaStream_t stream) {
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  mont_mul_kernel<L><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const uint32_t*>(a), na, static_cast<const uint32_t*>(b), nb,
+      static_cast<uint32_t*>(out), n, make_consts<L>(p, pinv));
+  return (int)cudaGetLastError();
+}
+
+// Returns cudaGetLastError() after the launch, or -1 for an unsupported width.
+extern "C" int zk_mont_mul(int device, int limbs, const uint32_t* p, uint32_t pinv,
+                           const void* a, int64_t na, const void* b, int64_t nb, void* out,
+                           int64_t n, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (limbs) {
+    case 2:
+      return launch_mont_mul<2>(p, pinv, a, na, b, nb, out, n, s);
+    case 8:
+      return launch_mont_mul<8>(p, pinv, a, na, b, nb, out, n, s);
+    case 12:
+      return launch_mont_mul<12>(p, pinv, a, na, b, nb, out, n, s);
+    default:
+      return -1;
+  }
+}

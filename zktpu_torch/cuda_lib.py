@@ -1,0 +1,144 @@
+"""Build and load the CUDA kernels of ``zktpu_torch/csrc/``.
+
+The sources are compiled on first use with ``nvcc`` into one shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the
+build takes seconds).  The library lands in ``build/zktpu_torch/`` at the
+root of the checkout, named by a hash of the sources and flags, so a changed
+source is rebuilt.  There is no fallback: without a CUDA device or ``nvcc``
+the loader raises and names what is missing.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from .shared import FieldSpec
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "zktpu_torch")
+SOURCES = ("mont_mul.cu", "g1.cu")
+HEADERS = ("field.cuh", "g1.cuh")
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_SIGNATURES = {
+    # device, limbs, p (host), pinv, a, na, b, nb, out, n, stream
+    "zk_mont_mul": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _P, _I64, _P, _I64, _P],
+    # device, p (host), pinv, x1, y1, z1, x2, y2, z2, x3, y3, z3, n, stream
+    "zk_proj_add": [ctypes.c_int, _P, ctypes.c_uint32] + [_P] * 9 + [_I64, _P],
+    # device, p (host), pinv, x1, y1, z1, x3, y3, z3, n, stream
+    "zk_proj_double": [ctypes.c_int, _P, ctypes.c_uint32] + [_P] * 6 + [_I64, _P],
+}
+
+
+class KernelBuildError(RuntimeError):
+    """The CUDA kernels cannot be built or loaded here."""
+
+
+def find_nvcc() -> str | None:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), DEFAULT_CUDA_HOME):
+        if root and os.access(os.path.join(root, "bin", "nvcc"), os.X_OK):
+            return os.path.join(root, "bin", "nvcc")
+    return None
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> str:
+    return os.path.join(BUILD_DIR, f"libzktpu_kernels-{_source_hash()}.so")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the kernels (if the hashed library is missing); returns its path.
+
+    verbose: also print ptxas's register and spill counts to stderr."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise KernelBuildError(
+            "zktpu_torch kernels need nvcc (not on PATH, not in $CUDA_HOME/bin or "
+            "/usr/local/cuda/bin); they cannot be built on this machine"
+        )
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", tmp, *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if verbose:
+        print(proc.stderr, end="", file=sys.stderr)
+    os.replace(tmp, path)
+    return path
+
+
+@functools.lru_cache(maxsize=1)
+def load() -> ctypes.CDLL:
+    """Build if needed and load the kernel library (once per process)."""
+    if not torch.cuda.is_available():
+        raise KernelBuildError("zktpu_torch kernels need a CUDA device; none is available")
+    lib = ctypes.CDLL(build())
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def field_consts(spec: FieldSpec) -> tuple[np.ndarray, int]:
+    """(p as little-endian u32 limbs, -p^{-1} mod 2^32) for a kernel launch."""
+    L = spec.num_digits // 2
+    p = np.frombuffer(spec.modulus.to_bytes(4 * L, "little"), dtype="<u4").copy()
+    return p, (-pow(spec.modulus, -1, 1 << 32)) % (1 << 32)
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero status from a launch (its cudaGetLastError())."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda_operands(name: str, tensors, limbs: int) -> None:
+    """Device, dtype, width and contiguity checks before pointers are passed."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: all operands must be on one CUDA device, got {t.device}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: expected torch.int32 limbs, got {t.dtype}")
+        if t.shape[-1] != limbs:
+            raise ValueError(f"{name}: expected {limbs} limbs in the last dim, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")

@@ -1,0 +1,111 @@
+"""BLS12-381 G1 over limb tensors (counterpart of zktpu/curves/g1.py).
+
+Points are homogeneous projective triples (X, Y, Z) of (..., 12) Fq
+Montgomery limb tensors; the identity is (0 : 1 : 0).  ``proj_add`` and
+``proj_double`` are kernels 2 and 3 for CUDA tensors (curves/g1_kernel.py).
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..shared import FQ, G1Affine
+from ..fields.fp import field, ints_to_limbs, norm_device
+from ..fields.limbs import widen
+from .g1_kernel import LIMBS, proj_add, proj_double  # noqa: F401 (re-exported)
+
+
+def proj_identity(shape=(), device="cpu"):
+    """(0 : 1 : 0) with batch `shape`; Y is the Montgomery one."""
+    fq = field(FQ, device)
+    z = torch.zeros(tuple(shape) + (LIMBS,), dtype=torch.int32, device=fq.device)
+    return z, fq.one.expand_as(z).clone(), z.clone()
+
+
+def affine_to_proj(x: torch.Tensor, y: torch.Tensor, inf_mask=None):
+    """Affine Montgomery coordinates -> projective; inf_mask marks identities."""
+    one = field(FQ, x.device).one.expand_as(x)
+    if inf_mask is None:
+        return x, y, one.clone()
+    m = inf_mask[..., None]
+    zero = torch.zeros_like(x)
+    return torch.where(m, zero, x), torch.where(m, one, y), torch.where(m, zero, one)
+
+
+def host_points_to_device(points: list[G1Affine], device="cpu"):
+    fq = field(FQ, device)
+    xs = fq.encode_ints([p.x for p in points])
+    ys = fq.encode_ints([p.y for p in points])
+    inf = torch.tensor([p.infinity for p in points], dtype=torch.bool, device=fq.device)
+    return affine_to_proj(xs, ys, inf)
+
+
+def proj_tree_sum(P, axis: int = 0):
+    """Sum a batch of projective points along `axis` by log-depth tree adds."""
+    X, Y, Z = (torch.movedim(a, axis, 0) for a in P)
+    while X.shape[0] > 1:
+        half = X.shape[0] // 2
+        s = proj_add((X[:half], Y[:half], Z[:half]), (X[half : 2 * half], Y[half : 2 * half], Z[half : 2 * half]))
+        X, Y, Z = (torch.cat([a, b[2 * half :]], dim=0) for a, b in zip(s, (X, Y, Z)))
+    return X[0], Y[0], Z[0]
+
+
+def proj_to_affine_host(P) -> list[G1Affine]:
+    """Batch of projective points -> host affine points (one host inversion each)."""
+    fq = field(FQ, P[0].device)
+    x_ints, y_ints, z_ints = (fq.decode_ints(a.reshape(-1, LIMBS)) for a in P)
+    p = FQ.modulus
+    out = []
+    for x, y, z in zip(x_ints, y_ints, z_ints):
+        if z == 0:
+            out.append(G1Affine.identity())
+        else:
+            zi = pow(z, -1, p)
+            out.append(G1Affine(x * zi % p, y * zi % p))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Fixed-base batch scalar multiplication (SRS generation)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=4)
+def _fixed_base_tables(base: G1Affine, window: int, device: torch.device):
+    """tables[k][j] = j * 2^(window k) * base, as (windows, 2^window, 12) planes."""
+    num_windows = -(-256 // window)
+    xs, ys, infs = [], [], []
+    cur = base
+    for _ in range(num_windows):
+        row = [G1Affine.identity()]
+        for _ in range(1, 1 << window):
+            row.append(row[-1] + cur)
+        xs += [pt.x for pt in row]
+        ys += [pt.y for pt in row]
+        infs += [pt.infinity for pt in row]
+        for _ in range(window):
+            cur = cur + cur
+    fq = field(FQ, device)
+    shape = (num_windows, 1 << window, LIMBS)
+    inf = torch.tensor(infs, dtype=torch.bool, device=fq.device).reshape(shape[:2])
+    return affine_to_proj(fq.encode_ints(xs).reshape(shape), fq.encode_ints(ys).reshape(shape), inf)
+
+
+def scalars_to_u32(scalars, device="cpu") -> torch.Tensor:
+    """Python ints (< 2^256) -> (N, 8) little-endian u32 limbs (int32 bit patterns)."""
+    arr = ints_to_limbs([int(s) for s in scalars], 8)
+    return torch.from_numpy(arr).to(norm_device(device))
+
+
+def fixed_base_mul_u32(base: G1Affine, scalars_u32: torch.Tensor, window: int = 8):
+    """[s_i] base for (N, 8) canonical u32-limb scalars -> projective batch."""
+    assert 32 % window == 0, window
+    TX, TY, TZ = _fixed_base_tables(base, window, norm_device(scalars_u32.device))
+    sc = widen(scalars_u32)
+    acc = proj_identity((sc.shape[0],), scalars_u32.device)
+    for w in range(TX.shape[0]):
+        limb, off = divmod(w * window, 32)
+        ids = (sc[:, limb] >> off) & ((1 << window) - 1)
+        acc = proj_add(acc, (TX[w][ids], TY[w][ids], TZ[w][ids]))
+    return acc

@@ -1,0 +1,189 @@
+"""Prime-field arithmetic over limb tensors (counterpart of zktpu/fields/fp.py).
+
+A field element is (..., L) little-endian 32-bit limbs in a torch.int32
+tensor, Montgomery form with R = 2^(32 L) (the same R as zktpu's 16-bit-digit
+layout), canonical (< p).  ``mont_mul`` is kernel 1 for CUDA tensors and its
+plain version for CPU tensors; add, sub and the scans are plain tensor ops
+around it.  Every op is shape-polymorphic over leading axes.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..shared import FieldSpec
+from .limbs import MASK32, narrow, resolve, widen
+from .mont_kernel import mont_mul as _mont_mul
+
+
+def ints_to_limbs(values, limbs: int) -> np.ndarray:
+    """Host: iterable of Python ints (< 2^(32 limbs)) -> (N, limbs) int32."""
+    values = list(values)
+    buf = b"".join(int(v).to_bytes(4 * limbs, "little") for v in values)
+    return np.frombuffer(buf, dtype="<u4").reshape(len(values), limbs).view(np.int32).copy()
+
+
+def limbs_to_ints(arr) -> list[int]:
+    """Host: (..., L) int32 limbs -> list of Python ints (row-major)."""
+    a = np.ascontiguousarray(np.asarray(arr, dtype=np.int32))
+    nbytes = 4 * a.shape[-1]
+    buf = a.astype("<i4").tobytes()
+    return [int.from_bytes(buf[i : i + nbytes], "little") for i in range(0, len(buf), nbytes)]
+
+
+def norm_device(device) -> torch.device:
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+class TorchField:
+    """Vectorised arithmetic of one prime field on one device."""
+
+    def __init__(self, spec: FieldSpec, device):
+        self.spec = spec
+        self.device = norm_device(device)
+        self.num_limbs = L = spec.num_digits // 2
+        self._p = widen(self._const(spec.modulus))
+        self._neg_p = widen(self._const(spec.mont_r - spec.modulus))  # R - p
+        self.zero = torch.zeros(L, dtype=torch.int32, device=self.device)
+        self.one = self._const(spec.to_mont(1))
+        self._r2 = self._const(spec.mont_r2)
+        self._one_raw = self._const(1)
+
+    def _const(self, v: int) -> torch.Tensor:
+        return torch.from_numpy(ints_to_limbs([v], self.num_limbs)[0]).to(self.device)
+
+    # -- arithmetic --
+
+    def mont_mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """a * b * R^{-1} mod p (canonical)."""
+        return _mont_mul(self.spec, a, b)
+
+    def _reduce(self, s: torch.Tensor, top: torch.Tensor) -> torch.Tensor:
+        """Value top * R + s (< 2p) -> canonical int32 limbs."""
+        d, no_borrow = resolve(s + self._neg_p, 32)  # s - p mod R
+        take = (top | no_borrow)[..., None]
+        return narrow(torch.where(take, d, s))
+
+    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        a, b = torch.broadcast_tensors(widen(a), widen(b))
+        s, top = resolve(a + b, 32)
+        return self._reduce(s, top)
+
+    def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        a, b = torch.broadcast_tensors(widen(a), widen(b))
+        d, no_borrow = resolve(a + (MASK32 - b) + _unit(a), 32)  # a - b mod R
+        dp, _ = resolve(d + self._p, 32)  # a - b + p mod R
+        return narrow(torch.where(no_borrow[..., None], d, dp))
+
+    def neg(self, a: torch.Tensor) -> torch.Tensor:
+        return self.sub(torch.zeros_like(a), a)
+
+    def double(self, a: torch.Tensor) -> torch.Tensor:
+        return self.add(a, a)
+
+    def sum(self, a: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """Field sum along `axis` by a binary tree of adds."""
+        a = torch.movedim(a, axis, 0)
+        while a.shape[0] > 1:
+            half = a.shape[0] // 2
+            s = self.add(a[:half], a[half : 2 * half])
+            a = torch.cat([s, a[2 * half :]], dim=0)
+        return a[0]
+
+    def _scan(self, op, a: torch.Tensor, identity: torch.Tensor, axis: int, reverse: bool) -> torch.Tensor:
+        """Inclusive scan by log-depth doubling (zktpu fp.py::_hillis_steele)."""
+        a = torch.movedim(a, axis, 0)
+        if reverse:
+            a = torch.flip(a, dims=(0,))
+        n = a.shape[0]
+        d = 1
+        while d < n:
+            shifted = torch.cat([identity.expand((d,) + a.shape[1:]), a[:-d]], dim=0)
+            a = op(a, shifted)
+            d *= 2
+        if reverse:
+            a = torch.flip(a, dims=(0,))
+        return torch.movedim(a, 0, axis)
+
+    def cumprod(self, a: torch.Tensor, axis: int = 0, reverse: bool = False) -> torch.Tensor:
+        return self._scan(self.mont_mul, a, self.one, axis, reverse)
+
+    def cumsum(self, a: torch.Tensor, axis: int = 0, reverse: bool = False) -> torch.Tensor:
+        return self._scan(self.add, a, self.zero, axis, reverse)
+
+    def powers(self, base: int, count: int) -> torch.Tensor:
+        """[1, z, ..., z^(count-1)] as (count, L) Montgomery limbs."""
+        if count <= 0:
+            return torch.zeros((0, self.num_limbs), dtype=torch.int32, device=self.device)
+        g = self.encode_int(int(base) % self.spec.modulus)
+        arr = torch.cat([self.one[None], g.expand(count - 1, self.num_limbs)], dim=0)
+        return self.cumprod(arr, axis=0)
+
+    def batch_inv(self, a: torch.Tensor, host_inv) -> torch.Tensor:
+        """Montgomery-trick batch inversion over the leading axis; the total
+        product is inverted on the host by `host_inv` (int -> int)."""
+        flat = a.reshape(-1, self.num_limbs)
+        prefix = self.cumprod(flat, axis=0)
+        suffix = self.cumprod(flat, axis=0, reverse=True)
+        inv_total = self.encode_int(host_inv(self.decode_int(prefix[-1])))
+        ones = self.one[None]
+        p_left = torch.cat([ones, prefix[:-1]], dim=0)
+        s_right = torch.cat([suffix[1:], ones], dim=0)
+        return self.mont_mul(self.mont_mul(p_left, s_right), inv_total).reshape(a.shape)
+
+    # -- conversions --
+
+    def to_mont(self, raw: torch.Tensor) -> torch.Tensor:
+        return self.mont_mul(raw, self._r2)
+
+    def from_mont(self, a: torch.Tensor) -> torch.Tensor:
+        return self.mont_mul(a, self._one_raw)
+
+    def to_u32_limbs(self, a: torch.Tensor) -> torch.Tensor:
+        """Montgomery limbs -> canonical little-endian u32 limbs (int32), on
+        the tensor's device (the MSM scalar format)."""
+        return self.from_mont(a)
+
+    def encode_ints(self, values) -> torch.Tensor:
+        """Canonical Python ints -> Montgomery limbs on the field's device."""
+        spec = self.spec
+        mont = [spec.to_mont(int(v) % spec.modulus) for v in values]
+        if not mont:
+            return torch.zeros((0, self.num_limbs), dtype=torch.int32, device=self.device)
+        return torch.from_numpy(ints_to_limbs(mont, self.num_limbs)).to(self.device)
+
+    def encode_int(self, value: int) -> torch.Tensor:
+        return self._const(self.spec.to_mont(int(value) % self.spec.modulus))
+
+    def decode_ints(self, arr: torch.Tensor) -> list[int]:
+        """Montgomery limbs -> canonical Python ints (from_mont on the device)."""
+        if arr.numel() == 0:
+            return []
+        raw = self.from_mont(arr.reshape(-1, self.num_limbs))
+        return limbs_to_ints(raw.cpu().numpy())
+
+    def decode_int(self, arr: torch.Tensor) -> int:
+        return self.decode_ints(arr.reshape(1, -1))[0]
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    """1 in the lowest limb, broadcastable against x: the +1 of a two's
+    complement subtraction."""
+    u = torch.zeros(x.shape[-1], dtype=x.dtype, device=x.device)
+    u[0] = 1
+    return u
+
+
+@functools.lru_cache(maxsize=None)
+def _field(spec: FieldSpec, device: torch.device) -> TorchField:
+    return TorchField(spec, device)
+
+
+def field(spec: FieldSpec, device) -> TorchField:
+    """The cached TorchField of `spec` on `device`."""
+    return _field(spec, norm_device(device))
