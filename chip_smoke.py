@@ -1,21 +1,33 @@
 #!/usr/bin/env python3
-"""Run the zktpu_torch main path once on one CUDA GPU and check it.
+"""Run the zktpu_torch main paths once on one CUDA GPU and check them.
 
-    python3 chip_smoke.py [--log-n 14]
+    python3 chip_smoke.py [--log-n 14] [--msm-log-n 20]
 
 Phases, one line each:
-  1. device: the card's name and power limit (fails without CUDA);
-  2. kernels: builds csrc/ and holds each CUDA kernel against its plain
-     PyTorch version on the card, bit for bit (mont_mul for Fr, Fq and
-     Goldilocks at N = 2^16 + 3 with the edge values 0, 1, p - 1; proj_add and
-     proj_double at N = 2^14 + 5 with identity, P + P, P + (-P) and padding
-     lanes), with both times;
+  1. device: the card's name and power limit (fails without CUDA); the
+     kernels built from zktpu_torch/csrc (one nvcc per source, in parallel);
+  2. kernels: holds each CUDA kernel against its plain PyTorch version on
+     the card, bit for bit (mont_mul for Fr, Fq and Goldilocks and
+     mont_mul_chain at N = 2^16 + 3 with the edge values 0, 1, p - 1;
+     proj_add, proj_double and proj_madd at N = 2^14 + 5 with identity,
+     P + P, P + (-P), (0, 0) and padding lanes), with both times;
   3. small proof: a 4-gate circuit proved with every tensor path forced,
      once on the GPU and once on the CPU; the proofs must be equal;
-  4. main path: synthetic_mul_chain(log_n) and its SRS on the GPU, prove,
-     verify, and reject a tampered proof; every kernel must have launched.
-Then one JSON line with the kernels, the card's name and power limit, and
-the final {"ok": true, ...} line.  Any failure raises and exits non-zero.
+  4. PLONK path: synthetic_mul_chain(log_n) and its SRS on the GPU, prove,
+     verify, and reject a tampered proof; its kernels must have launched;
+  5. MSM path: zktpu_torch.bench's inputs at 2^msm_log_n (SRS-like points in
+     affine form), msm_proj and msm_affine on the same scalars, equal to each
+     other and to the host's tau-power sum; its kernels must have launched.
+     Then, outside the count, a spot check of the first 64 points against
+     host curve arithmetic, and proj_madd and proj_add against their plain
+     versions on the operands msm_affine gives them at 2^msm_log_n, timed.
+     Last the chained-multiply tool (zktpu_torch.tools.prof_mulkernels) for
+     each field, as a path of its own.
+Launches are set to 0 just before each path (phase 4, the bench, the tool)
+and read just after.  Then one JSON line with the kernels (launches summed
+over the three paths; times and bounds from phase 2's shapes, and for
+proj_madd and proj_add from msm_affine's), the card's name and power limit,
+and the final {"ok": true, ...} line.  Any failure raises and exits non-zero.
 """
 from __future__ import annotations
 
@@ -33,6 +45,20 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 SEED = 20261016
 SRS_SECRET = 0x5EED5EED
+CHAIN = 12
+
+# The card's peak rates for the bounds (NVIDIA H100 SXM at its 700 W limit).
+# Bytes: 3.35 TB/s of HBM3 (data sheet).  Operations: 32-bit integer
+# multiply-adds, 64 per clock per SM on compute capability 9.0 (half the 128
+# FP32 lanes behind the data sheet's 67 TFLOP/s) x 132 SMs x 1.98 GHz.  A
+# 32 x 32 -> 64-bit word product costs two of them (low and high halves).
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 132 * 64 * 1.98e9
+
+
+def _mont_words(limbs: int) -> int:
+    """Word products of one CIOS Montgomery product: a b, then m p and m."""
+    return 2 * limbs * limbs + limbs
 
 
 def _smi() -> str:
@@ -65,28 +91,60 @@ def _compare(name: str, got, want) -> int:
     return int(diff.abs().max()) if diff.numel() else 0
 
 
+def _bound(nbytes: int, word_products: int) -> dict:
+    """The least time for the work: bytes over HBM or multiply-adds over the integer rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * word_products / IMAD_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _record(results: dict, key: str, n: int, err: int, ms: float, plain_ms: float, nbytes: int, words: int,
+            phase: str = "phase 2:") -> None:
+    results[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "n": n, **_bound(nbytes, words)}
+    print(f"{phase} {key} n={n} mismatches=0 kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={results[key]['bound_ms']:.5f} ({results[key]['bound_by']})", flush=True)
+
+
+def _edge_ints(rng, p: int, n: int):
+    a = [0, 1, p - 1, p - 1] + [rng.randrange(p) for _ in range(n - 4)]
+    b = [p - 1, p - 1, p - 1, 1] + [rng.randrange(p) for _ in range(n - 4)]
+    return a, b
+
+
 def phase_kernels(device) -> dict:
     from zktpu_torch.curves import g1
-    from zktpu_torch.curves.g1_kernel import proj_add, proj_add_plain, proj_double, proj_double_plain
+    from zktpu_torch.curves.g1_kernel import (
+        proj_add, proj_add_plain, proj_double, proj_double_plain, proj_madd, proj_madd_plain,
+    )
+    from zktpu_torch.curves.host_curve import G1Affine
     from zktpu_torch.fields.fp import field
-    from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_plain
-    from zktpu_torch.shared import FQ, FR, GOLDILOCKS, G1Affine
+    from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
+    from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_chain, mont_mul_chain_plain, mont_mul_plain
 
     rng = random.Random(SEED)
     results = {}
     n = (1 << 16) + 3
     for spec, key in ((FR, "mont_mul_fr"), (FQ, "mont_mul_fq"), (GOLDILOCKS, "mont_mul_goldilocks")):
         f = field(spec, device)
-        p = spec.modulus
-        a = [0, 1, p - 1, p - 1] + [rng.randrange(p) for _ in range(n - 4)]
-        b = [p - 1, p - 1, p - 1, 1] + [rng.randrange(p) for _ in range(n - 4)]
+        p, L = spec.modulus, spec.num_digits // 2
+        a, b = _edge_ints(rng, p, n)
         A, B = f.encode_ints(a), f.encode_ints(b)
         err = _compare(key, [mont_mul(spec, A, B)], [mont_mul_plain(spec, A, B)])
         assert f.decode_ints(mont_mul(spec, A[:8], B[:8])) == [x * y % p for x, y in zip(a[:8], b[:8])]
         ms = _cuda_ms(lambda: mont_mul(spec, A, B), 50)
         plain_ms = _cuda_ms(lambda: mont_mul_plain(spec, A, B), 5)
-        results[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "n": n}
-        print(f"phase 2: {key} n={n} mismatches=0 kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+        _record(results, key, n, err, ms, plain_ms, 3 * n * 4 * L, n * _mont_words(L))
+
+        # kernel 5 at the same shape: CHAIN products by b in registers
+        got = mont_mul_chain(spec, A, B, CHAIN)
+        err = _compare(f"mont_mul_chain {spec.name}", [got], [mont_mul_chain_plain(spec, A, B, CHAIN)])
+        assert f.decode_ints(got[:8]) == [x * pow(y, CHAIN, p) % p for x, y in zip(a[:8], b[:8])]
+        if spec is FQ:  # the microbench's field: its row in the kernels line
+            ms = _cuda_ms(lambda: mont_mul_chain(spec, A, B, CHAIN), 50)
+            plain_ms = _cuda_ms(lambda: mont_mul_chain_plain(spec, A, B, CHAIN), 3)
+            _record(results, "mont_mul_chain", n, err, ms, plain_ms, 3 * n * 4 * L, CHAIN * n * _mont_words(L))
+        else:
+            print(f"phase 2: mont_mul_chain {spec.name} n={n} chain={CHAIN} mismatches=0", flush=True)
 
     # points: a host chain (i + 1) G, lifted to general Z by one plain add
     n = (1 << 14) + 5
@@ -116,22 +174,46 @@ def phase_kernels(device) -> dict:
         P2[i][4] = 0
     host_p1 = g1.proj_to_affine_host(tuple(t[:4] for t in P1))
     host_p2 = g1.proj_to_affine_host(tuple(t[:4] for t in P2))
+    plane = n * 4 * 12
     got = proj_add(P1, P2)
     err = _compare("proj_add", got, proj_add_plain(P1, P2))
     assert g1.proj_to_affine_host(tuple(t[:4] for t in got)) == [x + y for x, y in zip(host_p1, host_p2)]
     assert all(int(t[4].abs().sum()) == 0 for t in got)
     ms = _cuda_ms(lambda: proj_add(P1, P2), 20)
     plain_ms = _cuda_ms(lambda: proj_add_plain(P1, P2), 3)
-    results["proj_add"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "n": n}
-    print(f"phase 2: proj_add n={n} mismatches=0 kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+    _record(results, "proj_add", n, err, ms, plain_ms, 9 * plane, 12 * n * _mont_words(12))
 
     got = proj_double(P1)
     err = _compare("proj_double", got, proj_double_plain(P1))
     assert g1.proj_to_affine_host(tuple(t[:4] for t in got)) == [x + x for x in host_p1]
     ms = _cuda_ms(lambda: proj_double(P1), 20)
     plain_ms = _cuda_ms(lambda: proj_double_plain(P1), 3)
-    results["proj_double"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "n": n}
-    print(f"phase 2: proj_double n={n} mismatches=0 kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+    _record(results, "proj_double", n, err, ms, plain_ms, 6 * plane, 8 * n * _mont_words(12))
+
+    # mixed add: P1 (general Z) + affine points of the chain, with edge lanes
+    # 0 and 3: P1 = O; 1: A2 = (0, 0); 2: A2 = affine(P1) (doubling);
+    # 5: A2 = -affine(P1); 4: all-zero padding (P1 and A2), which maps to all zero
+    Xa, Ya = (t[perm].clone() for t in g1.proj_to_affine_dev(A))
+    aff = g1.proj_to_affine_dev(tuple(t[[2, 5]] for t in P1))
+    Xa[1] = 0
+    Ya[1] = 0
+    Xa[2], Ya[2] = aff[0][0], aff[1][0]
+    Xa[5], Ya[5] = aff[0][1], fq.neg(aff[1][1])
+    Xa[4] = 0
+    Ya[4] = 0
+    A2 = (Xa, Ya)
+    lanes = [0, 1, 2, 3, 5]
+    host_m1 = g1.proj_to_affine_host(tuple(t[lanes] for t in P1))
+    host_a2 = [G1Affine.identity() if i == 1 else G1Affine(x, y) for i, x, y in
+               zip(lanes, fq.decode_ints(Xa[lanes]), fq.decode_ints(Ya[lanes]))]
+    assert host_a2[2] == host_m1[2] and host_a2[4] == -host_m1[4]
+    got = proj_madd(P1, A2)
+    err = _compare("proj_madd", got, proj_madd_plain(P1, A2))
+    assert g1.proj_to_affine_host(tuple(t[lanes] for t in got)) == [x + y for x, y in zip(host_m1, host_a2)]
+    assert all(int(t[4].abs().sum()) == 0 for t in got)
+    ms = _cuda_ms(lambda: proj_madd(P1, A2), 20)
+    plain_ms = _cuda_ms(lambda: proj_madd_plain(P1, A2), 3)
+    _record(results, "proj_madd", n, err, ms, plain_ms, 8 * plane, 11 * n * _mont_words(12))
     return results
 
 
@@ -152,7 +234,7 @@ def phase_small_proof(device) -> None:
     from zktpu_torch.kzg import Srs
     from zktpu_torch.plonk.prover import generate_proof
     from zktpu_torch.plonk.verifier import verify
-    from zktpu_torch.shared import StdRng
+    from zktpu_torch.transcript.chacha import StdRng
 
     saved = (cfg.HOST_MSM_MAX, cfg.HOST_NTT_MAX, cfg.HOST_POLY_MAX)
     cfg.HOST_MSM_MAX = cfg.HOST_NTT_MAX = cfg.HOST_POLY_MAX = 0
@@ -175,20 +257,45 @@ def phase_small_proof(device) -> None:
     )
 
 
-def phase_main(device, log_n: int) -> dict:
-    from zktpu_torch.curves.g1_kernel import proj_add, proj_double
-    from zktpu_torch.fields.mont_kernel import mont_mul
+def _wrappers():
+    from zktpu_torch.curves.g1_kernel import proj_add, proj_double, proj_madd
+    from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_chain
+
+    return mont_mul, (proj_add, proj_double, proj_madd, mont_mul_chain)
+
+
+def _reset_launches() -> None:
+    mont_mul, others = _wrappers()
+    for name in mont_mul.launches:
+        mont_mul.launches[name] = 0
+    for w in others:
+        w.launches = 0
+
+
+def _read_launches() -> dict:
+    from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
+
+    mont_mul, (proj_add, proj_double, proj_madd, mont_mul_chain) = _wrappers()
+    return {
+        "mont_mul_fr": mont_mul.launches[FR.name],
+        "mont_mul_fq": mont_mul.launches[FQ.name],
+        "mont_mul_goldilocks": mont_mul.launches[GOLDILOCKS.name],
+        "proj_add": proj_add.launches,
+        "proj_double": proj_double.launches,
+        "proj_madd": proj_madd.launches,
+        "mont_mul_chain": mont_mul_chain.launches,
+    }
+
+
+def phase_plonk(device, log_n: int) -> dict:
+    from zktpu_torch.fields.host import FR
     from zktpu_torch.kzg import Srs
     from zktpu_torch.plonk.prover import generate_proof
     from zktpu_torch.plonk.synthetic import synthetic_mul_chain
     from zktpu_torch.plonk.verifier import PlonkVerificationError, verify
-    from zktpu_torch.shared import FQ, FR, StdRng
+    from zktpu_torch.transcript.chacha import StdRng
 
-    counters = (mont_mul.launches, proj_add, proj_double)
-    for name in mont_mul.launches:
-        mont_mul.launches[name] = 0
-    proj_add.launches = proj_double.launches = 0
-
+    _reset_launches()
     t0 = time.perf_counter()
     circuit = synthetic_mul_chain(log_n, seed=1, device=device)
     srs = Srs.new_from_secret(SRS_SECRET, circuit.size, device=device)
@@ -201,13 +308,9 @@ def phase_main(device, log_n: int) -> dict:
     t0 = time.perf_counter()
     verify(circuit, srs, proof)
     t_verify = time.perf_counter() - t0
-    launches = {
-        "mont_mul_fr": counters[0][FR.name],
-        "mont_mul_fq": counters[0][FQ.name],
-        "proj_add": proj_add.launches,
-        "proj_double": proj_double.launches,
-    }
-    assert all(v > 0 for v in launches.values()), f"a kernel of the path never launched: {launches}"
+    launches = _read_launches()
+    path = ("mont_mul_fr", "mont_mul_fq", "proj_add", "proj_double")
+    assert all(launches[k] > 0 for k in path), f"a kernel of the PLONK path never launched: {launches}"
 
     proof.bar_a = FR.add(proof.bar_a, 1)
     try:
@@ -229,25 +332,148 @@ def phase_main(device, log_n: int) -> dict:
     return launches
 
 
+def phase_msm(device, log_n: int):
+    """The MSM path at 2^log_n through zktpu_torch.bench (counted: the setup,
+    the first call and 2 timed calls of each MSM), its checks (not counted),
+    then the microbench as a path of its own (counted).  Returns the launches
+    of both paths and the bench's inputs."""
+    from zktpu_torch import bench
+    from zktpu_torch.curves import g1, msm
+    from zktpu_torch.curves.host_curve import G1Affine
+    from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
+    from zktpu_torch.tools import prof_mulkernels
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    inputs = bench.make_inputs(log_n, device)
+    setup = {k: round(v, 3) for k, v in inputs["seconds"].items()}
+    print(f"phase 5: setup 2^{log_n} points and scalars {time.perf_counter() - t0:.3f} s {json.dumps(setup)}",
+          flush=True)
+    r = bench.run(log_n, iters=2, device=device, inputs=inputs)  # asserts msm_affine == msm_proj
+    launches = _read_launches()
+    path = ("mont_mul_fq", "proj_add", "proj_double", "proj_madd")
+    assert all(launches[k] > 0 for k in path), f"a kernel of the MSM path never launched: {launches}"
+
+    # the whole 2^log_n result against the host: sum s_i tau^i G = (sum s_i tau^i) G
+    t0 = time.perf_counter()
+    e, pw = 0, 1
+    for s in inputs["scalars"]:
+        e = (e + s * pw) % FR.modulus
+        pw = pw * bench.TAU % FR.modulus
+    G = G1Affine.generator()
+    assert r["result"] == G.mul(e), "the 2^n MSM differs from the host's tau-power sum"
+
+    # spot check: the first 64 points against host curve arithmetic
+    m = min(64, r["n"])
+    sc, Xa, Ya = inputs["sc"][:m], inputs["Xa"][:m], inputs["Ya"][:m]
+    pts = g1.proj_to_affine_host(g1.affine_to_proj(Xa, Ya))
+    assert pts == [G.mul(pow(bench.TAU, i, FR.modulus)) for i in range(m)]
+    want = G1Affine.identity()
+    for s, p in zip(inputs["scalars"][:m], pts):
+        want = want + p.mul(s)
+    Z1 = g1.proj_identity((m,), device)[1]  # the Montgomery one
+    c = msm.pick_window(m)
+    got = g1.proj_to_affine_host(tuple(
+        torch.stack([a, b]) for a, b in zip(msm.msm_affine(sc, Xa, Ya, c=c), msm.msm_proj(sc, Xa, Ya, Z1, c=c))
+    ))
+    assert got == [want, want], "the 64-point MSMs differ from host curve arithmetic"
+    t_check = time.perf_counter() - t0
+    print(
+        f"phase 5: msm 2^{log_n} c={r['window']}: msm_proj {r['msm_proj_s']:.4f} s "
+        f"({r['msm_proj_points_per_s']:.1f} points/s), msm_affine {r['msm_affine_s']:.4f} s "
+        f"({r['msm_affine_points_per_s']:.1f} points/s); msm_affine == msm_proj == host tau-power sum, "
+        f"first {m} points == host curve arithmetic (checks {t_check:.2f} s); "
+        f"max_memory_allocated {r['max_memory_allocated']} bytes",
+        flush=True,
+    )
+    print(f"phase 5: launches {json.dumps(launches)}", flush=True)
+
+    _reset_launches()
+    for spec in (FQ, FR, GOLDILOCKS):  # the tool's field is Fq; Fr and Goldilocks for comparison
+        for row in prof_mulkernels.run(1 << 16, CHAIN, spec, device=device):
+            print(f"phase 5: prof_mulkernels {spec.name} base N={row['n']} CHAIN={row['chain']}: "
+                  f"{row['ms_per_mul']:.5f} ms/mul, {row['mmul_per_s']:.2f} Mmul/s, MATCH", flush=True)
+    tool = _read_launches()
+    assert tool["mont_mul_chain"] > 0, f"the microbench never launched its kernel: {tool}"
+    print(f"phase 5: microbench launches {json.dumps(tool)}", flush=True)
+    return launches, tool, inputs
+
+
+def phase_path_shapes(device, inputs: dict, results: dict) -> None:
+    """proj_madd and proj_add against their plain versions on the operands
+    that one msm_affine call on the bench's inputs gives them: the last
+    phase-1 mixed add (every window's blocks at once) and the first step of
+    the block-total scan (curves/scan.py).  The plain versions run in chunks
+    of 2^18 rows (their int64 temporaries) and are timed over all chunks.
+    These launches are outside the counted paths."""
+    from zktpu_torch.curves import msm, scan
+    from zktpu_torch.curves.g1_kernel import proj_add_plain, proj_madd_plain
+
+    real = {"proj_madd": scan.proj_madd, "proj_add": scan.proj_add}
+    seen = {}
+
+    def spy(name, keep_last):
+        def call(*args):
+            if keep_last or name not in seen:
+                seen[name] = args
+            return real[name](*args)
+        return call
+
+    sc, Xa, Ya = inputs["sc"], inputs["Xa"], inputs["Ya"]
+    scan.proj_madd, scan.proj_add = spy("proj_madd", True), spy("proj_add", False)
+    try:
+        msm.msm_affine(sc, Xa, Ya, c=msm.pick_window(sc.shape[0]))
+    finally:
+        scan.proj_madd, scan.proj_add = real["proj_madd"], real["proj_add"]
+
+    chunk = 1 << 18
+    for key, plain, planes, muls in (("proj_madd", proj_madd_plain, 8, 11), ("proj_add", proj_add_plain, 9, 12)):
+        kernel = real[key]
+        a1, a2 = seen[key]
+        shape = tuple(a1[0].shape[:-1])
+        got = [t.reshape(-1, 12) for t in kernel(a1, a2)]
+        f1, f2 = ([t.reshape(-1, 12) for t in a] for a in (a1, a2))
+        n = f1[0].shape[0]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        parts = [plain(tuple(t[i:i + chunk] for t in f1), tuple(t[i:i + chunk] for t in f2))
+                 for i in range(0, n, chunk)]
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err = _compare(f"{key} at msm_affine's operands", got, [torch.cat([p[j] for p in parts]) for j in range(3)])
+        ms = _cuda_ms(lambda: kernel(a1, a2), 20)
+        prev = results[key]["max_abs_err"]
+        _record(results, key, n, max(err, prev), ms, plain_ms, planes * n * 4 * 12, muls * n * _mont_words(12),
+                phase=f"phase 5: at msm_affine's operands {shape}:")
+
+
+# The kernels of the paths.  The Goldilocks product is built and held against
+# its plain version in phase 2, but no ported path multiplies in Goldilocks
+# (zktpu uses it for FRI, not ported), so it has no launches to report.
 _SOURCES = {
     "mont_mul_fr": ("zktpu_torch/csrc/mont_mul.cu", "zktpu/fields/pallas_mont.py:363"),
     "mont_mul_fq": ("zktpu_torch/csrc/mont_mul.cu", "zktpu/fields/pallas_mont.py:363"),
     "proj_add": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/pallas_g1.py:125"),
     "proj_double": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/pallas_g1.py:211"),
+    "proj_madd": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/pallas_g1.py:161"),
+    "mont_mul_chain": ("zktpu_torch/csrc/mont_mul.cu", "tools/prof_mulkernels.py:191"),
 }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--log-n", type=int, default=14, help="log2 of the main-path circuit size")
+    ap.add_argument("--log-n", type=int, default=14, help="log2 of the PLONK path's circuit size")
+    ap.add_argument("--msm-log-n", type=int, default=20, help="log2 of the MSM path's point count")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     from zktpu_torch import cuda_lib
-    from zktpu_torch.shared import pairing_backend
+    from zktpu_torch.curves.native_pairing import backend as pairing_backend
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     smi = _smi()
     print(f"phase 1: device {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()}); "
@@ -260,16 +486,21 @@ def main(argv=None) -> int:
 
     kernels = phase_kernels(device)
     phase_small_proof(device)
-    launches = phase_main(device, args.log_n)
+    plonk = phase_plonk(device, args.log_n)
+    msm_path, tool, inputs = phase_msm(device, args.msm_log_n)
+    phase_path_shapes(device, inputs, kernels)
+    del inputs
 
     rows = []
     for name, (source, replaces) in _SOURCES.items():
         k = kernels[name]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": k["max_abs_err"],
-            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "launches": plonk[name] + msm_path[name] + tool[name], "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a 381-bit Montgomery product or a curve add
         })
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,9 @@ import random
 import pytest
 import torch
 
-from zktpu.curves.host_curve import G1Affine
-from zktpu.fields.host import FQ, FR, GOLDILOCKS
 from zktpu_torch import cuda_lib
+from zktpu_torch.curves.host_curve import G1Affine
+from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
 
 pytestmark = pytest.mark.cuda
 
@@ -81,4 +81,68 @@ def test_msm_on_device_matches_host(device):
         want = want + p.mul(s)
     P = g1.host_points_to_device(pts, device)
     R = msm.msm_proj(g1.scalars_to_u32(scalars, device), *P, c=msm.pick_window(40))
+    assert g1.proj_to_affine_host(tuple(a[None] for a in R)) == [want]
+
+
+@pytest.mark.parametrize("spec", [FR, FQ, GOLDILOCKS], ids=lambda s: s.name)
+def test_mont_mul_chain_kernel_matches_plain(device, spec):
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fields.mont_kernel import mont_mul_chain, mont_mul_chain_plain
+
+    f = field(spec, device)
+    rng = random.Random(2)
+    p = spec.modulus
+    a = [0, 1, p - 1] + [rng.randrange(p) for _ in range(500)]
+    b = [p - 1, 1, p - 1] + [rng.randrange(p) for _ in range(500)]
+    A, B = f.encode_ints(a), f.encode_ints(b)
+    before = mont_mul_chain.launches
+    got = mont_mul_chain(spec, A, B, 12)
+    assert mont_mul_chain.launches == before + 1
+    assert torch.equal(got, mont_mul_chain_plain(spec, A, B, 12))
+    assert f.decode_ints(got) == [x * pow(y, 12, p) % p for x, y in zip(a, b)]
+
+
+def test_proj_madd_kernel_matches_plain(device):
+    from zktpu_torch.curves import g1
+    from zktpu_torch.curves.g1_kernel import proj_add_plain, proj_madd, proj_madd_plain
+    from zktpu_torch.fields.fp import field
+
+    G = G1Affine.generator()
+    fq = field(FQ, device)
+    # lanes: P1 = O; A2 = (0, 0); A2 = P1 (doubling); A2 = -P1; all-zero padding; general
+    p1 = [G1Affine.identity(), G.mul(3), G.mul(5), G.mul(6), G.mul(1), G.mul(9)]
+    a2 = [G.mul(4), G1Affine.identity(), G.mul(5), -G.mul(6), G1Affine.identity(), G.mul(2)]
+    P1 = proj_add_plain(g1.host_points_to_device(p1, device), g1.host_points_to_device([G.mul(7)] * 6, device))
+    P1 = proj_add_plain(P1, g1.host_points_to_device([-G.mul(7)] * 6, device))  # general Z, same points
+    P1 = [t.contiguous() for t in P1]
+    A2 = [fq.encode_ints([0 if q.infinity else getattr(q, c) for q in a2]) for c in ("x", "y")]
+    for t in (*P1, *A2):
+        t[4] = 0
+    before = proj_madd.launches
+    got = proj_madd(P1, A2)
+    assert proj_madd.launches == before + 1
+    for x, y in zip(got, proj_madd_plain(P1, A2)):
+        assert torch.equal(x, y)
+    keep = [0, 1, 2, 3, 5]
+    assert g1.proj_to_affine_host(tuple(t[keep] for t in got)) == [p1[i] + a2[i] for i in keep]
+    assert all(not t[4].any() for t in got)
+
+
+def test_msm_affine_on_device_matches_host(device):
+    from zktpu_torch.curves import g1, msm
+    from zktpu_torch.curves.g1_kernel import proj_madd
+
+    G = G1Affine.generator()
+    rng = random.Random(6)
+    pts = [G.mul(rng.randrange(1, 1 << 10)) for _ in range(40)] + [G1Affine.identity()]
+    scalars = [rng.randrange(FR.modulus) for _ in range(41)]
+    want = G1Affine.identity()
+    for s, p in zip(scalars, pts):
+        want = want + p.mul(s)
+    Xa, Ya = g1.proj_to_affine_dev(g1.host_points_to_device(pts[:40], device))
+    Xa, Ya = (torch.cat([t, torch.zeros_like(t[:1])]) for t in (Xa, Ya))  # (0, 0): the identity
+    sc, Xa, Ya = msm.pad_msm_inputs_affine(g1.scalars_to_u32(scalars, device), Xa, Ya)
+    before = proj_madd.launches
+    R = msm.msm_affine(sc, Xa, Ya, c=msm.pick_window(41))
+    assert proj_madd.launches > before
     assert g1.proj_to_affine_host(tuple(a[None] for a in R)) == [want]

@@ -52,8 +52,8 @@ def test_proj_double_matches_zktpu_words(zktpu_points):
 
 def test_host_points_to_device_matches_zktpu(zktpu_points):
     P, _ = zktpu_points
-    _assert_words_equal(g1.host_points_to_device(PTS1), P)
-    assert g1.proj_to_affine_host(g1.host_points_to_device(PTS1)) == PTS1
+    _assert_words_equal(g1.host_points_to_device(PTS1, device="cpu"), P)
+    assert g1.proj_to_affine_host(g1.host_points_to_device(PTS1, device="cpu")) == PTS1
 
 
 def test_zero_padding_lanes_map_to_zero():
@@ -63,17 +63,17 @@ def test_zero_padding_lanes_map_to_zero():
 
 
 def test_proj_tree_sum_and_broadcast():
-    P = g1.host_points_to_device(PTS1 + PTS2)
+    P = g1.host_points_to_device(PTS1 + PTS2, device="cpu")
     want = G1Affine.identity()
     for pt in PTS1 + PTS2:
         want = want + pt
     assert g1.proj_to_affine_host(tuple(a[None] for a in g1.proj_tree_sum(P))) == [want]
-    one = tuple(a[1:2] for a in g1.host_points_to_device(PTS2))  # (1, 12) against (6, 12)
-    assert g1.proj_to_affine_host(proj_add(g1.host_points_to_device(PTS1), one)) == [a + PTS2[1] for a in PTS1]
+    one = tuple(a[1:2] for a in g1.host_points_to_device(PTS2, device="cpu"))  # (1, 12) against (6, 12)
+    assert g1.proj_to_affine_host(proj_add(g1.host_points_to_device(PTS1, device="cpu"), one)) == [a + PTS2[1] for a in PTS1]
 
 
 def test_fixed_base_mul_matches_host():
     r = host.FR_MODULUS
     scalars = [0, 1, 5, r - 1, 2**200 + 3, 0xDEADBEEF << 96, (1 << 255) % r]
-    got = g1.proj_to_affine_host(g1.fixed_base_mul_u32(G, g1.scalars_to_u32(scalars)))
+    got = g1.proj_to_affine_host(g1.fixed_base_mul_u32(G, g1.scalars_to_u32(scalars, device="cpu")))
     assert got == [G.mul(s) for s in scalars]

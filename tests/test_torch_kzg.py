@@ -24,7 +24,7 @@ R = FR.modulus
 
 @pytest.fixture(scope="module")
 def srs():
-    return Srs.new_from_secret(SECRET, 24)
+    return Srs.new_from_secret(SECRET, 24, device="cpu")
 
 
 def test_srs_matches_host_powers(srs):
@@ -38,7 +38,7 @@ def test_srs_matches_host_powers(srs):
 def test_device_power_scalars_match_host():
     """The scalars of the large-SRS path (powers, then to u32 limbs)."""
     frd = field(FR, "cpu")
-    want = g1.scalars_to_u32([pow(SECRET, i, R) for i in range(40)])
+    want = g1.scalars_to_u32([pow(SECRET, i, R) for i in range(40)], device="cpu")
     assert torch.equal(frd.to_u32_limbs(frd.powers(SECRET, 40)), want)
 
 
@@ -50,7 +50,7 @@ def test_commit_and_open_match_zktpu(srs, tier, monkeypatch):
     coeffs = [rng.randrange(R) for _ in range(20)]
     zscheme = ZScheme(zktpu_srs(SECRET, 24))
     scheme = KzgScheme(srs)
-    poly = Poly.from_ints(FR, coeffs)
+    poly = Poly.from_ints(FR, coeffs, device="cpu")
     cm = scheme.commit(poly)
     assert cm.point == zscheme.commit(ZPoly.from_ints(FR, coeffs)).point
     z = rng.randrange(R)
@@ -65,7 +65,7 @@ def test_commit_and_open_match_zktpu(srs, tier, monkeypatch):
 def test_commit_many_matches_commit(srs, monkeypatch):
     monkeypatch.setattr(cfg, "HOST_MSM_MAX", 0)
     rng = random.Random(9)
-    polys = [Poly.from_ints(FR, [rng.randrange(R) for _ in range(k)]) for k in (5, 17, 0)]
+    polys = [Poly.from_ints(FR, [rng.randrange(R) for _ in range(k)], device="cpu") for k in (5, 17, 0)]
     scheme = KzgScheme(srs)
     got = scheme.commit_many(polys)
     monkeypatch.setattr(cfg, "HOST_MSM_MAX", 64)

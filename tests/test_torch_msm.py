@@ -24,7 +24,7 @@ def _naive(scalars, points):
 
 
 def _msm(scalars, points, c=None):
-    sc = g1.scalars_to_u32(scalars)
+    sc = g1.scalars_to_u32(scalars, device="cpu")
     R = msm.msm_proj(sc, *points, c=msm.pick_window(len(scalars)) if c is None else c)
     return g1.proj_to_affine_host(tuple(a[None] for a in R))[0]
 
@@ -43,7 +43,7 @@ def test_msm_matches_naive_sum(n):
         scalars[0], scalars[1] = 0, R - 1  # zero scalar, p - 1
         pts[3] = pts[2]  # a repeated point
         scalars[3] = scalars[2]
-    assert _msm(scalars, g1.host_points_to_device(pts)) == _naive(scalars, pts)
+    assert _msm(scalars, g1.host_points_to_device(pts, device="cpu")) == _naive(scalars, pts)
 
 
 def test_msm_all_digits_maximal():
@@ -51,7 +51,7 @@ def test_msm_all_digits_maximal():
     and its top window is 0 (every search runs off the end: the identity)."""
     pts = _points(9, seed=2)
     scalars = [(1 << 252) - 1] * 9
-    got = _msm(scalars, g1.host_points_to_device(pts), c=4)
+    got = _msm(scalars, g1.host_points_to_device(pts, device="cpu"), c=4)
     assert got == _naive(scalars, pts)
 
 
@@ -60,8 +60,8 @@ def test_msm_many_matches_single():
     rng = random.Random(8)
     rows = [[rng.randrange(R) for _ in range(12)] for _ in range(3)]
     rows[1] = [0] * 12
-    P = g1.host_points_to_device(pts)
-    sc = torch.stack([g1.scalars_to_u32(r) for r in rows])
+    P = g1.host_points_to_device(pts, device="cpu")
+    sc = torch.stack([g1.scalars_to_u32(r, device="cpu") for r in rows])
     got = g1.proj_to_affine_host(msm.msm_proj_many(sc, *P, c=8))
     assert got == [_naive(r, pts) for r in rows]
 
@@ -71,7 +71,7 @@ def test_window_digits_match_zktpu(c):
     rng = random.Random(c)
     scalars = [rng.randrange(R) for _ in range(20)] + [0, R - 1, (1 << 252) - 1]
     want = np.asarray(zmsm.window_digits(np.asarray(_u32(scalars)), c))
-    got = msm.window_digits(g1.scalars_to_u32(scalars), c).numpy()
+    got = msm.window_digits(g1.scalars_to_u32(scalars, device="cpu"), c).numpy()
     np.testing.assert_array_equal(got, want)
 
 

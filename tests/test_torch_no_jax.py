@@ -1,4 +1,5 @@
-"""zktpu_torch runs without JAX, and never hides a missing device or kernel."""
+"""zktpu_torch runs without JAX and without zktpu, and never hides a missing
+device or kernel."""
 import os
 import pathlib
 import re
@@ -16,23 +17,32 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 
 _PROVE_WITHOUT_JAX = """
 import sys
-sys.modules["jax"] = None  # any import of jax now raises ImportError
+sys.modules["jax"] = None  # any import of jax or zktpu now raises ImportError
+sys.modules["zktpu"] = None
+from zktpu_torch.curves import g1, msm
+from zktpu_torch.curves.host_curve import G1Affine
 from zktpu_torch.kzg import Srs
 from zktpu_torch.plonk.circuit import Circuit
 from zktpu_torch.plonk.prover import generate_proof
 from zktpu_torch.plonk.verifier import verify
-from zktpu_torch.shared import StdRng
+from zktpu_torch.transcript.chacha import StdRng
 c = Circuit()
 c.add_multiplication_gate((1, 0, 3), (0, 0, 3), (0, 3, 9), 0)
 c.add_multiplication_gate((1, 1, 4), (0, 1, 4), (1, 3, 16), 0)
 c.add_multiplication_gate((1, 2, 5), (0, 2, 5), (2, 3, 25), 0)
 c.add_addition_gate((2, 0, 9), (2, 1, 16), (2, 2, 25), 0)
 compiled = c.compile(device="cpu")
+from zktpu_torch.fields.host import FR
+srs_order = FR.modulus
 srs = Srs.new_from_secret(1234567, compiled.size, device="cpu")
 verify(compiled, srs, generate_proof(compiled, srs, StdRng.from_seed_u64(42)))
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
-assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
-print("proved and verified without jax")
+Xa, Ya = srs.g1_affine()  # the SRS's first 5 points, tau^i G, in an affine MSM
+R = msm.msm_affine(g1.scalars_to_u32([3, 0, 5, 1, 9], device="cpu"), Xa[:5], Ya[:5], c=4)
+assert g1.proj_to_affine_host(tuple(a[None] for a in R)) == [G1Affine.generator().mul(
+    sum(s * pow(1234567, i, srs_order) for i, s in enumerate([3, 0, 5, 1, 9])))]
+loaded = sorted(m for m in sys.modules if m in ("jax", "zktpu") or m.startswith(("jax.", "jaxlib", "zktpu.")))
+assert loaded == ["jax", "zktpu"] and sys.modules["jax"] is None and sys.modules["zktpu"] is None, loaded
+print("proved, verified and ran msm_affine without jax or zktpu")
 """
 
 
@@ -43,18 +53,17 @@ def test_prove_and_verify_with_jax_blocked():
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    assert "proved and verified without jax" in out.stdout
+    assert "proved, verified and ran msm_affine without jax or zktpu" in out.stdout
 
 
 def test_no_jax_import_in_the_port():
-    """No jax import anywhere in the port; zktpu's host layer only through
-    zktpu_torch/shared.py."""
+    """No import of jax or of zktpu anywhere in the port or chip_smoke.py."""
     jax_import = re.compile(r"^\s*(import|from)\s+jax\b", re.MULTILINE)
     zktpu_import = re.compile(r"^\s*(import|from)\s+zktpu(\.|\s)", re.MULTILINE)
     files = sorted((REPO / "zktpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert [str(p.relative_to(REPO)) for p in files if jax_import.search(p.read_text())] == []
     via_zktpu = [str(p.relative_to(REPO)) for p in files if zktpu_import.search(p.read_text())]
-    assert via_zktpu == ["zktpu_torch/shared.py"]
+    assert via_zktpu == []
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -76,12 +85,59 @@ def test_kernel_load_without_device_raises(monkeypatch):
 
 def test_wrapper_on_a_non_cpu_tensor_launches_or_raises():
     """A tensor that is not on the CPU never reaches the plain version."""
-    from zktpu.fields.host import FR
-    from zktpu_torch.fields.mont_kernel import mont_mul
+    from zktpu_torch.curves.g1_kernel import proj_madd
+    from zktpu_torch.fields.host import FQ, FR
+    from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_chain
 
     a = torch.zeros((4, 8), dtype=torch.int32, device="meta")
     with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
         mont_mul(FR, a, a)
+    a = torch.zeros((4, 12), dtype=torch.int32, device="meta")
+    with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
+        mont_mul_chain(FQ, a, a, 12)
+    with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
+        proj_madd((a, a, a), (a, a))
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """device=None means the current CUDA device; without one each entry point
+    raises and names it, and never falls back to the CPU."""
+    from zktpu_torch import bench
+    from zktpu_torch.curves import g1
+    from zktpu_torch.fields.fp import NoCudaDeviceError
+    from zktpu_torch.fields.host import FR
+    from zktpu_torch.kzg import Srs
+    from zktpu_torch.plonk.circuit import Circuit
+    from zktpu_torch.plonk.synthetic import synthetic_mul_chain
+    from zktpu_torch.poly.domain import Radix2Domain, get_domain
+    from zktpu_torch.poly.poly import Poly
+    from zktpu_torch.tools import prof_mulkernels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    circuit = Circuit()
+    circuit.add_multiplication_gate((1, 0, 3), (0, 0, 3), (0, 3, 9), 0)
+    circuit.add_multiplication_gate((1, 1, 4), (0, 1, 4), (1, 3, 16), 0)
+    circuit.add_multiplication_gate((1, 2, 5), (0, 2, 5), (2, 3, 25), 0)
+    circuit.add_addition_gate((2, 0, 9), (2, 1, 16), (2, 2, 25), 0)
+    calls = [
+        circuit.compile,
+        lambda: synthetic_mul_chain(2),
+        lambda: Srs.new_from_secret(5, 4),
+        lambda: Srs.new(4),
+        lambda: Radix2Domain(FR, 8),
+        lambda: get_domain(FR, 8),
+        lambda: Poly.from_ints(FR, [1, 2]),
+        lambda: Poly.zero(FR),
+        lambda: Poly.constant(FR, 3),
+        lambda: g1.proj_identity((2,)),
+        lambda: g1.host_points_to_device([]),
+        lambda: g1.scalars_to_u32([1]),
+        lambda: bench.main(["--log-n", "4"]),
+        lambda: prof_mulkernels.main(["16"]),
+    ]
+    for call in calls:
+        with pytest.raises(NoCudaDeviceError, match="CUDA device"):
+            call()
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

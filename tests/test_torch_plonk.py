@@ -69,8 +69,8 @@ def reference():
 def test_forced_tensor_paths_match_zktpu(reference, monkeypatch):
     for name in ("HOST_MSM_MAX", "HOST_NTT_MAX", "HOST_POLY_MAX"):
         monkeypatch.setattr(cfg, name, 0)
-    compiled = pythagorean(Circuit).compile()
-    srs = Srs.new_from_secret(SECRET, compiled.size)
+    compiled = pythagorean(Circuit).compile(device="cpu")
+    srs = Srs.new_from_secret(SECRET, compiled.size, device="cpu")
     assert srs.g1_points_host() == reference[1].g1_points_host()
     proof = generate_proof(compiled, srs, StdRng.from_seed_u64(SEED), force="coset")
     assert_same_proof(proof, reference[2])
@@ -79,8 +79,8 @@ def test_forced_tensor_paths_match_zktpu(reference, monkeypatch):
 
 @pytest.fixture(scope="module")
 def port_setup():
-    compiled = pythagorean(Circuit).compile()
-    return compiled, Srs.new_from_secret(SECRET, compiled.size)
+    compiled = pythagorean(Circuit).compile(device="cpu")
+    return compiled, Srs.new_from_secret(SECRET, compiled.size, device="cpu")
 
 
 @pytest.mark.parametrize("quotient", ["coeff", "coset_8n", "coset_4n"])
@@ -125,8 +125,8 @@ def test_tampered_proof_rejected(port_setup):
 def test_bad_witness_raises(quotient, monkeypatch):
     if quotient == "coset_4n":
         monkeypatch.setattr(cfg, "QUOTIENT_8N_MAX_N", 4)
-    compiled = pythagorean(Circuit, c_val=20).compile()
-    srs = Srs.new_from_secret(999, compiled.size)
+    compiled = pythagorean(Circuit, c_val=20).compile(device="cpu")
+    srs = Srs.new_from_secret(999, compiled.size, device="cpu")
     force = "coeff" if quotient == "coeff" else "coset"
     with pytest.raises(AssertionError):
         generate_proof(compiled, srs, StdRng.from_seed_u64(1), force=force)

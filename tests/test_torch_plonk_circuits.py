@@ -39,8 +39,8 @@ def example(cls):
 def test_proof_matches_zktpu_and_verifies(build, secret, seed):
     zc = build(ZCircuit).compile()
     want = zktpu_generate_proof(zc, zktpu_srs(secret, zc.size), StdRng.from_seed_u64(seed))
-    compiled = build(Circuit).compile()
-    srs = Srs.new_from_secret(secret, compiled.size)
+    compiled = build(Circuit).compile(device="cpu")
+    srs = Srs.new_from_secret(secret, compiled.size, device="cpu")
     proof = generate_proof(compiled, srs, StdRng.from_seed_u64(seed))
     assert_same_proof(proof, want)
     verify(compiled, srs, proof)

@@ -24,7 +24,7 @@ def test_transforms_match_zktpu_host_transform(spec, log_n):
     rng = random.Random(log_n)
     vals = [rng.randrange(spec.modulus) for _ in range(n)]
     ref = zktpu_domain(spec, n)
-    dom = get_domain(spec, n)
+    dom = get_domain(spec, n, device="cpu")
     f = field(spec, "cpu")
     x = f.encode_ints(vals)
     assert f.decode_ints(dom.fft(x, force_device=True)) == ref._host_transform(vals, inverse=False)
@@ -68,7 +68,7 @@ def test_poly_ops_match_host_ints(tier):
     rng = random.Random(11)
     a = [rng.randrange(P) for _ in range(21)]
     b = [rng.randrange(P) for _ in range(9)] + [0, 0]  # trailing zeros are trimmed
-    pa, pb = Poly.from_ints(FR, a), Poly.from_ints(FR, b)
+    pa, pb = Poly.from_ints(FR, a, device="cpu"), Poly.from_ints(FR, b, device="cpu")
     assert len(pb) == 9 and pb.degree == 8
     assert _ints(pa + pb) == [(x + y) % P for x, y in zip(a, b + [0] * 12)]
     assert _ints(pa - pb) == [(x - y) % P for x, y in zip(a, b + [0] * 12)]
@@ -82,7 +82,7 @@ def test_poly_ops_match_host_ints(tier):
     )
     z = rng.randrange(P)
     assert pa.evaluate(z) == sum(c * pow(z, i, P) for i, c in enumerate(a)) % P
-    assert evaluate_many([pa, pb, Poly.zero(FR)], z) == [pa.evaluate(z), pb.evaluate(z), 0]
+    assert evaluate_many([pa, pb, Poly.zero(FR, device="cpu")], z) == [pa.evaluate(z), pb.evaluate(z), 0]
 
 
 def test_divisions_match_host_ints(tier):
@@ -91,16 +91,16 @@ def test_divisions_match_host_ints(tier):
     q = [rng.randrange(P) for _ in range(19)]
     r = [rng.randrange(P) for _ in range(5)]
     # p = q (X^n - 1) + r
-    num = Poly.from_ints(FR, q).mul_by_vanishing(n) + Poly.from_ints(FR, r)
+    num = Poly.from_ints(FR, q, device="cpu").mul_by_vanishing(n) + Poly.from_ints(FR, r, device="cpu")
     qq, rr = num.divide_by_vanishing(n)
     assert _ints(qq) == q and _ints(rr) == r
     z = rng.randrange(P)
     c = [rng.randrange(P) for _ in range(30)]
-    pc = Poly.from_ints(FR, c)
+    pc = Poly.from_ints(FR, c, device="cpu")
     quo, rem = pc.divide_by_linear(z)
     assert rem == pc.evaluate(z)
-    lin = Poly.from_ints(FR, [(-z) % P, 1])
-    assert (quo * lin + Poly.constant(FR, rem)) == pc
+    lin = Poly.from_ints(FR, [(-z) % P, 1], device="cpu")
+    assert (quo * lin + Poly.constant(FR, rem, device="cpu")) == pc
     quo0, rem0 = pc.divide_by_linear(0)
     assert rem0 == c[0] and _ints(quo0) == c[1:]
 
@@ -108,12 +108,12 @@ def test_divisions_match_host_ints(tier):
 def test_large_evaluate_and_poly_from_evals():
     rng = random.Random(13)
     c = [rng.randrange(P) for _ in range(300)]  # above the host Horner tier
-    pc = Poly.from_ints(FR, c)
+    pc = Poly.from_ints(FR, c, device="cpu")
     z = rng.randrange(P)
     want = sum(x * pow(z, i, P) for i, x in enumerate(c)) % P
     assert pc.evaluate(z) == want
     assert evaluate_many([pc, pc.scale(2)], z) == [want, 2 * want % P]
-    dom = get_domain(FR, 16)
+    dom = get_domain(FR, 16, device="cpu")
     f = field(FR, "cpu")
     vals = [rng.randrange(P) for _ in range(16)]
     interp = poly_from_evals(dom, f.encode_ints(vals))

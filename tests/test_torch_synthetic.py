@@ -27,7 +27,7 @@ def zktpu_circuit():
 
 def test_synthetic_circuit_matches_zktpu(zktpu_circuit):
     want = zktpu_circuit
-    got = synthetic_mul_chain(4, seed=3)
+    got = synthetic_mul_chain(4, seed=3, device="cpu")
     assert got.size == want.size == 16
     for name in _POLYS:
         a, b = getattr(got.gate_constraints, name), getattr(want.gate_constraints, name)
@@ -47,8 +47,8 @@ def test_grand_product_matches_zktpu(zktpu_circuit):
     from zktpu.plonk.prover import compute_acc as zktpu_compute_acc
     from zktpu.poly.domain import get_domain as zktpu_domain
 
-    circuit = synthetic_mul_chain(4, seed=3)
-    dom = get_domain(circuit.gate_constraints.f_ax.spec, circuit.size)
+    circuit = synthetic_mul_chain(4, seed=3, device="cpu")
+    dom = get_domain(circuit.gate_constraints.f_ax.spec, circuit.size, device="cpu")
     got = compute_acc(12345, 678, dom, circuit)
     want = zktpu_compute_acc(12345, 678, zktpu_domain(dom.spec, circuit.size), zktpu_circuit)
     for a, b in zip(got, want):
@@ -57,8 +57,8 @@ def test_grand_product_matches_zktpu(zktpu_circuit):
 
 
 def test_synthetic_prove_verify_32_gates():
-    circuit = synthetic_mul_chain(5, seed=3)
-    srs = Srs.new_from_secret(0x5EED5EED, circuit.size)
+    circuit = synthetic_mul_chain(5, seed=3, device="cpu")
+    srs = Srs.new_from_secret(0x5EED5EED, circuit.size, device="cpu")
     timings = {}
     proof = generate_proof(circuit, srs, StdRng.from_seed_u64(42), timings=timings, force="coset")
     verify(circuit, srs, proof)
@@ -67,12 +67,12 @@ def test_synthetic_prove_verify_32_gates():
 
 
 def test_synthetic_bad_witness_raises_on_coset_path():
-    circuit = synthetic_mul_chain(3, seed=3)
+    circuit = synthetic_mul_chain(3, seed=3, device="cpu")
     gc = circuit.gate_constraints
     a_e = gc.evals["a"].clone()
     a_e[5] = a_e[6]  # another field element: a_5 b_5 != c_5
     gc.evals["a"] = a_e
-    gc.f_ax = poly_from_evals(get_domain(gc.f_ax.spec, circuit.size), a_e)
-    srs = Srs.new_from_secret(7, circuit.size)
+    gc.f_ax = poly_from_evals(get_domain(gc.f_ax.spec, circuit.size, device="cpu"), a_e)
+    srs = Srs.new_from_secret(7, circuit.size, device="cpu")
     with pytest.raises(AssertionError, match="has remainder"):
         generate_proof(circuit, srs, StdRng.from_seed_u64(7), force="coset")

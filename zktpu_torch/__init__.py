@@ -1,15 +1,20 @@
 """zktpu_torch — the zktpu proof stack on PyTorch and hand-written CUDA kernels.
 
 A port of the KZG -> PLONK prove -> PLONK verify path of :mod:`zktpu` (the
-JAX/Pallas reference package beside it) to PyTorch on an NVIDIA Hopper GPU.
-Bulk field and curve arithmetic runs on tensors; the three hot kernels (the
-batched Montgomery product and the complete projective G1 add and double) are
-CUDA C++ in ``zktpu_torch/csrc/``, built on first use.  Every kernel has a
-plain PyTorch twin in the same module, which runs for tensors on the CPU.
+JAX/Pallas reference package beside it) to PyTorch on an NVIDIA Hopper GPU,
+with the affine-point MSM and a chained-multiply microbench.  Bulk field and
+curve arithmetic runs on tensors; the hot kernels (the batched and the
+chained Montgomery product, the complete projective G1 add and double, and
+the mixed add) are CUDA C++ in ``zktpu_torch/csrc/``, built on first use.
+Every kernel has a plain PyTorch twin in the same module, which runs for
+tensors on the CPU.  Entry points run on the current CUDA device unless the
+caller passes ``device="cpu"``.
 
-The pure-Python host layer (field constants, host curve arithmetic, pairing,
-transcripts, gates) is shared with ``zktpu`` rather than copied: those modules
-import no JAX.  This package itself never imports JAX.
+The pure-Python host layer (field constants, host curve arithmetic, pairing
+and its C++ library, transcripts, gates) is the port's own copy of
+``zktpu``'s (``fields/host.py``, ``curves/host_curve.py``, ``curves/pairing.py``,
+``curves/native_pairing.py``, ``transcript/``, ``plonk/gate.py``).  This package
+imports neither JAX nor ``zktpu``.
 
 Representation: a field element is ``(..., L)`` little-endian 32-bit limbs in
 a ``torch.int32`` tensor (u32 bit patterns), Montgomery form with the same

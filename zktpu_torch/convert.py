@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .shared import FQ, FR, G2Affine
+from .curves.host_curve import G2Affine
+from .fields.host import FQ, FR
 from .kzg.srs import Srs
 from .plonk.constraint import CompiledCircuit, CopyConstraints, GateConstraints
 from .poly.poly import Poly

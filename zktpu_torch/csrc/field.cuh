@@ -113,6 +113,14 @@ __device__ __forceinline__ void fdbl(uint32_t* out, const uint32_t* a, const Fie
 }
 
 template <int L>
+__device__ __forceinline__ bool is_zero(const uint32_t* a) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int j = 0; j < L; ++j) acc |= a[j];
+  return acc == 0;
+}
+
+template <int L>
 __device__ __forceinline__ void copy_limbs(uint32_t* dst, const uint32_t* src) {
 #pragma unroll
   for (int j = 0; j < L; ++j) dst[j] = src[j];

@@ -6,6 +6,12 @@
 // 2 (Goldilocks).  Operands broadcast by a modulo on the row index, which
 // covers the shapes the port uses (a full batch times one constant, or a
 // (K, m) batch times an (m,) table).  Plain C interface, loaded with ctypes.
+//
+// Kernel 5, the chained product, replaces the base variant of
+// tools/prof_mulkernels.py::make_chain: each thread loads a and b once, runs
+// a = a * b * R^{-1} `chain` times in registers and writes a once, so its
+// time measures the CIOS multiply body and not memory or launches.  It is
+// bound by 32-bit integer multiply-adds (about 2 L^2 + L per product).
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -36,7 +42,36 @@ static int launch_mont_mul(const uint32_t* p, uint32_t pinv, const void* a, int6
   return (int)cudaGetLastError();
 }
 
-// Returns cudaGetLastError() after the launch, or -1 for an unsupported width.
+template <int L>
+__global__ void __launch_bounds__(256)
+mont_mul_chain_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                      uint32_t* __restrict__ out, int64_t n, int chain, FieldConsts<L> f) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[L], y[L], r[L];
+  copy_limbs<L>(x, a + i * L);
+  copy_limbs<L>(y, b + i * L);
+#pragma unroll 1
+  for (int k = 0; k < chain; ++k) {
+    fmul<L>(r, x, y, f);
+    copy_limbs<L>(x, r);
+  }
+  copy_limbs<L>(out + i * L, x);
+}
+
+template <int L>
+static int launch_mont_mul_chain(const uint32_t* p, uint32_t pinv, const void* a, const void* b,
+                                 void* out, int64_t n, int chain, cudaStream_t stream) {
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  mont_mul_chain_kernel<L><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      static_cast<uint32_t*>(out), n, chain, make_consts<L>(p, pinv));
+  return (int)cudaGetLastError();
+}
+
+// Each entry point returns cudaGetLastError() after the launch, or -1 for an
+// unsupported width.
 extern "C" int zk_mont_mul(int device, int limbs, const uint32_t* p, uint32_t pinv,
                            const void* a, int64_t na, const void* b, int64_t nb, void* out,
                            int64_t n, void* stream) {
@@ -50,6 +85,24 @@ extern "C" int zk_mont_mul(int device, int limbs, const uint32_t* p, uint32_t pi
       return launch_mont_mul<8>(p, pinv, a, na, b, nb, out, n, s);
     case 12:
       return launch_mont_mul<12>(p, pinv, a, na, b, nb, out, n, s);
+    default:
+      return -1;
+  }
+}
+
+extern "C" int zk_mont_mul_chain(int device, int limbs, const uint32_t* p, uint32_t pinv,
+                                 const void* a, const void* b, void* out, int64_t n, int chain,
+                                 void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (limbs) {
+    case 2:
+      return launch_mont_mul_chain<2>(p, pinv, a, b, out, n, chain, s);
+    case 8:
+      return launch_mont_mul_chain<8>(p, pinv, a, b, out, n, chain, s);
+    case 12:
+      return launch_mont_mul_chain<12>(p, pinv, a, b, out, n, chain, s);
     default:
       return -1;
   }

@@ -1,8 +1,8 @@
 """Build and load the CUDA kernels of ``zktpu_torch/csrc/``.
 
-The sources are compiled on first use with ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the
-build takes seconds).  The library lands in ``build/zktpu_torch/`` at the
+The sources are compiled on first use with ``nvcc`` (one process per source,
+in parallel) and linked into one shared library with a plain C interface,
+loaded with ``ctypes`` (no PyTorch headers, so the build takes seconds).  The library lands in ``build/zktpu_torch/`` at the
 root of the checkout, named by a hash of the sources and flags, so a changed
 source is rebuilt.  There is no fallback: without a CUDA device or ``nvcc``
 the loader raises and names what is missing.
@@ -20,7 +20,7 @@ import sys
 import numpy as np
 import torch
 
-from .shared import FieldSpec
+from .fields.host import FieldSpec
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -30,7 +30,7 @@ HEADERS = ("field.cuh", "g1.cuh")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -42,6 +42,10 @@ _SIGNATURES = {
     "zk_proj_add": [ctypes.c_int, _P, ctypes.c_uint32] + [_P] * 9 + [_I64, _P],
     # device, p (host), pinv, x1, y1, z1, x3, y3, z3, n, stream
     "zk_proj_double": [ctypes.c_int, _P, ctypes.c_uint32] + [_P] * 6 + [_I64, _P],
+    # device, p (host), pinv, x1, y1, z1, x2, y2, x3, y3, z3, n, stream
+    "zk_proj_madd": [ctypes.c_int, _P, ctypes.c_uint32] + [_P] * 8 + [_I64, _P],
+    # device, limbs, p (host), pinv, a, b, out, n, chain, stream
+    "zk_mont_mul_chain": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _P, _I64, ctypes.c_int, _P],
 }
 
 
@@ -86,15 +90,35 @@ def build(verbose: bool = False) -> str:
         )
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="", file=sys.stderr)
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    # one nvcc per source, all started together, then one link
+    objs = [f"{tmp}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, os.path.join(CSRC_DIR, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for src, obj in zip(SOURCES, objs)
+    ]
+    try:
+        errs = [p.communicate()[1] for p in procs]
+        for p, err in zip(procs, errs):
+            rc = p.returncode
+            if rc != 0:
+                raise KernelBuildError(f"nvcc failed ({rc}):\n{err}")
+            if verbose:
+                print(err, end="", file=sys.stderr)
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise KernelBuildError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, path)
     return path
 

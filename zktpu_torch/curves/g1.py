@@ -1,8 +1,10 @@
 """BLS12-381 G1 over limb tensors (counterpart of zktpu/curves/g1.py).
 
 Points are homogeneous projective triples (X, Y, Z) of (..., 12) Fq
-Montgomery limb tensors; the identity is (0 : 1 : 0).  ``proj_add`` and
-``proj_double`` are kernels 2 and 3 for CUDA tensors (curves/g1_kernel.py).
+Montgomery limb tensors; the identity is (0 : 1 : 0).  Affine points are
+(X, Y) pairs with the identity (0, 0).  ``proj_add``, ``proj_double`` and
+``proj_madd`` are kernels 2, 3 and 4 for CUDA tensors (curves/g1_kernel.py).
+Functions that make tensors take ``device=None``: the current CUDA device.
 """
 from __future__ import annotations
 
@@ -10,13 +12,14 @@ import functools
 
 import torch
 
-from ..shared import FQ, G1Affine
+from .host_curve import G1Affine
+from ..fields.host import FQ
 from ..fields.fp import field, ints_to_limbs, norm_device
 from ..fields.limbs import widen
-from .g1_kernel import LIMBS, proj_add, proj_double  # noqa: F401 (re-exported)
+from .g1_kernel import LIMBS, proj_add, proj_double, proj_madd  # noqa: F401 (re-exported)
 
 
-def proj_identity(shape=(), device="cpu"):
+def proj_identity(shape=(), device=None):
     """(0 : 1 : 0) with batch `shape`; Y is the Montgomery one."""
     fq = field(FQ, device)
     z = torch.zeros(tuple(shape) + (LIMBS,), dtype=torch.int32, device=fq.device)
@@ -33,7 +36,7 @@ def affine_to_proj(x: torch.Tensor, y: torch.Tensor, inf_mask=None):
     return torch.where(m, zero, x), torch.where(m, one, y), torch.where(m, zero, one)
 
 
-def host_points_to_device(points: list[G1Affine], device="cpu"):
+def host_points_to_device(points: list[G1Affine], device=None):
     fq = field(FQ, device)
     xs = fq.encode_ints([p.x for p in points])
     ys = fq.encode_ints([p.y for p in points])
@@ -66,6 +69,20 @@ def proj_to_affine_host(P) -> list[G1Affine]:
     return out
 
 
+def proj_to_affine_dev(P):
+    """Projective (N, 12) triple -> affine (Xa, Ya) planes on the same device.
+
+    One Montgomery-trick batch inversion (log-depth cumulative products and
+    one host inversion of the total), then two products; the counterpart of
+    zktpu/curves/g1.py::proj_to_affine_dev.  Every Z must be nonzero (no
+    identity points), as in an SRS power table."""
+    X, Y, Z = P
+    fq = field(FQ, Z.device)
+    p = FQ.modulus
+    zinv = fq.batch_inv(Z, host_inv=lambda v: pow(v, -1, p))
+    return fq.mont_mul(X, zinv), fq.mont_mul(Y, zinv)
+
+
 # ---------------------------------------------------------------------------
 # Fixed-base batch scalar multiplication (SRS generation)
 # ---------------------------------------------------------------------------
@@ -92,7 +109,7 @@ def _fixed_base_tables(base: G1Affine, window: int, device: torch.device):
     return affine_to_proj(fq.encode_ints(xs).reshape(shape), fq.encode_ints(ys).reshape(shape), inf)
 
 
-def scalars_to_u32(scalars, device="cpu") -> torch.Tensor:
+def scalars_to_u32(scalars, device=None) -> torch.Tensor:
     """Python ints (< 2^256) -> (N, 8) little-endian u32 limbs (int32 bit patterns)."""
     arr = ints_to_limbs([int(s) for s in scalars], 8)
     return torch.from_numpy(arr).to(norm_device(device))

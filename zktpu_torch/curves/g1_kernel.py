@@ -1,11 +1,14 @@
-"""Kernels 2 and 3: the fused complete projective G1 add and double, and
-their plain PyTorch versions.
+"""Kernels 2, 3 and 4: the fused complete projective G1 add, double and
+mixed add, and their plain PyTorch versions.
 
-Replace zktpu/curves/pallas_g1.py::_proj_add_call and _proj_double_call
-(entry points proj_add_pallas and proj_double_pallas).  Points are
-homogeneous projective triples of (..., 12) Fq Montgomery limb tensors; the
-identity is (0 : 1 : 0).  The formulas are RCB 2015/1060 Alg. 7 (add, 12M)
-and Alg. 9 (double, 6M + 2S) for a = 0, complete, with no branch.
+Replace zktpu/curves/pallas_g1.py::_proj_add_call, _proj_double_call and
+_proj_madd_call (entry points proj_add_pallas, proj_double_pallas and
+proj_madd_pallas).  Points are homogeneous projective triples of (..., 12)
+Fq Montgomery limb tensors; the identity is (0 : 1 : 0).  The formulas are
+RCB 2015/1060 Alg. 7 (add, 12M), Alg. 8 (mixed add, 11M: projective plus
+affine with Z2 = 1) and Alg. 9 (double, 6M + 2S) for a = 0, complete, with
+no branch.  The mixed add's affine identity is (0, 0), off the curve, which
+its final select handles; zero-padded rows therefore come out as P1.
 
 The CUDA kernels are csrc/g1.cu (formulas in csrc/g1.cuh).  On the H100 they
 are bound by registers and occupancy: one thread holds about 15 live Fq
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ..shared import FQ
+from ..fields.host import FQ
 from .. import cuda_lib
 from ..fields.fp import field
 from ..fields.mont_kernel import mont_mul_plain
@@ -69,6 +72,29 @@ def proj_add_formula(ops, P1, P2):
     return X3, Y3, Z3
 
 
+def proj_madd_formula(ops, P1, A2):
+    """RCB Alg. 8 (a = 0, Z2 = 1): 11M mixed add, the same operation
+    sequence as zktpu/curves/g1.py::_proj_madd_jnp."""
+    X1, Y1, Z1 = P1
+    X2, Y2 = A2
+    mul, add, sub = ops.mul, ops.add, ops.sub
+    t0 = mul(X1, X2)
+    t1 = mul(Y1, Y2)
+    t3 = sub(mul(add(X1, Y1), add(X2, Y2)), add(t0, t1))  # X1Y2 + X2Y1
+    t4 = add(Y1, mul(Y2, Z1))  # Y1 + Y2Z1
+    t5 = add(X1, mul(X2, Z1))  # X1 + X2Z1
+    t0 = add(ops.dbl(t0), t0)  # 3 X1X2
+    t2 = _mul12(ops, Z1)  # 3b Z1
+    Zc = add(t1, t2)
+    t1 = sub(t1, t2)
+    t5 = _mul12(ops, t5)
+    X3 = sub(mul(t3, t1), mul(t4, t5))
+    Y3 = add(mul(t1, Zc), mul(t5, t0))
+    Z3 = add(mul(Zc, t4), mul(t0, t3))
+    inf2 = ((X2 == 0).all(-1) & (Y2 == 0).all(-1))[..., None]  # the affine identity (0, 0)
+    return torch.where(inf2, X1, X3), torch.where(inf2, Y1, Y3), torch.where(inf2, Z1, Z3)
+
+
 def proj_double_formula(ops, P):
     """RCB Alg. 9 (a = 0): complete projective doubling, 6M + 2S + 1 x (3b)."""
     X, Y, Z = P
@@ -93,6 +119,10 @@ def proj_add_plain(P1, P2):
 
 def proj_double_plain(P):
     return proj_double_formula(_PlainOps(P[0].device), P)
+
+
+def proj_madd_plain(P1, A2):
+    return proj_madd_formula(_PlainOps(P1[0].device), P1, A2)
 
 
 def _flatten(name: str, coords):
@@ -146,3 +176,25 @@ def proj_double(P):
 
 
 proj_double.launches = 0
+
+
+def proj_madd(P1, A2):
+    """Mixed add of a projective (..., 12) triple and an affine (..., 12)
+    pair, broadcastable; (0, 0) is the affine identity."""
+    if all(t.device.type == "cpu" for t in (*P1, *A2)):
+        return proj_madd_plain(P1, A2)
+    flat, outs, n = _flatten("proj_madd", (*P1, *A2))
+    if n:
+        lib = cuda_lib.load()
+        p, pinv = cuda_lib.field_consts(FQ)
+        rc = lib.zk_proj_madd(
+            flat[0].device.index, p.ctypes.data, pinv,
+            *(t.data_ptr() for t in flat), *(t.data_ptr() for t in outs), n,
+            cuda_lib.stream_of(outs[0]),
+        )
+        cuda_lib.check(rc, "proj_madd")
+        proj_madd.launches += 1
+    return outs
+
+
+proj_madd.launches = 0

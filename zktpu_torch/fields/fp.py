@@ -13,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-from ..shared import FieldSpec
+from .host import FieldSpec
 from .limbs import MASK32, narrow, resolve, widen
 from .mont_kernel import mont_mul as _mont_mul
 
@@ -33,7 +33,21 @@ def limbs_to_ints(arr) -> list[int]:
     return [int.from_bytes(buf[i : i + nbytes], "little") for i in range(0, len(buf), nbytes)]
 
 
-def norm_device(device) -> torch.device:
+class NoCudaDeviceError(RuntimeError):
+    """An entry point was asked for the default device and no CUDA device is present."""
+
+
+def norm_device(device=None) -> torch.device:
+    """The device a call runs on: `device` if given, else the current CUDA
+    device.  Without a CUDA device the default raises; it never falls back
+    to the CPU (pass device="cpu" for that)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise NoCudaDeviceError(
+                "zktpu_torch: no CUDA device is available for the default device; "
+                "pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
     d = torch.device(device)
     if d.type == "cuda" and d.index is None:
         d = torch.device("cuda", torch.cuda.current_device())
@@ -184,6 +198,6 @@ def _field(spec: FieldSpec, device: torch.device) -> TorchField:
     return TorchField(spec, device)
 
 
-def field(spec: FieldSpec, device) -> TorchField:
+def field(spec: FieldSpec, device=None) -> TorchField:
     """The cached TorchField of `spec` on `device`."""
     return _field(spec, norm_device(device))

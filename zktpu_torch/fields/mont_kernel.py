@@ -1,4 +1,5 @@
-"""Kernel 1: the batched Montgomery product, and its plain PyTorch version.
+"""Kernel 1: the batched Montgomery product, kernel 5: the chained product,
+and their plain PyTorch versions.
 
 Replaces zktpu/fields/pallas_mont.py::_mont_mul_call (entry point
 mont_mul_pallas): out = a * b * R^{-1} mod p, canonical, for Fq (12 limbs),
@@ -16,6 +17,11 @@ sum, m = t * (-p^{-1}) mod R and t + m p as products with constant Toeplitz
 matrices, and carry resolution in a fixed number of ops (fields/limbs.py).
 It runs for CPU tensors; the wrapper launches the kernel for CUDA tensors and
 never falls back.
+
+Kernel 5 (``mont_mul_chain``, also csrc/mont_mul.cu) replaces the base
+variant of tools/prof_mulkernels.py::make_chain, a profiling-only kernel: it
+runs a = a * b * R^{-1} `chain` times per element in registers, so its time
+is the multiply body's alone (zktpu_torch/tools/prof_mulkernels.py).
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import functools
 
 import torch
 
-from ..shared import FieldSpec, FQ, FR, GOLDILOCKS
+from .host import FieldSpec, FQ, FR, GOLDILOCKS
 from .. import cuda_lib
 from .limbs import MASK16, digits16_to_limbs, limbs_to_digits16, normalize16, resolve
 
@@ -121,3 +127,37 @@ def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
     d, ge_p = resolve(r + c.neg_p, 16)  # r - p, and whether r >= p
     out = torch.where(ge_p[:, None], d, r)[:, :D]
     return digits16_to_limbs(out).reshape(tuple(shape) + (D // 2,))
+
+
+def mont_mul_chain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, chain: int) -> torch.Tensor:
+    """a * b^chain * R^{-chain} mod p, i.e. `chain` Montgomery products by b,
+    for equal-shape (..., L) int32 limb tensors."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return mont_mul_chain_plain(spec, a, b, chain)
+    limbs = spec.num_digits // 2
+    if a.shape != b.shape:
+        raise ValueError(f"mont_mul_chain: operand shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
+    a, b = a.contiguous(), b.contiguous()
+    cuda_lib.check_cuda_operands("mont_mul_chain", (a, b), limbs)
+    out = torch.empty_like(a)
+    n = a.numel() // limbs
+    if n:
+        lib = cuda_lib.load()
+        p, pinv = cuda_lib.field_consts(spec)
+        rc = lib.zk_mont_mul_chain(
+            a.device.index, limbs, p.ctypes.data, pinv,
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), n, int(chain), cuda_lib.stream_of(out),
+        )
+        cuda_lib.check(rc, "mont_mul_chain")
+        mont_mul_chain.launches += 1
+    return out
+
+
+mont_mul_chain.launches = 0
+
+
+def mont_mul_chain_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, chain: int) -> torch.Tensor:
+    """The plain chained product: `chain` plain Montgomery products."""
+    for _ in range(chain):
+        a = mont_mul_plain(spec, a, b)
+    return a

@@ -2,14 +2,16 @@
 
 commit / commit_many / commit_para / open / verify.  Commitments of large
 polynomials run the tensor Pippenger MSM against the SRS points on the SRS's
-device; small ones take the host tier.  Verification is the shared host
+device; small ones take the host tier.  Verification is the host
 pairing check.
 """
 from __future__ import annotations
 
 import torch
 
-from ..shared import Fq12, FR, G1Affine, pairing_product
+from ..curves.host_curve import G1Affine
+from ..curves.pairing import Fq12, pairing_product
+from ..fields.host import FR
 from .. import config
 from ..curves import g1 as g1mod
 from ..curves.msm import msm_proj_many, pick_window

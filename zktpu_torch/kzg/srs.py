@@ -2,11 +2,16 @@
 
 `new_from_secret` builds [G, sG, ..., s^(size+2) G] (size + 3 points, as in
 the reference's kzg/src/srs.rs:51) with the windowed fixed-base batch multiply
-on the chosen device, plus G2 and s G2 on the host.
+on the chosen device (by default the current CUDA device), plus G2 and s G2
+on the host; `new` does the same for a random secret.  `g1_affine` gives the
+points in affine form for the mixed-add MSM.
 """
 from __future__ import annotations
 
-from ..shared import FR, G1Affine, G2Affine
+import secrets
+
+from ..curves.host_curve import G1Affine, G2Affine
+from ..fields.host import FR
 from ..curves import g1
 from ..fields.fp import field
 
@@ -21,13 +26,19 @@ class Srs:
         self._secret = secret  # kept only when built from a known secret
         self._g1_host: list[G1Affine] | None = None
         self._g1_first: G1Affine | None = None
+        self._g1_aff = None  # affine (Xa, Ya) planes for msm_affine, made on first use
 
     @property
     def device(self):
         return self.g1_proj[0].device
 
     @classmethod
-    def new_from_secret(cls, secret: int, circuit_size: int, device="cpu") -> "Srs":
+    def new(cls, circuit_size: int, device=None) -> "Srs":
+        """An SRS from a random secret (OS entropy), as zktpu's Srs.new."""
+        return cls.new_from_secret(secrets.randbelow(FR.modulus), circuit_size, device)
+
+    @classmethod
+    def new_from_secret(cls, secret: int, circuit_size: int, device=None) -> "Srs":
         n = circuit_size + 3
         if n <= 4096:  # host power chain
             powers, cur = [], 1
@@ -41,6 +52,13 @@ class Srs:
         pts = g1.fixed_base_mul_u32(G1Affine.generator(), sc)
         g2 = G2Affine.generator()
         return cls(pts, g2, g2.mul(secret), n, secret)
+
+    def g1_affine(self):
+        """Affine (Xa, Ya) planes of the G1 powers on the SRS's device (cached):
+        one batch inversion (g1.proj_to_affine_dev); msm_affine's input."""
+        if self._g1_aff is None:
+            self._g1_aff = g1.proj_to_affine_dev(self.g1_proj)
+        return self._g1_aff
 
     def g1_points_host(self) -> list[G1Affine]:
         if self._g1_host is None:

@@ -7,7 +7,8 @@ zero rows but keep identity permutation entries; k1 = 2, k2 = 3.
 """
 from __future__ import annotations
 
-from ..shared import FR, Gate
+from ..fields.host import FR
+from .gate import Gate
 from ..fields.fp import field
 from ..poly.domain import get_domain
 from ..poly.poly import poly_from_evals
@@ -69,7 +70,7 @@ class Circuit:
             out["pi"].append(gate.pi)
         return out
 
-    def compile(self, device="cpu") -> CompiledCircuit:
+    def compile(self, device=None) -> CompiledCircuit:
         self._pad_circuit()
         n = len(self.gates)
         dom = get_domain(FR, n, device)

@@ -19,7 +19,10 @@ from dataclasses import dataclass
 
 import torch
 
-from ..shared import fp_rand, FR, PlonkChallengeGenerator, StdRng
+from ..fields.host import FR
+from ..transcript.ark_rand import fp_rand
+from ..transcript.chacha import StdRng
+from ..transcript.transcripts import PlonkChallengeGenerator
 from .. import config
 from ..kzg.scheme import KzgCommitment, KzgScheme
 from ..poly.domain import get_domain

@@ -7,7 +7,7 @@ decides the committed lengths.
 """
 from __future__ import annotations
 
-from ..shared import FR
+from ..fields.host import FR
 from ..poly.poly import Poly
 
 

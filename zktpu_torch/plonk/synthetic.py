@@ -16,14 +16,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..shared import FR
+from ..fields.host import FR
 from ..fields.fp import field
 from ..poly.domain import get_domain
 from ..poly.poly import Poly, poly_from_evals
 from .constraint import CompiledCircuit, CopyConstraints, GateConstraints
 
 
-def synthetic_mul_chain(log_n: int, seed: int = 1, device="cpu") -> CompiledCircuit:
+def synthetic_mul_chain(log_n: int, seed: int = 1, device=None) -> CompiledCircuit:
     """A valid n = 2^log_n gate multiplication-chain circuit with witness."""
     n = 1 << log_n
     assert n >= 2

@@ -7,7 +7,9 @@ the full compiled circuit (one batched MSM on the SRS's device here).
 """
 from __future__ import annotations
 
-from ..shared import Fq12, FR, pairing_product, PlonkChallengeGenerator
+from ..curves.pairing import Fq12, pairing_product
+from ..fields.host import FR
+from ..transcript.transcripts import PlonkChallengeGenerator
 from ..kzg.scheme import KzgScheme
 from .constraint import CompiledCircuit
 from .prover import Proof

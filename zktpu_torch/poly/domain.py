@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from ..shared import FieldSpec
+from ..fields.host import FieldSpec
 from .. import config
 from ..fields.fp import TorchField, field, ints_to_limbs, norm_device
 
@@ -34,7 +34,7 @@ def _bit_reverse_perm(n: int) -> np.ndarray:
 
 
 class Radix2Domain:
-    def __init__(self, spec: FieldSpec, size: int, device="cpu"):
+    def __init__(self, spec: FieldSpec, size: int, device=None):
         assert size >= 1
         n = 1 << (size - 1).bit_length() if size > 1 else 1
         log_n = n.bit_length() - 1
@@ -181,6 +181,6 @@ def _domain(spec: FieldSpec, size: int, device: torch.device) -> Radix2Domain:
     return Radix2Domain(spec, size, device)
 
 
-def get_domain(spec: FieldSpec, size: int, device="cpu") -> Radix2Domain:
+def get_domain(spec: FieldSpec, size: int, device=None) -> Radix2Domain:
     """The cached domain of `size` (rounded up to a power of two) on `device`."""
     return _domain(spec, size, norm_device(device))

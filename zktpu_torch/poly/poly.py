@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..shared import FieldSpec
+from ..fields.host import FieldSpec
 from .. import config
 from ..fields.fp import field
 from .domain import Radix2Domain, get_domain
@@ -32,19 +32,19 @@ class Poly:
     # -- construction --
 
     @classmethod
-    def from_ints(cls, spec: FieldSpec, values, device="cpu") -> "Poly":
+    def from_ints(cls, spec: FieldSpec, values, device=None) -> "Poly":
         vals = [int(v) % spec.modulus for v in values]
         if not vals:
             return cls.zero(spec, device)
         return cls(spec, field(spec, device).encode_ints(vals))
 
     @classmethod
-    def zero(cls, spec: FieldSpec, device="cpu") -> "Poly":
+    def zero(cls, spec: FieldSpec, device=None) -> "Poly":
         df = field(spec, device)
         return cls(spec, torch.zeros((0, df.num_limbs), dtype=torch.int32, device=df.device), trim=False)
 
     @classmethod
-    def constant(cls, spec: FieldSpec, value: int, device="cpu") -> "Poly":
+    def constant(cls, spec: FieldSpec, value: int, device=None) -> "Poly":
         return cls.from_ints(spec, [value], device)
 
     @staticmethod
