@@ -3,14 +3,21 @@
 
     python3 chip_smoke.py [--log-n 14] [--msm-log-n 20]
 
-Phases, one line each:
+Phases:
   1. device: the card's name and power limit (fails without CUDA); the
-     kernels built from zktpu_torch/csrc (one nvcc per source, in parallel);
+     kernels built from zktpu_torch/csrc (one nvcc per source, in parallel;
+     ptxas's register and spill counts go to stderr), and the registers and
+     local (spill) bytes of the three group-law kernels (fails if one
+     spills);
   2. kernels: holds each CUDA kernel against its plain PyTorch version on
      the card, bit for bit (mont_mul for Fr, Fq and Goldilocks and
      mont_mul_chain at N = 2^16 + 3 with the edge values 0, 1, p - 1;
      proj_add, proj_double and proj_madd at N = 2^14 + 5 with identity,
-     P + P, P + (-P), (0, 0) and padding lanes), with both times;
+     P + P, P + (-P), (0, 0) and padding lanes), with both times; proj_add
+     and proj_madd also on strided slices of (3, n + 5, 12) planes (n = 2^14
+     + 5, 1, 333), a broadcast operand and out= planes; proj_double at the
+     Horner combine's (K, 12) for K = 8 and 1, and mont_mul over Fr at one
+     stage of the 2^17 coset NTT, the shapes their paths give them;
   3. small proof: a 4-gate circuit proved with every tensor path forced,
      once on the GPU and once on the CPU; the proofs must be equal;
   4. PLONK path: synthetic_mul_chain(log_n) and its SRS on the GPU, prove,
@@ -20,14 +27,17 @@ Phases, one line each:
      other and to the host's tau-power sum; its kernels must have launched.
      Then, outside the count, a spot check of the first 64 points against
      host curve arithmetic, and proj_madd and proj_add against their plain
-     versions on the operands msm_affine gives them at 2^msm_log_n, timed.
+     versions on the operands msm_affine gives them and proj_add on the
+     first step of msm_proj's doubling scan at 2^msm_log_n, timed.
      Last the chained-multiply tool (zktpu_torch.tools.prof_mulkernels) for
      each field, as a path of its own.
 Launches are set to 0 just before each path (phase 4, the bench, the tool)
 and read just after.  Then one JSON line with the kernels (launches summed
-over the three paths; times and bounds from phase 2's shapes, and for
-proj_madd and proj_add from msm_affine's), the card's name and power limit,
-and the final {"ok": true, ...} line.  Any failure raises and exits non-zero.
+over the three paths; times and bounds at the shapes the paths give them:
+proj_madd at msm_affine's mixed add, proj_add at msm_proj's first scan step,
+proj_double at K = 1, mont_mul Fr at the NTT stage, the others at phase 2's
+shapes), the card's name and power limit, and the final {"ok": true, ...}
+line.  Any failure raises and exits non-zero.
 """
 from __future__ import annotations
 
@@ -214,7 +224,90 @@ def phase_kernels(device) -> dict:
     ms = _cuda_ms(lambda: proj_madd(P1, A2), 20)
     plain_ms = _cuda_ms(lambda: proj_madd_plain(P1, A2), 3)
     _record(results, "proj_madd", n, err, ms, plain_ms, 8 * plane, 11 * n * _mont_words(12))
+    for key, kernel, plain, second in (("proj_add", proj_add, proj_add_plain, P2),
+                                       ("proj_madd", proj_madd, proj_madd_plain, A2)):
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], _strided_lanes(key, kernel, plain, P1, second))
     return results
+
+
+def _strided_lanes(key: str, kernel, plain, first, second) -> int:
+    """The redesigned adds on operands they read in place: for each operand
+    coordinate, a (3, n + 5, 12) plane whose row b holds the phase-2 operand
+    rolled by b, sliced [:, :n] (first) or [:, 5:] (second); then a broadcast
+    second operand, out= into fresh planes, n = 1 and n = 333 (not a multiple
+    of the 128-thread block).  The edge lanes come along.  Each against the
+    plain version on the same inputs; returns the largest word error (0)."""
+    n = first[0].shape[0]
+
+    def planes(coords, lo):
+        out = []
+        for c in coords:
+            t = torch.zeros((3, n + 5, 12), dtype=torch.int32, device=c.device)
+            for b in range(3):
+                t[b, lo:lo + n] = torch.roll(c, b, 0)
+            out.append(t)
+        return out
+
+    F, S = planes(first, 0), planes(second, 5)
+    err = 0
+    for m in (n, 1, 333):
+        a1, a2 = tuple(t[:, :m] for t in F), tuple(t[:, 5:5 + m] for t in S)
+        err = max(err, _compare(f"{key} strided n={m}", kernel(a1, a2), plain(a1, a2)))
+    a1 = tuple(t[:, :n] for t in F)
+    one = tuple(t[1, 7] for t in S)  # one point broadcast against every row
+    err = max(err, _compare(f"{key} broadcast", kernel(a1, one), plain(a1, one)))
+    out = tuple(torch.empty((3, n, 12), dtype=torch.int32, device=F[0].device) for _ in range(3))
+    a2 = tuple(t[:, 5:] for t in S)
+    assert kernel(a1, a2, out=out) is out
+    err = max(err, _compare(f"{key} out=", out, plain(a1, a2)))
+    try:
+        kernel(a1, a2, out=(F[0][:, 1:n + 1], out[1], out[2]))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"{key}: out= overlapping an input was accepted")
+    print(f"phase 2: {key} strided (3, n + 5, 12) slices n = {n}, 1, 333, broadcast, out=: mismatches=0; "
+          f"overlapping out= raises", flush=True)
+    return err
+
+
+def phase_small_path_shapes(device, results: dict) -> None:
+    """proj_double at the Horner combine's (K, 12) accumulators (K = 8, the
+    largest commit_many of the PLONK path, then K = 1, every MSM's and single
+    commit's; the kernels line takes K = 1), and mont_mul over Fr at one
+    butterfly stage of the 2^17 coset NTT (m = 2^9: 2^16 products of a
+    strided odd half by a 2^8-row twiddle table, the wrapper's copy
+    included), each against its plain version."""
+    from zktpu_torch.curves import g1
+    from zktpu_torch.curves.g1_kernel import proj_double, proj_double_plain
+    from zktpu_torch.curves.host_curve import G1Affine
+    from zktpu_torch.fields.host import FR
+    from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_plain
+    from zktpu_torch.poly.domain import Radix2Domain
+
+    rng = random.Random(SEED + 1)
+    G = G1Affine.generator()
+    pts = g1.host_points_to_device([G.mul(rng.randrange(1, 1 << 20)) for _ in range(8)], device)
+    for K in (8, 1):
+        P = tuple(t[:K].clone() for t in pts)
+        err = _compare(f"proj_double K={K}", proj_double(P), proj_double_plain(P))
+        ms = _cuda_ms(lambda: proj_double(P), 200)
+        plain_ms = _cuda_ms(lambda: proj_double_plain(P), 10)
+        _record(results, "proj_double", K, max(err, results["proj_double"]["max_abs_err"]), ms, plain_ms,
+                6 * K * 48, 8 * K * _mont_words(12), phase=f"phase 2: Horner combine (K={K}, 12):")
+
+    n, m = 1 << 17, 1 << 9
+    dom = Radix2Domain(FR, n, device=device)
+    fr = dom.df
+    x = fr.encode_ints([rng.randrange(FR.modulus) for _ in range(n)])
+    odd = x.reshape(n // m, m, 8)[:, m // 2:, :]
+    table = dom._fwd_tw[:: n // m][: m // 2]
+    err = _compare("mont_mul Fr NTT stage", [mont_mul(FR, odd, table)], [mont_mul_plain(FR, odd, table)])
+    ms = _cuda_ms(lambda: mont_mul(FR, odd, table), 50)
+    plain_ms = _cuda_ms(lambda: mont_mul_plain(FR, odd, table), 5)
+    _record(results, "mont_mul_fr", n // 2, max(err, results["mont_mul_fr"]["max_abs_err"]), ms, plain_ms,
+            (2 * (n // 2) + m // 2) * 32, (n // 2) * _mont_words(8),
+            phase=f"phase 2: 2^17 coset NTT stage m=2^9 ({n // m}, {m // 2}, 8) x ({m // 2}, 8):")
 
 
 def _pythagorean_circuit():
@@ -391,7 +484,7 @@ def phase_msm(device, log_n: int):
     _reset_launches()
     for spec in (FQ, FR, GOLDILOCKS):  # the tool's field is Fq; Fr and Goldilocks for comparison
         for row in prof_mulkernels.run(1 << 16, CHAIN, spec, device=device):
-            print(f"phase 5: prof_mulkernels {spec.name} base N={row['n']} CHAIN={row['chain']}: "
+            print(f"phase 5: prof_mulkernels {spec.name} {row['variant']} N={row['n']} CHAIN={row['chain']}: "
                   f"{row['ms_per_mul']:.5f} ms/mul, {row['mmul_per_s']:.2f} Mmul/s, MATCH", flush=True)
     tool = _read_launches()
     assert tool["mont_mul_chain"] > 0, f"the microbench never launched its kernel: {tool}"
@@ -401,37 +494,51 @@ def phase_msm(device, log_n: int):
 
 def phase_path_shapes(device, inputs: dict, results: dict) -> None:
     """proj_madd and proj_add against their plain versions on the operands
-    that one msm_affine call on the bench's inputs gives them: the last
-    phase-1 mixed add (every window's blocks at once) and the first step of
-    the block-total scan (curves/scan.py).  The plain versions run in chunks
-    of 2^18 rows (their int64 temporaries) and are timed over all chunks.
-    These launches are outside the counted paths."""
-    from zktpu_torch.curves import msm, scan
+    that the MSMs on the bench's inputs give them: msm_affine's last phase-1
+    mixed add (every window's blocks at once) and the first step of its
+    block-total scan, and the first step of msm_proj's doubling scan
+    (curves/scan.py), where msm_proj spends its proj_add time, each into
+    the out= planes the path gave it.  The kernels line takes proj_madd from
+    the first shape and proj_add from the last.
+    The plain versions run in chunks of 2^18 rows (their int64 temporaries)
+    and are timed over all chunks.  These launches are outside the counted
+    paths."""
+    from zktpu_torch.curves import g1, msm, scan
     from zktpu_torch.curves.g1_kernel import proj_add_plain, proj_madd_plain
 
     real = {"proj_madd": scan.proj_madd, "proj_add": scan.proj_add}
-    seen = {}
-
-    def spy(name, keep_last):
-        def call(*args):
-            if keep_last or name not in seen:
-                seen[name] = args
-            return real[name](*args)
-        return call
-
     sc, Xa, Ya = inputs["sc"], inputs["Xa"], inputs["Ya"]
-    scan.proj_madd, scan.proj_add = spy("proj_madd", True), spy("proj_add", False)
-    try:
-        msm.msm_affine(sc, Xa, Ya, c=msm.pick_window(sc.shape[0]))
-    finally:
-        scan.proj_madd, scan.proj_add = real["proj_madd"], real["proj_add"]
+    c = msm.pick_window(sc.shape[0])
 
+    def capture(run, name, keep_last):
+        seen = {}
+
+        def call(*args, **kwargs):
+            if keep_last or name not in seen:
+                seen[name] = args, kwargs
+            return real[name](*args, **kwargs)
+
+        setattr(scan, name, call)
+        try:
+            run()
+        finally:
+            setattr(scan, name, real[name])
+        return seen[name]
+
+    cases = (
+        ("proj_madd", "msm_affine's operands", lambda: msm.msm_affine(sc, Xa, Ya, c=c), True),
+        ("proj_add", "msm_affine's operands", lambda: msm.msm_affine(sc, Xa, Ya, c=c), False),
+        ("proj_add", "msm_proj's first scan step",
+         lambda: msm.msm_proj(sc, Xa, Ya, g1.proj_identity((sc.shape[0],), device)[1], c=c), False),
+    )
     chunk = 1 << 18
-    for key, plain, planes, muls in (("proj_madd", proj_madd_plain, 8, 11), ("proj_add", proj_add_plain, 9, 12)):
+    planes, muls = {"proj_madd": 8, "proj_add": 9}, {"proj_madd": 11, "proj_add": 12}
+    for key, where, run, keep_last in cases:
+        (a1, a2), kw = capture(run, key, keep_last)  # kw: the path's out= planes, if it gave them
+        plain = proj_madd_plain if key == "proj_madd" else proj_add_plain
         kernel = real[key]
-        a1, a2 = seen[key]
         shape = tuple(a1[0].shape[:-1])
-        got = [t.reshape(-1, 12) for t in kernel(a1, a2)]
+        got = [t.reshape(-1, 12) for t in kernel(a1, a2, **kw)]
         f1, f2 = ([t.reshape(-1, 12) for t in a] for a in (a1, a2))
         n = f1[0].shape[0]
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -441,11 +548,14 @@ def phase_path_shapes(device, inputs: dict, results: dict) -> None:
         end.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(end)
-        err = _compare(f"{key} at msm_affine's operands", got, [torch.cat([p[j] for p in parts]) for j in range(3)])
-        ms = _cuda_ms(lambda: kernel(a1, a2), 20)
+        err = _compare(f"{key} at {where}", got, [torch.cat([p[j] for p in parts]) for j in range(3)])
+        del got, parts, f1, f2
+        ms = _cuda_ms(lambda: kernel(a1, a2, **kw), 20)
         prev = results[key]["max_abs_err"]
-        _record(results, key, n, max(err, prev), ms, plain_ms, planes * n * 4 * 12, muls * n * _mont_words(12),
-                phase=f"phase 5: at msm_affine's operands {shape}:")
+        _record(results, key, n, max(err, prev), ms, plain_ms, planes[key] * n * 4 * 12,
+                muls[key] * n * _mont_words(12), phase=f"phase 5: at {where} {shape}:")
+        del a1, a2, kw
+        torch.cuda.empty_cache()
 
 
 # The kernels of the paths.  The Goldilocks product is built and held against
@@ -483,8 +593,15 @@ def main(argv=None) -> int:
     print(f"phase 1: kernels built from zktpu_torch/csrc in {time.perf_counter() - t0:.1f} s "
           f"-> {os.path.relpath(cuda_lib.library_path())}", flush=True)
     print(f"phase 1: pairing backend {pairing_backend()}", flush=True)
+    from zktpu_torch.curves import g1_kernel
+
+    attrs = {k: g1_kernel.kernel_attrs(k) for k in ("proj_add", "proj_madd", "proj_double")}
+    print("phase 1: registers " + "; ".join(
+        f"{k}: {a['registers']} registers, {a['local_bytes']} local bytes" for k, a in attrs.items()), flush=True)
+    assert all(a["local_bytes"] == 0 for a in attrs.values()), f"a group-law kernel spills: {attrs}"
 
     kernels = phase_kernels(device)
+    phase_small_path_shapes(device, kernels)
     phase_small_proof(device)
     plonk = phase_plonk(device, args.log_n)
     msm_path, tool, inputs = phase_msm(device, args.msm_log_n)

@@ -1,0 +1,150 @@
+"""The CUDA kernels' own arithmetic on the CPU, against the plain versions.
+
+csrc/field.cuh and csrc/g1.cuh compile as host C++ (tests/g1_host.cpp): the
+PTX carry chains of the Montgomery product are emulated one instruction for
+one, and the per-point code of the add, mixed add and double runs as each
+CUDA thread runs it, strided planes and all.  So the carry chains, the lazy
+reduction bounds and the plane addressing are held word for word against
+the plain PyTorch versions here, though only the card can run the kernels.
+Inputs are arbitrary field elements (the formulas are field arithmetic and
+need no curve points), with the extreme values 0, 1 and p - 1.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from zktpu_torch import cuda_lib
+from zktpu_torch.curves import g1_kernel
+from zktpu_torch.curves.g1_kernel import proj_add_plain, proj_double_plain, proj_madd_plain
+from zktpu_torch.fields.fp import field, ints_to_limbs
+from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
+from zktpu_torch.fields.mont_kernel import mont_mul_plain
+
+torch.set_num_threads(1)  # the suite runs one process per core: intra-op threads would oversubscribe it
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SHIM = os.path.join(HERE, "g1_host.cpp")
+FQT = field(FQ, "cpu")
+
+
+@pytest.fixture(scope="module")
+def lib():
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the host copy of the kernels' code")
+    h = hashlib.sha256()
+    for path in (SHIM, *(os.path.join(cuda_lib.CSRC_DIR, n) for n in cuda_lib.HEADERS)):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(cuda_lib.BUILD_DIR, f"libg1_host-{h.hexdigest()[:16]}.so")
+    if not os.path.exists(out):
+        os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas", "-o", tmp, SHIM],
+                       check=True, capture_output=True)
+        os.replace(tmp, out)
+    so = ctypes.CDLL(out)
+    P = ctypes.c_void_p
+    for name in ("host_proj_add", "host_proj_madd", "host_proj_double"):
+        getattr(so, name).argtypes = [P, ctypes.c_uint32, P, ctypes.c_int64, ctypes.c_int64]
+    so.host_mont_mul.argtypes = [ctypes.c_int, P, ctypes.c_uint32, P, P, P, ctypes.c_int64, ctypes.c_int]
+    return so
+
+
+def _elements(rng, spec, n):
+    p = spec.modulus
+    vals = [0, 1, p - 1, p - 2] + [int.from_bytes(rng.bytes(48), "little") % p for _ in range(n - 4)]
+    return [vals[i] for i in rng.permutation(n)]
+
+
+def _host_op(lib, name, ins, shape):
+    """Run the host copy of a kernel over batch `shape`, strided as the CUDA wrapper passes it."""
+    full = tuple(shape) + (12,)
+    out = tuple(torch.zeros(full, dtype=torch.int32) for _ in range(3))
+    descs = [g1_kernel._plane(t, shape) for t in (*ins, *out)]
+    assert all(d is not None for d in descs)
+    planes = np.array(descs, dtype=np.int64)
+    p, pinv = cuda_lib.field_consts(FQ)
+    n = int(np.prod(shape))
+    getattr(lib, f"host_{name}")(p.ctypes.data, pinv, planes.ctypes.data, n, shape[-1])
+    return out
+
+
+@pytest.mark.parametrize("spec", [FQ, FR, GOLDILOCKS], ids=lambda s: s.name)
+def test_host_mont_mul_matches_plain(lib, spec):
+    rng = np.random.default_rng(7)
+    f = field(spec, "cpu")
+    L = spec.num_digits // 2
+    a, b = (f.encode_ints(_elements(rng, spec, 64)) for _ in range(2))
+    out = torch.zeros_like(a)
+    p, pinv = cuda_lib.field_consts(spec)
+    lib.host_mont_mul(L, p.ctypes.data, pinv, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], 0)
+    assert torch.equal(out, mont_mul_plain(spec, a, b))
+
+
+def test_host_lazy_product_bound(lib):
+    """The lazy product takes a < 4p, b < 2p and gives a value < 2p congruent to a b R^-1."""
+    rng = np.random.default_rng(8)
+    p, R = FQ.modulus, 1 << 384
+    a = [4 * p - 1, 4 * p - 1, 0, 3 * p] + [int.from_bytes(rng.bytes(48), "little") % (4 * p) for _ in range(60)]
+    b = [2 * p - 1, 0, 2 * p - 1, p] + [int.from_bytes(rng.bytes(48), "little") % (2 * p) for _ in range(60)]
+    A, B = (torch.from_numpy(ints_to_limbs(v, 12)) for v in (a, b))
+    out = torch.zeros_like(A)
+    pl, pinv = cuda_lib.field_consts(FQ)
+    lib.host_mont_mul(12, pl.ctypes.data, pinv, A.data_ptr(), B.data_ptr(), out.data_ptr(), len(a), 1)
+    got = [int.from_bytes(r.astype("<u4").tobytes(), "little") for r in out.numpy()]
+    rinv = pow(R, -1, p)
+    assert all(g < 2 * p and g % p == x * y * rinv % p for g, x, y in zip(got, a, b))
+
+
+def _planes_with_edges(rng, n, extra=5):
+    """Three (3, n + extra, 12) coordinate planes of arbitrary elements with
+    0, 1 and p - 1 among them, and zero rows."""
+    planes = [FQT.encode_ints(_elements(rng, FQ, 3 * (n + extra))).reshape(3, n + extra, 12) for _ in range(3)]
+    for t in planes:
+        t[:, 0] = 0  # all-zero rows (padding)
+    return planes
+
+
+def test_host_proj_add_strided_matches_plain(lib):
+    rng = np.random.default_rng(9)
+    n = 37
+    X, Y, Z = _planes_with_edges(rng, n)
+    P1 = tuple(t[:, : n] for t in (X, Y, Z))  # strided slices of one plane, as the doubling scan passes them
+    P2 = tuple(t[:, 5:] for t in (X, Y, Z))
+    got = _host_op(lib, "proj_add", (*P1, *P2), (3, n))
+    for g, w in zip(got, proj_add_plain(P1, P2)):
+        assert torch.equal(g, w)
+    Q = tuple(t[1, 3] for t in (X, Y, Z))  # one point broadcast against the batch
+    got = _host_op(lib, "proj_add", (*P1, *Q), (3, n))
+    for g, w in zip(got, proj_add_plain(P1, Q)):
+        assert torch.equal(g, w)
+
+
+def test_host_proj_madd_strided_matches_plain(lib):
+    rng = np.random.default_rng(10)
+    n = 37
+    X, Y, Z = _planes_with_edges(rng, n)
+    P1 = tuple(t[:, 5:] for t in (X, Y, Z))
+    A2 = (X[:, : n].clone(), Y[:, : n].clone())
+    A2[0][:, 7] = 0  # (0, 0): the affine identity gives P1 back
+    A2[1][:, 7] = 0
+    got = _host_op(lib, "proj_madd", (*P1, *A2), (3, n))
+    for g, w in zip(got, proj_madd_plain(P1, A2)):
+        assert torch.equal(g, w)
+    assert all(torch.equal(g[:, 7], p[:, 7]) for g, p in zip(got, P1))
+
+
+def test_host_proj_double_matches_plain(lib):
+    rng = np.random.default_rng(11)
+    X, Y, Z = _planes_with_edges(rng, 20)
+    P = tuple(t[:, 2:] for t in (X, Y, Z))
+    got = _host_op(lib, "proj_double", P, (3, 23))
+    for g, w in zip(got, proj_double_plain(P)):
+        assert torch.equal(g, w)

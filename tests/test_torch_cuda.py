@@ -146,3 +146,43 @@ def test_msm_affine_on_device_matches_host(device):
     R = msm.msm_affine(sc, Xa, Ya, c=msm.pick_window(41))
     assert proj_madd.launches > before
     assert g1.proj_to_affine_host(tuple(a[None] for a in R)) == [want]
+
+
+@pytest.mark.parametrize("name", ["proj_add", "proj_madd"])
+def test_redesigned_adds_strided_broadcast_out(device, name):
+    """Strided slices of (3, n + 5, 12) planes, a broadcast operand and out=
+    planes, against the plain version; n = 1 and an n that is not a multiple
+    of the 128-thread block; overlapping outputs raise; 0 spills."""
+    from zktpu_torch.curves import g1, g1_kernel
+    from zktpu_torch.fields.fp import field
+
+    kernel, plain = getattr(g1_kernel, name), getattr(g1_kernel, f"{name}_plain")
+    fq = field(FQ, device)
+    rng = random.Random(3)
+    p = FQ.modulus
+    for n in (1, 333):
+        vals = [0, 1, p - 1] + [rng.randrange(p) for _ in range(3 * 3 * (n + 5) * 3)]
+        X, Y, Z = (fq.encode_ints(vals[k * 3 * (n + 5):(k + 1) * 3 * (n + 5)]).reshape(3, n + 5, 12) for k in range(3))
+        P1 = tuple(t[:, :n] for t in (X, Y, Z))
+        P2 = tuple(t[:, 5:] for t in (X, Y, Z)) if name == "proj_add" else (X[:, 5:], Y[:, 5:])
+        if name == "proj_madd":
+            for t in P2:
+                t[0, 0] = 0  # the affine identity (0, 0)
+        before = kernel.launches
+        got = kernel(P1, P2)
+        assert kernel.launches == before + 1
+        for a, b in zip(got, plain(P1, P2)):
+            assert torch.equal(a, b)
+        one = tuple(t[1, 0] for t in P2)  # broadcast
+        out = tuple(torch.full((3, n, 12), -1, dtype=torch.int32, device=device) for _ in range(3))
+        assert kernel(P1, one, out=out) is out
+        for a, b in zip(out, plain(P1, one)):
+            assert torch.equal(a, b)
+        with pytest.raises(ValueError, match="overlap"):
+            kernel(P1, P2, out=(X[:, 1:n + 1], out[1], out[2]))
+    attrs = g1_kernel.kernel_attrs(name)
+    assert attrs["local_bytes"] == 0, attrs
+    G = G1Affine.generator()
+    pts = g1.host_points_to_device([G.mul(3), G.mul(5)], device)
+    if name == "proj_add":
+        assert g1.proj_to_affine_host(kernel(pts, pts)) == [G.mul(6), G.mul(10)]

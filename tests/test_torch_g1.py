@@ -77,3 +77,44 @@ def test_fixed_base_mul_matches_host():
     scalars = [0, 1, 5, r - 1, 2**200 + 3, 0xDEADBEEF << 96, (1 << 255) % r]
     got = g1.proj_to_affine_host(g1.fixed_base_mul_u32(G, g1.scalars_to_u32(scalars, device="cpu")))
     assert got == [G.mul(s) for s in scalars]
+
+
+def test_plane_strides_of_slices_and_broadcasts():
+    """The (pointer, outer, inner) row strides the kernels read operands by."""
+    from zktpu_torch.curves.g1_kernel import _plane
+
+    a = torch.zeros((3, 10, 12), dtype=torch.int32)
+    assert _plane(a[:, 2:9], (3, 7)) == (a[:, 2:].data_ptr(), 10, 1)
+    assert _plane(a[1, 4], (3, 7)) == (a[1, 4].data_ptr(), 0, 0)  # one point broadcast
+    assert _plane(a[:, 5:6], (3, 7)) == (a[:, 5].data_ptr(), 10, 0)  # one point per row
+    assert _plane(a.reshape(3, 2, 5, 12), (3, 2, 5)) == (a.data_ptr(), 5, 1)  # outer dims collapse
+    assert _plane(a.transpose(0, 1), (10, 3)) == (a.data_ptr(), 1, 10)
+    assert _plane(torch.zeros((4, 5, 6, 12), dtype=torch.int32)[:, :2, :3], (4, 2, 3)) is None  # not collapsible
+    assert _plane(a.reshape(-1)[1:25].reshape(2, 12), (2,)) is None  # rows not 16-byte aligned
+    assert _plane(a[0].t().contiguous().t(), (10,)) is None  # limb-major: limbs not contiguous
+
+
+def test_group_law_wrappers_out_and_aliasing():
+    """out= planes get the plain result through the same signature; outputs
+    that overlap an input or each other, or have the wrong shape, raise."""
+    from zktpu_torch.curves.g1_kernel import proj_madd, proj_madd_plain
+
+    P = g1.host_points_to_device(PTS1, device="cpu")
+    Q = g1.host_points_to_device(PTS2, device="cpu")
+    plane = [torch.zeros((2, 6, 12), dtype=torch.int32) for _ in range(3)]
+    out = tuple(t[1] for t in plane)  # views into larger planes
+    assert proj_add(P, Q, out=out) is out
+    for a, b in zip(plane, proj_add_plain(P, Q)):
+        assert torch.equal(a[1], b) and not a[0].any()
+    A2 = tuple(t[0] for t in g1.proj_to_affine_dev(tuple(t[1:2] for t in Q)))  # affine 5 G, broadcast
+    got = proj_madd(P, A2, out=tuple(torch.empty((6, 12), dtype=torch.int32) for _ in range(3)))
+    for a, b in zip(got, proj_madd_plain(P, A2)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="overlap"):
+        proj_add(P, Q, out=(P[0], Q[1].clone(), Q[2].clone()))
+    with pytest.raises(ValueError, match="overlap"):
+        proj_madd(P, A2, out=(plane[0][0], plane[0][0], plane[2][0]))
+    with pytest.raises(ValueError, match="overlap"):
+        proj_double(P, out=(plane[0][0], plane[1][0], P[2]))
+    with pytest.raises(ValueError, match="int32"):
+        proj_add(P, Q, out=tuple(t[:, :5] for t in plane))

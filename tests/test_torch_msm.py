@@ -82,3 +82,38 @@ def _u32(scalars):
 def test_pick_window_matches_zktpu():
     for n in (1, 256, 257, 4096, 4097, 1 << 18, (1 << 18) + 1, 1 << 22):
         assert msm.pick_window(n) == zmsm.pick_window(n)
+
+
+def _scan_by_cat(P):
+    """The doubling scan as it was before it took out= planes: proj_add of
+    two slices, then torch.cat of the head and the unchanged tail."""
+    n = P[0].shape[1]
+    d = 1
+    while d < n:
+        head = g1.proj_add(tuple(a[:, : n - d] for a in P), tuple(a[:, d:] for a in P))
+        P = tuple(torch.cat([h, a[:, n - d :]], dim=1) for h, a in zip(head, P))
+        d *= 2
+    return P
+
+
+@pytest.mark.parametrize("n", [1, 17, 37])
+def test_scans_in_place_match_reference(n):
+    """The ping-pong doubling scan gives the words of the cat-based one and
+    leaves its input unwritten; the blocked affine scan, whose phase 1 writes
+    its mixed adds into S in place, gives the same sums at every position."""
+    from zktpu_torch.curves.scan import point_suffix_scan, point_suffix_scan_sparse_affine
+
+    rows = [_points(n, seed=n + b) for b in range(2)]
+    P = tuple(torch.stack(t) for t in zip(*(g1.host_points_to_device(r, device="cpu") for r in rows)))
+    before = tuple(a.clone() for a in P)
+    got = point_suffix_scan(P)
+    want = _scan_by_cat(P)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, c) for a, c in zip(P, before))
+    A = tuple(torch.stack(t) for t in zip(*(g1.proj_to_affine_dev(g1.host_points_to_device(r, device="cpu"))
+                                            for r in rows)))
+    idx = torch.tensor([[0, n - 1, n, n // 2], [n // 3, 0, n - 1, n + 5]])
+    sums = g1.proj_to_affine_host(point_suffix_scan_sparse_affine(A, idx))
+    flat = g1.proj_to_affine_host(want)
+    assert sums == [flat[b * n + i] if i < n else G1Affine.identity() for b in range(2) for i in idx[b].tolist()]

@@ -1,25 +1,188 @@
 // Multi-limb Montgomery arithmetic for the zktpu_torch kernels.
 //
 // A field element is L little-endian 32-bit limbs, Montgomery form with
-// R = 2^(32 L), canonical (< p).  These device helpers are the Hopper
-// counterparts of zktpu/fields/pallas_mont.py::RowOps (mul, add, sub, dbl and
-// cond_sub_p); every helper returns a canonical result, so any composition of
-// them gives the same words as the reference's digit arithmetic.
+// R = 2^(32 L).  These device helpers are the Hopper counterparts of
+// zktpu/fields/pallas_mont.py::RowOps (mul, add, sub, dbl and cond_sub_p).
+//
+// Two families:
+// - the canonical helpers (fmul, fadd, fsub, fdbl) take and return values
+//   < p, so any composition of them gives the reference's words;
+// - the lazy helpers (mont_mul_lazy, add_nr, add_red, sub_red, cond_sub) let
+//   values run above p inside a formula (g1.cuh states the bound on every
+//   intermediate), and the formula canonicalizes its outputs only.  Equal
+//   field elements canonicalize to equal words, so the outputs are the same.
+//
+// The Montgomery product is written as PTX carry chains (mad.lo.cc,
+// madc.hi.cc, addc): each row a * b_i and m * p is two chains of L
+// multiply-adds whose carries ride the condition code, with no separate
+// add or shift for the carry.  The header also compiles as host C++ (g++):
+// there the PTX instructions are emulated one for one, so the CPU tests run
+// the same chains and the same formulas.
 #pragma once
 
 #include <cstdint>
+#include <cstring>
+
+#if defined(__CUDACC__)
+#define ZK_FN __device__ __forceinline__
+#else
+#define ZK_FN inline
+#endif
 
 template <int L>
 struct FieldConsts {
   uint32_t p[L];
-  uint32_t pinv;  // -p^{-1} mod 2^32
+  uint32_t p2[L];  // 2p mod 2^(32 L): the lazy helpers' modulus multiple
+  uint32_t pinv;   // -p^{-1} mod 2^32
 };
+
+// ---------------------------------------------------------------------------
+// Carry-chain primitives: PTX on the device, an emulation of the condition
+// code's carry flag on the host.
+// ---------------------------------------------------------------------------
+namespace cc {
+#if defined(__CUDA_ARCH__)
+#define ZK_ASM2(name, op)                                                       \
+  ZK_FN uint32_t name(uint32_t a, uint32_t b) {                                 \
+    uint32_t r;                                                                 \
+    asm volatile(op " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));                \
+    return r;                                                                   \
+  }
+#define ZK_ASM3(name, op)                                                       \
+  ZK_FN uint32_t name(uint32_t a, uint32_t b, uint32_t c) {                     \
+    uint32_t r;                                                                 \
+    asm volatile(op " %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));    \
+    return r;                                                                   \
+  }
+ZK_ASM2(add_cc, "add.cc.u32")
+ZK_ASM2(addc_cc, "addc.cc.u32")
+ZK_ASM2(addc, "addc.u32")
+ZK_ASM2(sub_cc, "sub.cc.u32")
+ZK_ASM2(subc_cc, "subc.cc.u32")
+ZK_ASM2(subc, "subc.u32")
+ZK_ASM3(mad_lo_cc, "mad.lo.cc.u32")
+ZK_ASM3(madc_lo_cc, "madc.lo.cc.u32")
+ZK_ASM3(mad_hi_cc, "mad.hi.cc.u32")
+ZK_ASM3(madc_hi_cc, "madc.hi.cc.u32")
+ZK_ASM3(madc_hi, "madc.hi.u32")
+#undef ZK_ASM2
+#undef ZK_ASM3
+#else
+inline thread_local uint32_t flag;  // the carry (or borrow) flag of the condition code
+inline uint32_t add_(uint64_t s, bool set) {
+  if (set) flag = (uint32_t)(s >> 32);
+  return (uint32_t)s;
+}
+inline uint32_t add_cc(uint32_t a, uint32_t b) { return add_((uint64_t)a + b, true); }
+inline uint32_t addc_cc(uint32_t a, uint32_t b) { return add_((uint64_t)a + b + flag, true); }
+inline uint32_t addc(uint32_t a, uint32_t b) { return add_((uint64_t)a + b + flag, false); }
+inline uint32_t sub_(uint64_t a, uint64_t b, bool set) {
+  if (set) flag = a < b;
+  return (uint32_t)(a - b);
+}
+inline uint32_t sub_cc(uint32_t a, uint32_t b) { return sub_(a, b, true); }
+inline uint32_t subc_cc(uint32_t a, uint32_t b) { return sub_(a, (uint64_t)b + flag, true); }
+inline uint32_t subc(uint32_t a, uint32_t b) { return sub_(a, (uint64_t)b + flag, false); }
+inline uint32_t lo(uint32_t a, uint32_t b) { return (uint32_t)((uint64_t)a * b); }
+inline uint32_t hi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
+inline uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) { return add_cc(lo(a, b), c); }
+inline uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) { return addc_cc(lo(a, b), c); }
+inline uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) { return add_cc(hi(a, b), c); }
+inline uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) { return addc_cc(hi(a, b), c); }
+inline uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) { return addc(hi(a, b), c); }
+#endif
+}  // namespace cc
+
+// t[0..L] += a * w: a chain over the low halves into t[0..L-1] (carry into
+// t[L]), then a chain over the high halves into t[1..L].  The caller
+// guarantees that the sum fits in L + 1 words, so the last carry is 0.
+template <int L>
+ZK_FN void mad_row(uint32_t* t, const uint32_t* a, uint32_t w) {
+  t[0] = cc::mad_lo_cc(a[0], w, t[0]);
+#pragma unroll
+  for (int j = 1; j < L; ++j) t[j] = cc::madc_lo_cc(a[j], w, t[j]);
+  t[L] = cc::addc(t[L], 0);
+  t[1] = cc::mad_hi_cc(a[0], w, t[1]);
+#pragma unroll
+  for (int j = 1; j < L - 1; ++j) t[j + 1] = cc::madc_hi_cc(a[j], w, t[j + 1]);
+  t[L] = cc::madc_hi(a[L - 1], w, t[L]);
+}
+
+// Lazy Montgomery product (CIOS): out = (a b + M p) / R for the M < R that
+// makes the division exact, so out == a b R^{-1} (mod p) and
+//     out < a b / R + p.
+// Requires a + p < R.  Then every partial sum t stays below a + p < R
+// between rows and below 2^32 R inside one, so L + 1 words hold it and no
+// carry leaves the top word (the extra carry word of fmul_wide is not
+// needed).  For Fq (p < 0.102 R): a < 4p, b < 2p gives out < 1.82 p < 2p;
+// for canonical inputs out < 2p in every field with 2p < R.
+template <int L>
+ZK_FN void mont_mul_lazy(uint32_t* out, const uint32_t* a, const uint32_t* b,
+                         const FieldConsts<L>& f) {
+  uint32_t t[L + 1];
+#pragma unroll
+  for (int j = 0; j < L + 1; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    mad_row<L>(t, a, b[i]);
+    const uint32_t m = t[0] * f.pinv;
+    mad_row<L>(t, f.p, m);  // t[0] becomes 0: shift down one word
+#pragma unroll
+    for (int j = 0; j < L; ++j) t[j] = t[j + 1];
+    t[L] = 0;
+  }
+#pragma unroll
+  for (int j = 0; j < L; ++j) out[j] = t[j];
+}
+
+// out = v - m if v >= m else v, for a value v < 2^(32 L) and a modulus
+// multiple m (p or 2p).
+template <int L>
+ZK_FN void cond_sub(uint32_t* out, const uint32_t* v, const uint32_t* m) {
+  uint32_t d[L];
+  d[0] = cc::sub_cc(v[0], m[0]);
+#pragma unroll
+  for (int j = 1; j < L; ++j) d[j] = cc::subc_cc(v[j], m[j]);
+  const uint32_t borrow = cc::subc(0, 0);  // 0xffffffff if v < m
+#pragma unroll
+  for (int j = 0; j < L; ++j) out[j] = borrow ? v[j] : d[j];
+}
+
+// out = a + b with no reduction; the caller guarantees a + b < 2^(32 L).
+template <int L>
+ZK_FN void add_nr(uint32_t* out, const uint32_t* a, const uint32_t* b) {
+  out[0] = cc::add_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < L - 1; ++j) out[j] = cc::addc_cc(a[j], b[j]);
+  out[L - 1] = cc::addc(a[L - 1], b[L - 1]);
+}
+
+// out = a + b reduced once by m: for a + b < 2m (and 2m < 2^(32 L)), out < m.
+template <int L>
+ZK_FN void add_red(uint32_t* out, const uint32_t* a, const uint32_t* b, const uint32_t* m) {
+  uint32_t s[L];
+  add_nr<L>(s, a, b);
+  cond_sub<L>(out, s, m);
+}
+
+// out = a - b, plus m if that borrows: for a, b < m, out < m.
+template <int L>
+ZK_FN void sub_red(uint32_t* out, const uint32_t* a, const uint32_t* b, const uint32_t* m) {
+  uint32_t d[L];
+  d[0] = cc::sub_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < L; ++j) d[j] = cc::subc_cc(a[j], b[j]);
+  const uint32_t mask = cc::subc(0, 0);  // 0xffffffff if a < b
+  out[0] = cc::add_cc(d[0], m[0] & mask);
+#pragma unroll
+  for (int j = 1; j < L - 1; ++j) out[j] = cc::addc_cc(d[j], m[j] & mask);
+  out[L - 1] = cc::addc(d[L - 1], m[L - 1] & mask);
+}
 
 // out = v - p if (top || v >= p) else v, for a value top * 2^(32 L) + v < 2p.
 // When top is set, v - p wraps mod 2^(32 L) to the true difference (< p).
 template <int L>
-__device__ __forceinline__ void reduce_once(uint32_t* out, const uint32_t* v, uint32_t top,
-                                            const FieldConsts<L>& f) {
+ZK_FN void reduce_once(uint32_t* out, const uint32_t* v, uint32_t top, const FieldConsts<L>& f) {
   uint32_t d[L];
   uint32_t borrow = 0;
 #pragma unroll
@@ -33,13 +196,11 @@ __device__ __forceinline__ void reduce_once(uint32_t* out, const uint32_t* v, ui
   for (int j = 0; j < L; ++j) out[j] = take ? d[j] : v[j];
 }
 
-// Montgomery product a * b * R^{-1} mod p (CIOS).  The word t[L] keeps the
-// carry above R: for Goldilocks p > R/2, so t can reach 2p > R and the top
-// word is what tells reduce_once to subtract (pallas_mont.py cond_sub_p's
-// carry_top branch).
+// CIOS with an extra carry word t[L + 1], for a field with p > R/2
+// (Goldilocks): t can reach 2p > R, and the top word tells reduce_once to
+// subtract (pallas_mont.py cond_sub_p's carry_top branch).
 template <int L>
-__device__ __forceinline__ void fmul(uint32_t* out, const uint32_t* a, const uint32_t* b,
-                                     const FieldConsts<L>& f) {
+ZK_FN void fmul_wide(uint32_t* out, const uint32_t* a, const uint32_t* b, const FieldConsts<L>& f) {
   uint32_t t[L + 2];
 #pragma unroll
   for (int j = 0; j < L + 2; ++j) t[j] = 0;
@@ -71,9 +232,22 @@ __device__ __forceinline__ void fmul(uint32_t* out, const uint32_t* a, const uin
   reduce_once<L>(out, t, t[L], f);
 }
 
+// Canonical Montgomery product a * b * R^{-1} mod p of canonical inputs.
+// Fields with 2p < R (Fq, Fr) take the carry-chain product, whose output
+// < 2p needs one conditional subtraction; Goldilocks keeps fmul_wide.
 template <int L>
-__device__ __forceinline__ void fadd(uint32_t* out, const uint32_t* a, const uint32_t* b,
-                                     const FieldConsts<L>& f) {
+ZK_FN void fmul(uint32_t* out, const uint32_t* a, const uint32_t* b, const FieldConsts<L>& f) {
+  if constexpr (L == 2) {
+    fmul_wide<L>(out, a, b, f);
+  } else {
+    uint32_t t[L];
+    mont_mul_lazy<L>(t, a, b, f);
+    cond_sub<L>(out, t, f.p);
+  }
+}
+
+template <int L>
+ZK_FN void fadd(uint32_t* out, const uint32_t* a, const uint32_t* b, const FieldConsts<L>& f) {
   uint32_t s[L];
   uint32_t c = 0;
 #pragma unroll
@@ -86,34 +260,17 @@ __device__ __forceinline__ void fadd(uint32_t* out, const uint32_t* a, const uin
 }
 
 template <int L>
-__device__ __forceinline__ void fsub(uint32_t* out, const uint32_t* a, const uint32_t* b,
-                                     const FieldConsts<L>& f) {
-  uint32_t d[L];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    uint64_t v = (uint64_t)a[j] - b[j] - borrow;
-    d[j] = (uint32_t)v;
-    borrow = (uint32_t)(v >> 63);
-  }
-  // a < b: add p back (mod 2^(32 L)); the mask keeps the code branch-free
-  const uint32_t mask = 0u - borrow;
-  uint32_t c = 0;
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    uint64_t v = (uint64_t)d[j] + (f.p[j] & mask) + c;
-    out[j] = (uint32_t)v;
-    c = (uint32_t)(v >> 32);
-  }
+ZK_FN void fsub(uint32_t* out, const uint32_t* a, const uint32_t* b, const FieldConsts<L>& f) {
+  sub_red<L>(out, a, b, f.p);
 }
 
 template <int L>
-__device__ __forceinline__ void fdbl(uint32_t* out, const uint32_t* a, const FieldConsts<L>& f) {
+ZK_FN void fdbl(uint32_t* out, const uint32_t* a, const FieldConsts<L>& f) {
   fadd<L>(out, a, a, f);
 }
 
 template <int L>
-__device__ __forceinline__ bool is_zero(const uint32_t* a) {
+ZK_FN bool is_zero(const uint32_t* a) {
   uint32_t acc = 0;
 #pragma unroll
   for (int j = 0; j < L; ++j) acc |= a[j];
@@ -121,7 +278,7 @@ __device__ __forceinline__ bool is_zero(const uint32_t* a) {
 }
 
 template <int L>
-__device__ __forceinline__ void copy_limbs(uint32_t* dst, const uint32_t* src) {
+ZK_FN void copy_limbs(uint32_t* dst, const uint32_t* src) {
 #pragma unroll
   for (int j = 0; j < L; ++j) dst[j] = src[j];
 }
@@ -129,7 +286,13 @@ __device__ __forceinline__ void copy_limbs(uint32_t* dst, const uint32_t* src) {
 template <int L>
 inline FieldConsts<L> make_consts(const uint32_t* p_host, uint32_t pinv) {
   FieldConsts<L> f;
-  for (int j = 0; j < L; ++j) f.p[j] = p_host[j];
+  uint64_t c = 0;
+  for (int j = 0; j < L; ++j) {
+    f.p[j] = p_host[j];
+    const uint64_t s = ((uint64_t)p_host[j] << 1) + c;
+    f.p2[j] = (uint32_t)s;
+    c = s >> 32;
+  }
   f.pinv = pinv;
   return f;
 }

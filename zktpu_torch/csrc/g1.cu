@@ -4,122 +4,122 @@
 // Replace zktpu/curves/pallas_g1.py::_proj_add_call, _proj_double_call and
 // _proj_madd_call.  One thread per point runs the whole RCB formula (g1.cuh)
 // with every intermediate in registers: one launch and 9 (add), 6 (double) or
-// 8 (mixed add) x 48 bytes of device memory per point, against 12 or 11
-// separate product launches.  About
-// 15 live Fq values of 12 limbs sit near the 255-register ceiling, so few
-// warps fit on an SM: occupancy, not arithmetic, bounds these kernels.  The
-// launch bound of 128 threads lets each thread keep up to 255 registers, so
-// the compiler need not spill (build with -Xptxas -v to see the counts).
-// Inputs and outputs are (n, 12) int32 planes, one per coordinate.
+// 8 (mixed add) x 48 bytes of device memory per point.
+//
+// What bounds them on the H100: 32-bit integer multiply-adds (12 or 11
+// Montgomery products of 2 x 300 word products), issued as one long chain
+// of dependent carries per product, so the integer pipe is fed only when
+// enough warps wait on each scheduler.  The add and the mixed add are
+// designed for that:
+// - the Montgomery product (field.cuh mont_mul_lazy) is PTX carry chains:
+//   two chains of 12 multiply-adds per row, the carries in the condition
+//   code;
+// - reduction is lazy: intermediates stay below 2p, products skip their
+//   final subtraction, sums of inputs feed products unreduced, and only the
+//   three outputs are canonicalized (bounds in g1.cuh);
+// - operands are re-read from memory where they are used, so fewer values
+//   are live, and the launch bound asks for at least ZK_ADD_MIN_BLOCKS = 3
+//   blocks of 128 threads per SM, which caps them at 168 registers with no
+//   spills: 12 warps per SM instead of 8.  tools/g1_budgets.py builds
+//   copies of this file at other budgets to time them;
+// - every operand and output is a strided plane (g1.cuh Plane): slices and
+//   broadcasts of (B, N, 12) planes are read in place, with no copy, and the
+//   outputs can be any caller-given planes that do not overlap the inputs.
+// The double (kernel 3) keeps canonical helpers and one block per SM.
 #include <cuda_runtime.h>
 
 #include "g1.cuh"
 
-__global__ void __launch_bounds__(128)
-proj_add_kernel(const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
-                const uint32_t* __restrict__ z1, const uint32_t* __restrict__ x2,
-                const uint32_t* __restrict__ y2, const uint32_t* __restrict__ z2,
-                uint32_t* __restrict__ x3, uint32_t* __restrict__ y3, uint32_t* __restrict__ z3,
-                int64_t n, FqConsts f) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+#ifndef ZK_ADD_MIN_BLOCKS
+#define ZK_ADD_MIN_BLOCKS 3
+#endif
+
+constexpr int THREADS = 128;
+
+__global__ void __launch_bounds__(THREADS, ZK_ADD_MIN_BLOCKS)
+proj_add_kernel(Planes<9> pl, uint32_t n, uint32_t inner, FqConsts f) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int64_t o = i * FQ_LIMBS;
-  uint32_t X1[FQ_LIMBS], Y1[FQ_LIMBS], Z1[FQ_LIMBS], X2[FQ_LIMBS], Y2[FQ_LIMBS], Z2[FQ_LIMBS];
-  copy_limbs<FQ_LIMBS>(X1, x1 + o);
-  copy_limbs<FQ_LIMBS>(Y1, y1 + o);
-  copy_limbs<FQ_LIMBS>(Z1, z1 + o);
-  copy_limbs<FQ_LIMBS>(X2, x2 + o);
-  copy_limbs<FQ_LIMBS>(Y2, y2 + o);
-  copy_limbs<FQ_LIMBS>(Z2, z2 + o);
-  uint32_t X3[FQ_LIMBS], Y3[FQ_LIMBS], Z3[FQ_LIMBS];
-  proj_add_point(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2, f);
-  copy_limbs<FQ_LIMBS>(x3 + o, X3);
-  copy_limbs<FQ_LIMBS>(y3 + o, Y3);
-  copy_limbs<FQ_LIMBS>(z3 + o, Z3);
+  const uint32_t o = i / inner;
+  proj_add_at(pl, o, i - o * inner, f);
 }
 
-__global__ void __launch_bounds__(128)
-proj_double_kernel(const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
-                   const uint32_t* __restrict__ z1, uint32_t* __restrict__ x3,
-                   uint32_t* __restrict__ y3, uint32_t* __restrict__ z3, int64_t n, FqConsts f) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(THREADS, ZK_ADD_MIN_BLOCKS)
+proj_madd_kernel(Planes<8> pl, uint32_t n, uint32_t inner, FqConsts f) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int64_t o = i * FQ_LIMBS;
-  uint32_t X[FQ_LIMBS], Y[FQ_LIMBS], Z[FQ_LIMBS];
-  copy_limbs<FQ_LIMBS>(X, x1 + o);
-  copy_limbs<FQ_LIMBS>(Y, y1 + o);
-  copy_limbs<FQ_LIMBS>(Z, z1 + o);
-  uint32_t X3[FQ_LIMBS], Y3[FQ_LIMBS], Z3[FQ_LIMBS];
-  proj_double_point(X3, Y3, Z3, X, Y, Z, f);
-  copy_limbs<FQ_LIMBS>(x3 + o, X3);
-  copy_limbs<FQ_LIMBS>(y3 + o, Y3);
-  copy_limbs<FQ_LIMBS>(z3 + o, Z3);
+  const uint32_t o = i / inner;
+  proj_madd_at(pl, o, i - o * inner, f);
 }
 
-// P1 projective, (x2, y2) affine with (0, 0) the identity.
-__global__ void __launch_bounds__(128)
-proj_madd_kernel(const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
-                 const uint32_t* __restrict__ z1, const uint32_t* __restrict__ x2,
-                 const uint32_t* __restrict__ y2, uint32_t* __restrict__ x3,
-                 uint32_t* __restrict__ y3, uint32_t* __restrict__ z3, int64_t n, FqConsts f) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+// One block said explicitly: with no minimum, ptxas held the double to 128
+// registers and spilled.
+__global__ void __launch_bounds__(THREADS, 1)
+proj_double_kernel(Planes<6> pl, uint32_t n, uint32_t inner, FqConsts f) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int64_t o = i * FQ_LIMBS;
-  uint32_t X1[FQ_LIMBS], Y1[FQ_LIMBS], Z1[FQ_LIMBS], X2[FQ_LIMBS], Y2[FQ_LIMBS];
-  copy_limbs<FQ_LIMBS>(X1, x1 + o);
-  copy_limbs<FQ_LIMBS>(Y1, y1 + o);
-  copy_limbs<FQ_LIMBS>(Z1, z1 + o);
-  copy_limbs<FQ_LIMBS>(X2, x2 + o);
-  copy_limbs<FQ_LIMBS>(Y2, y2 + o);
-  uint32_t X3[FQ_LIMBS], Y3[FQ_LIMBS], Z3[FQ_LIMBS];
-  proj_madd_point(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, f);
-  copy_limbs<FQ_LIMBS>(x3 + o, X3);
-  copy_limbs<FQ_LIMBS>(y3 + o, Y3);
-  copy_limbs<FQ_LIMBS>(z3 + o, Z3);
+  const uint32_t o = i / inner;
+  proj_double_at(pl, o, i - o * inner, f);
 }
 
-static unsigned grid_for(int64_t n, int threads) { return (unsigned)((n + threads - 1) / threads); }
+// planes: N x (pointer, outer stride, inner stride), strides in rows (the
+// wrapper keeps every row index below 2^31).
+template <int N>
+static Planes<N> make_planes(const int64_t* desc) {
+  Planes<N> pl;
+  for (int k = 0; k < N; ++k) {
+    pl.p[k].ptr = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(desc[3 * k]));
+    pl.p[k].so = (uint32_t)desc[3 * k + 1];
+    pl.p[k].si = (uint32_t)desc[3 * k + 2];
+  }
+  return pl;
+}
 
-// Each entry point returns cudaGetLastError() after the launch.
-extern "C" int zk_proj_add(int device, const uint32_t* p, uint32_t pinv, const void* x1,
-                           const void* y1, const void* z1, const void* x2, const void* y2,
-                           const void* z2, void* x3, void* y3, void* z3, int64_t n,
-                           void* stream) {
+static const void* const KERNELS[] = {
+    (const void*)proj_add_kernel, (const void*)proj_madd_kernel, (const void*)proj_double_kernel};
+
+template <int N>
+static int launch_kind(int kind, int device, const uint32_t* p, uint32_t pinv, const int64_t* planes,
+                       int64_t n, int64_t inner, void* stream) {
+  if (n >= (int64_t(1) << 31) || inner < 1) return -1;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int threads = 128;
-  proj_add_kernel<<<grid_for(n, threads), threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x1), static_cast<const uint32_t*>(y1),
-      static_cast<const uint32_t*>(z1), static_cast<const uint32_t*>(x2),
-      static_cast<const uint32_t*>(y2), static_cast<const uint32_t*>(z2),
-      static_cast<uint32_t*>(x3), static_cast<uint32_t*>(y3), static_cast<uint32_t*>(z3), n,
-      make_consts<FQ_LIMBS>(p, pinv));
+  Planes<N> pl = make_planes<N>(planes);
+  FqConsts f = make_consts<FQ_LIMBS>(p, pinv);
+  uint32_t n32 = (uint32_t)n, inner32 = (uint32_t)inner;
+  void* args[] = {&pl, &n32, &inner32, &f};
+  e = cudaLaunchKernel(KERNELS[kind], dim3((unsigned)((n + THREADS - 1) / THREADS)), dim3(THREADS), args, 0,
+                       static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-extern "C" int zk_proj_double(int device, const uint32_t* p, uint32_t pinv, const void* x1,
-                              const void* y1, const void* z1, void* x3, void* y3, void* z3,
-                              int64_t n, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  const int threads = 128;
-  proj_double_kernel<<<grid_for(n, threads), threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x1), static_cast<const uint32_t*>(y1),
-      static_cast<const uint32_t*>(z1), static_cast<uint32_t*>(x3), static_cast<uint32_t*>(y3),
-      static_cast<uint32_t*>(z3), n, make_consts<FQ_LIMBS>(p, pinv));
-  return (int)cudaGetLastError();
+// Each entry point computes its group operation for the n = outer x inner
+// points of its planes (inputs, then x3, y3, z3) and returns
+// cudaGetLastError() after the launch, or -1 for n >= 2^31.
+extern "C" int zk_proj_add(int device, const uint32_t* p, uint32_t pinv, const int64_t* planes,
+                           int64_t n, int64_t inner, void* stream) {
+  return launch_kind<9>(0, device, p, pinv, planes, n, inner, stream);
 }
 
-extern "C" int zk_proj_madd(int device, const uint32_t* p, uint32_t pinv, const void* x1,
-                            const void* y1, const void* z1, const void* x2, const void* y2,
-                            void* x3, void* y3, void* z3, int64_t n, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+extern "C" int zk_proj_madd(int device, const uint32_t* p, uint32_t pinv, const int64_t* planes,
+                            int64_t n, int64_t inner, void* stream) {
+  return launch_kind<8>(1, device, p, pinv, planes, n, inner, stream);
+}
+
+extern "C" int zk_proj_double(int device, const uint32_t* p, uint32_t pinv, const int64_t* planes,
+                              int64_t n, int64_t inner, void* stream) {
+  return launch_kind<6>(2, device, p, pinv, planes, n, inner, stream);
+}
+
+// Registers per thread and local memory (spills) of one kernel: kind 0 add,
+// 1 mixed add, 2 double.  out = {registers, local bytes}.
+extern "C" int zk_g1_kernel_attrs(int kind, int* out) {
+  if (kind < 0 || kind > 2) return -1;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, KERNELS[kind]);
   if (e != cudaSuccess) return (int)e;
-  const int threads = 128;
-  proj_madd_kernel<<<grid_for(n, threads), threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x1), static_cast<const uint32_t*>(y1),
-      static_cast<const uint32_t*>(z1), static_cast<const uint32_t*>(x2),
-      static_cast<const uint32_t*>(y2), static_cast<uint32_t*>(x3), static_cast<uint32_t*>(y3),
-      static_cast<uint32_t*>(z3), n, make_consts<FQ_LIMBS>(p, pinv));
-  return (int)cudaGetLastError();
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  return 0;
 }

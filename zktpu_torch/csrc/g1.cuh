@@ -1,12 +1,24 @@
 // The complete projective group law of BLS12-381 G1 (y^2 = x^3 + 4) over Fq
 // limbs, as straight-line device code: Renes-Costello-Batina 2015/1060,
 // Alg. 7 (add, 12M), Alg. 8 (mixed add, 11M) and Alg. 9 (double, 6M + 2S),
-// for a = 0 and 3b = 12.  The same operation sequence as
-// zktpu/curves/g1.py::_proj_add_jnp, _proj_madd_jnp and _proj_double_jnp;
-// each helper is canonical, so the output words are equal.  The identity is
+// for a = 0 and 3b = 12.  The same field operations as
+// zktpu/curves/g1.py::_proj_add_jnp, _proj_madd_jnp and _proj_double_jnp
+// (the add and the mixed add in another order); the outputs are canonical,
+// so the output words are equal.  The identity is
 // (0 : 1 : 0); all-zero inputs map to all-zero outputs.  The mixed add's
 // affine operand encodes its identity as (0, 0) (off the curve, so
 // unambiguous), which a final select on both coordinates handles.
+//
+// The add and the mixed add reduce lazily (field.cuh).  Inputs are
+// canonical (< p).  Every intermediate is < 2p unless its comment says
+// otherwise; the product takes inputs whose product is < 9 p^2 (each < 4p
+// here), and gives < 2p (p < 0.102 R, R = 2^384, so a b / R + p < 2p).  Sums
+// of two canonical inputs (< 2p) feed products unreduced; every other add
+// or sub reduces once by 2p; the three outputs are canonicalized from < 2p
+// by one conditional subtraction of p.
+//
+// Operands are read from device memory where they are used rather than held
+// in registers across the formula, so fewer values are live at once.
 #pragma once
 
 #include "field.cuh"
@@ -14,8 +26,186 @@
 constexpr int FQ_LIMBS = 12;
 using FqConsts = FieldConsts<FQ_LIMBS>;
 
-// 12 a = 3b a as the double/add chain of pallas_g1.py::_mul12.
-__device__ __forceinline__ void fq_mul12(uint32_t* out, const uint32_t* a, const FqConsts& f) {
+// One coordinate plane of a batch of points: row (o, j) of the flattened
+// (outer, inner) batch is at ptr + (o so + j si) * 12 words.  Strides are in
+// rows, 32-bit (the wrapper checks that every row index fits), so that an
+// address costs one multiply-add from the plane's constant-bank pointer and
+// few registers stay live for addressing; a broadcast dim has stride 0.
+struct Plane {
+  uint32_t* ptr;
+  uint32_t so, si;
+};
+
+template <int N>
+struct Planes {
+  Plane p[N];
+};
+
+ZK_FN uint32_t* row_ptr(const Plane& pl, uint32_t o, uint32_t j) {
+  return pl.ptr + (uint64_t)(o * pl.so + j * pl.si) * FQ_LIMBS;
+}
+
+// Rows are 48 bytes at 16-byte aligned addresses (the wrapper checks it):
+// three 16-byte accesses.  The loads are volatile so that each use reads
+// memory again (L1) instead of keeping the value live in registers.
+ZK_FN void load_row(uint32_t* dst, const uint32_t* src) {
+#if defined(__CUDA_ARCH__)
+#pragma unroll
+  for (int k = 0; k < FQ_LIMBS; k += 4)
+    asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(dst[k]), "=r"(dst[k + 1]), "=r"(dst[k + 2]), "=r"(dst[k + 3])
+                 : "l"(src + k));
+#else
+  std::memcpy(dst, src, FQ_LIMBS * sizeof(uint32_t));
+#endif
+}
+
+ZK_FN void store_row(uint32_t* dst, const uint32_t* src) {
+#if defined(__CUDA_ARCH__)
+#pragma unroll
+  for (int k = 0; k < FQ_LIMBS; k += 4)
+    *reinterpret_cast<uint4*>(dst + k) = make_uint4(src[k], src[k + 1], src[k + 2], src[k + 3]);
+#else
+  std::memcpy(dst, src, FQ_LIMBS * sizeof(uint32_t));
+#endif
+}
+
+// 12 a = 3b a as the double/add chain of pallas_g1.py::_mul12; a < 2p, out < 2p.
+ZK_FN void fq_mul12_lazy(uint32_t* out, const uint32_t* a, const FqConsts& f) {
+  uint32_t a4[FQ_LIMBS], a8[FQ_LIMBS];
+  add_red<FQ_LIMBS>(a4, a, a, f.p2);
+  add_red<FQ_LIMBS>(a4, a4, a4, f.p2);
+  add_red<FQ_LIMBS>(a8, a4, a4, f.p2);
+  add_red<FQ_LIMBS>(out, a8, a4, f.p2);
+}
+
+// The lazy Fq product of the adds (the carry chains of mont_mul_lazy).
+ZK_FN void fq_mul(uint32_t* out, const uint32_t* a, const uint32_t* b, const FqConsts& f) {
+  mont_mul_lazy<FQ_LIMBS>(out, a, b, f);
+}
+
+// The three outputs of both adds,
+//     X3 = t3 t1 - t4 t5,  Y3 = t1 Zc + t5 t0,  Z3 = Zc t4 + t0 t3,
+// from six values < 2p (t4 < 3p in the mixed add).  Each value is a factor
+// of two products; taking the products around that cycle (t3 t1, t1 Zc,
+// Zc t4, t4 t5, t5 t0, t0 t3) frees a factor after its second use, so at
+// most seven values are live.  The products overwrite their dead factors.
+// Where inf2 is set (the mixed add's affine identity) the outputs are P1,
+// read again from memory.  Every output is canonicalized from < 2p.
+ZK_FN void finish_adds(uint32_t* x3, uint32_t* y3, uint32_t* z3, uint32_t* t0, uint32_t* t1,
+                       uint32_t* t3, uint32_t* t4, uint32_t* t5, uint32_t* zc, bool inf2,
+                       const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
+                       const FqConsts& f) {
+  constexpr int L = FQ_LIMBS;
+  uint32_t a[L], b[L];
+  fq_mul(a, t3, t1, f);   // a = t3 t1
+  fq_mul(b, t1, zc, f);   // b = t1 Zc (t1 dead)
+  fq_mul(zc, zc, t4, f);  // zc = Zc t4
+  fq_mul(t4, t4, t5, f);  // t4 = t4 t5
+  sub_red<L>(a, a, t4, f.p2);
+  cond_sub<L>(a, a, f.p);
+  if (inf2) load_row(a, x1);
+  store_row(x3, a);
+  fq_mul(t5, t5, t0, f);  // t5 = t5 t0
+  add_red<L>(b, b, t5, f.p2);
+  cond_sub<L>(b, b, f.p);
+  if (inf2) load_row(b, y1);
+  store_row(y3, b);
+  fq_mul(t0, t0, t3, f);  // t0 = t0 t3
+  add_red<L>(zc, zc, t0, f.p2);
+  cond_sub<L>(zc, zc, f.p);
+  if (inf2) load_row(zc, z1);
+  store_row(z3, zc);
+}
+
+// RCB Alg. 7 on rows of device memory: (x3, y3, z3) = (x1, y1, z1) + (x2, y2, z2).
+// The order (t0, t2, t5, t1, t4, t3) lets each sum of inputs be formed from
+// fresh loads and each t be finished as soon as its two products exist.
+ZK_FN void proj_add_point(uint32_t* x3, uint32_t* y3, uint32_t* z3, const uint32_t* x1,
+                          const uint32_t* y1, const uint32_t* z1, const uint32_t* x2,
+                          const uint32_t* y2, const uint32_t* z2, const FqConsts& f) {
+  constexpr int L = FQ_LIMBS;
+  const uint32_t* p2 = f.p2;
+  uint32_t t0[L], t1[L], t2[L], t3[L], t4[L], t5[L], a[L], b[L], c[L];
+  load_row(a, x1);
+  load_row(b, x2);
+  fq_mul(t0, a, b, f);            // t0 = X1 X2
+  load_row(c, z1);
+  add_nr<L>(a, a, c);             // X1 + Z1 < 2p
+  load_row(t2, z2);
+  add_nr<L>(b, b, t2);            // X2 + Z2 < 2p
+  fq_mul(t2, c, t2, f);           // t2 = Z1 Z2
+  fq_mul(t5, a, b, f);
+  add_red<L>(a, t0, t2, p2);      // t5 = X1 Z2 + X2 Z1
+  sub_red<L>(t5, t5, a, p2);
+  load_row(a, y1);
+  load_row(b, y2);
+  fq_mul(t1, a, b, f);            // t1 = Y1 Y2
+  add_nr<L>(a, a, c);             // Y1 + Z1 < 2p
+  load_row(c, z2);
+  add_nr<L>(b, b, c);             // Y2 + Z2 < 2p
+  fq_mul(t4, a, b, f);
+  add_red<L>(a, t1, t2, p2);      // t4 = Y1 Z2 + Y2 Z1
+  sub_red<L>(t4, t4, a, p2);
+  load_row(a, x1);
+  load_row(c, y1);
+  add_nr<L>(a, a, c);             // X1 + Y1 < 2p
+  load_row(b, x2);
+  load_row(c, y2);
+  add_nr<L>(b, b, c);             // X2 + Y2 < 2p
+  fq_mul(t3, a, b, f);
+  add_red<L>(a, t0, t1, p2);      // t3 = X1 Y2 + X2 Y1
+  sub_red<L>(t3, t3, a, p2);
+  add_red<L>(a, t0, t0, p2);      // t0 = 3 X1 X2
+  add_red<L>(t0, a, t0, p2);
+  fq_mul12_lazy(t2, t2, f);       // t2 = 3b Z1 Z2
+  add_red<L>(c, t1, t2, p2);      // c = Zc = Y1 Y2 + 3b Z1 Z2
+  sub_red<L>(t1, t1, t2, p2);     // t1 = Y1 Y2 - 3b Z1 Z2
+  fq_mul12_lazy(t5, t5, f);       // t5 = 3b (X1 Z2 + X2 Z1)
+  finish_adds(x3, y3, z3, t0, t1, t3, t4, t5, c, false, x1, y1, z1, f);
+}
+
+// RCB Alg. 8 on rows of device memory: projective P1 plus affine (x2, y2)
+// with Z2 = 1.  Where (x2, y2) is (0, 0) the output is P1, read again from
+// memory; so zero-padded rows (all inputs zero) come out all zero.
+ZK_FN void proj_madd_point(uint32_t* x3, uint32_t* y3, uint32_t* z3, const uint32_t* x1,
+                           const uint32_t* y1, const uint32_t* z1, const uint32_t* x2,
+                           const uint32_t* y2, const FqConsts& f) {
+  constexpr int L = FQ_LIMBS;
+  const uint32_t* p2 = f.p2;
+  uint32_t t0[L], t1[L], t2[L], t3[L], t4[L], t5[L], a[L], b[L], c[L];
+  load_row(b, x2);
+  load_row(c, y2);
+  const bool inf2 = is_zero<L>(b) && is_zero<L>(c);  // the affine identity (0, 0)
+  load_row(a, x1);
+  fq_mul(t0, a, b, f);            // t0 = X1 X2
+  add_nr<L>(b, b, c);             // X2 + Y2 < 2p
+  load_row(c, y1);
+  add_nr<L>(a, a, c);             // X1 + Y1 < 2p
+  fq_mul(t3, a, b, f);
+  load_row(b, y2);
+  fq_mul(t1, c, b, f);            // t1 = Y1 Y2
+  add_red<L>(a, t0, t1, p2);      // t3 = X1 Y2 + X2 Y1
+  sub_red<L>(t3, t3, a, p2);
+  load_row(c, z1);
+  fq_mul(a, b, c, f);             // t4 = Y1 + Y2 Z1 < 3p (a product factor only)
+  load_row(b, y1);
+  add_nr<L>(t4, b, a);
+  load_row(b, x2);
+  fq_mul(a, b, c, f);             // t5 = X1 + X2 Z1: < 3p, reduced to < 2p
+  load_row(b, x1);
+  add_red<L>(t5, b, a, p2);
+  add_red<L>(a, t0, t0, p2);      // t0 = 3 X1 X2
+  add_red<L>(t0, a, t0, p2);
+  fq_mul12_lazy(t2, c, f);        // t2 = 3b Z1
+  add_red<L>(c, t1, t2, p2);      // c = Zc = Y1 Y2 + 3b Z1
+  sub_red<L>(t1, t1, t2, p2);     // t1 = Y1 Y2 - 3b Z1
+  fq_mul12_lazy(t5, t5, f);       // t5 = 3b (X1 + X2 Z1)
+  finish_adds(x3, y3, z3, t0, t1, t3, t4, t5, c, inf2, x1, y1, z1, f);
+}
+
+// 12 a = 3b a with canonical helpers (the double).
+ZK_FN void fq_mul12(uint32_t* out, const uint32_t* a, const FqConsts& f) {
   uint32_t a4[FQ_LIMBS], a8[FQ_LIMBS];
   fdbl<FQ_LIMBS>(a4, a, f);
   fdbl<FQ_LIMBS>(a4, a4, f);
@@ -23,94 +213,9 @@ __device__ __forceinline__ void fq_mul12(uint32_t* out, const uint32_t* a, const
   fadd<FQ_LIMBS>(out, a8, a4, f);
 }
 
-__device__ __forceinline__ void proj_add_point(uint32_t* X3, uint32_t* Y3, uint32_t* Z3,
-                                               const uint32_t* X1, const uint32_t* Y1,
-                                               const uint32_t* Z1, const uint32_t* X2,
-                                               const uint32_t* Y2, const uint32_t* Z2,
-                                               const FqConsts& f) {
-  constexpr int L = FQ_LIMBS;
-  uint32_t t0[L], t1[L], t2[L], t3[L], t4[L], t5[L], u[L], v[L];
-  fmul<L>(t0, X1, X2, f);
-  fmul<L>(t1, Y1, Y2, f);
-  fmul<L>(t2, Z1, Z2, f);
-  fadd<L>(u, X1, Y1, f);  // t3 = X1 Y2 + X2 Y1
-  fadd<L>(v, X2, Y2, f);
-  fmul<L>(t3, u, v, f);
-  fadd<L>(u, t0, t1, f);
-  fsub<L>(t3, t3, u, f);
-  fadd<L>(u, Y1, Z1, f);  // t4 = Y1 Z2 + Y2 Z1
-  fadd<L>(v, Y2, Z2, f);
-  fmul<L>(t4, u, v, f);
-  fadd<L>(u, t1, t2, f);
-  fsub<L>(t4, t4, u, f);
-  fadd<L>(u, X1, Z1, f);  // t5 = X1 Z2 + X2 Z1
-  fadd<L>(v, X2, Z2, f);
-  fmul<L>(t5, u, v, f);
-  fadd<L>(u, t0, t2, f);
-  fsub<L>(t5, t5, u, f);
-  fdbl<L>(u, t0, f);  // t0 = 3 X1 X2
-  fadd<L>(t0, u, t0, f);
-  fq_mul12(t2, t2, f);  // t2 = 3b Z1 Z2
-  fadd<L>(u, t1, t2, f);  // u = Zc = Y1 Y2 + 3b Z1 Z2
-  fsub<L>(t1, t1, t2, f);  // t1 = Y1 Y2 - 3b Z1 Z2
-  fq_mul12(t5, t5, f);  // t5 = 3b (X1 Z2 + X2 Z1)
-  fmul<L>(v, t3, t1, f);  // X3 = t3 t1 - t4 t5
-  fmul<L>(t2, t4, t5, f);
-  fsub<L>(X3, v, t2, f);
-  fmul<L>(v, t1, u, f);  // Y3 = t1 Zc + t5 t0
-  fmul<L>(t2, t5, t0, f);
-  fadd<L>(Y3, v, t2, f);
-  fmul<L>(v, u, t4, f);  // Z3 = Zc t4 + t0 t3
-  fmul<L>(t2, t0, t3, f);
-  fadd<L>(Z3, v, t2, f);
-}
-
-// Projective P1 plus affine (X2, Y2) with Z2 = 1.  Zero-padded rows (all
-// inputs zero) come out as P1, i.e. all zero.
-__device__ __forceinline__ void proj_madd_point(uint32_t* X3, uint32_t* Y3, uint32_t* Z3,
-                                                const uint32_t* X1, const uint32_t* Y1,
-                                                const uint32_t* Z1, const uint32_t* X2,
-                                                const uint32_t* Y2, const FqConsts& f) {
-  constexpr int L = FQ_LIMBS;
-  uint32_t t0[L], t1[L], t2[L], t3[L], t4[L], t5[L], u[L], v[L];
-  fmul<L>(t0, X1, X2, f);
-  fmul<L>(t1, Y1, Y2, f);
-  fadd<L>(u, X1, Y1, f);  // t3 = X1 Y2 + X2 Y1
-  fadd<L>(v, X2, Y2, f);
-  fmul<L>(t3, u, v, f);
-  fadd<L>(u, t0, t1, f);
-  fsub<L>(t3, t3, u, f);
-  fmul<L>(u, Y2, Z1, f);  // t4 = Y1 + Y2 Z1
-  fadd<L>(t4, Y1, u, f);
-  fmul<L>(u, X2, Z1, f);  // t5 = X1 + X2 Z1
-  fadd<L>(t5, X1, u, f);
-  fdbl<L>(u, t0, f);  // t0 = 3 X1 X2
-  fadd<L>(t0, u, t0, f);
-  fq_mul12(t2, Z1, f);  // t2 = 3b Z1
-  fadd<L>(u, t1, t2, f);  // u = Zc = Y1 Y2 + 3b Z1
-  fsub<L>(t1, t1, t2, f);  // t1 = Y1 Y2 - 3b Z1
-  fq_mul12(t5, t5, f);  // t5 = 3b (X1 + X2 Z1)
-  const bool inf2 = is_zero<L>(X2) && is_zero<L>(Y2);  // the affine identity (0, 0)
-  fmul<L>(v, t3, t1, f);  // X3 = t3 t1 - t4 t5
-  fmul<L>(t2, t4, t5, f);
-  fsub<L>(v, v, t2, f);
-#pragma unroll
-  for (int j = 0; j < L; ++j) X3[j] = inf2 ? X1[j] : v[j];
-  fmul<L>(v, t1, u, f);  // Y3 = t1 Zc + t5 t0
-  fmul<L>(t2, t5, t0, f);
-  fadd<L>(v, v, t2, f);
-#pragma unroll
-  for (int j = 0; j < L; ++j) Y3[j] = inf2 ? Y1[j] : v[j];
-  fmul<L>(v, u, t4, f);  // Z3 = Zc t4 + t0 t3
-  fmul<L>(t2, t0, t3, f);
-  fadd<L>(v, v, t2, f);
-#pragma unroll
-  for (int j = 0; j < L; ++j) Z3[j] = inf2 ? Z1[j] : v[j];
-}
-
-__device__ __forceinline__ void proj_double_point(uint32_t* X3, uint32_t* Y3, uint32_t* Z3,
-                                                  const uint32_t* X, const uint32_t* Y,
-                                                  const uint32_t* Z, const FqConsts& f) {
+// RCB Alg. 9, canonical at every step.
+ZK_FN void proj_double_point(uint32_t* X3, uint32_t* Y3, uint32_t* Z3, const uint32_t* X,
+                             const uint32_t* Y, const uint32_t* Z, const FqConsts& f) {
   constexpr int L = FQ_LIMBS;
   uint32_t t0[L], t1[L], t2[L], x3[L], y3[L], z3[L], u[L];
   fmul<L>(t0, Y, Y, f);
@@ -134,4 +239,32 @@ __device__ __forceinline__ void proj_double_point(uint32_t* X3, uint32_t* Y3, ui
   copy_limbs<L>(X3, x3);
   copy_limbs<L>(Y3, y3);
   copy_limbs<L>(Z3, z3);
+}
+
+// Point i of a launch over the flattened (outer, inner) batch: planes are
+// (inputs..., x3, y3, z3).
+ZK_FN void proj_add_at(const Planes<9>& pl, uint32_t o, uint32_t j, const FqConsts& f) {
+  const Plane* q = pl.p;
+  proj_add_point(row_ptr(q[6], o, j), row_ptr(q[7], o, j), row_ptr(q[8], o, j),
+                 row_ptr(q[0], o, j), row_ptr(q[1], o, j), row_ptr(q[2], o, j),
+                 row_ptr(q[3], o, j), row_ptr(q[4], o, j), row_ptr(q[5], o, j), f);
+}
+
+ZK_FN void proj_madd_at(const Planes<8>& pl, uint32_t o, uint32_t j, const FqConsts& f) {
+  const Plane* q = pl.p;
+  proj_madd_point(row_ptr(q[5], o, j), row_ptr(q[6], o, j), row_ptr(q[7], o, j),
+                  row_ptr(q[0], o, j), row_ptr(q[1], o, j), row_ptr(q[2], o, j),
+                  row_ptr(q[3], o, j), row_ptr(q[4], o, j), f);
+}
+
+ZK_FN void proj_double_at(const Planes<6>& pl, uint32_t o, uint32_t j, const FqConsts& f) {
+  const Plane* q = pl.p;
+  uint32_t X[FQ_LIMBS], Y[FQ_LIMBS], Z[FQ_LIMBS], X3[FQ_LIMBS], Y3[FQ_LIMBS], Z3[FQ_LIMBS];
+  load_row(X, row_ptr(q[0], o, j));
+  load_row(Y, row_ptr(q[1], o, j));
+  load_row(Z, row_ptr(q[2], o, j));
+  proj_double_point(X3, Y3, Z3, X, Y, Z, f);
+  store_row(row_ptr(q[3], o, j), X3);
+  store_row(row_ptr(q[4], o, j), Y3);
+  store_row(row_ptr(q[5], o, j), Z3);
 }

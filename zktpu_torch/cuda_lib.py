@@ -38,12 +38,13 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     # device, limbs, p (host), pinv, a, na, b, nb, out, n, stream
     "zk_mont_mul": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _P, _I64, _P, _I64, _P],
-    # device, p (host), pinv, x1, y1, z1, x2, y2, z2, x3, y3, z3, n, stream
-    "zk_proj_add": [ctypes.c_int, _P, ctypes.c_uint32] + [_P] * 9 + [_I64, _P],
-    # device, p (host), pinv, x1, y1, z1, x3, y3, z3, n, stream
-    "zk_proj_double": [ctypes.c_int, _P, ctypes.c_uint32] + [_P] * 6 + [_I64, _P],
-    # device, p (host), pinv, x1, y1, z1, x2, y2, x3, y3, z3, n, stream
-    "zk_proj_madd": [ctypes.c_int, _P, ctypes.c_uint32] + [_P] * 8 + [_I64, _P],
+    # device, p (host), pinv, planes (host: 9, 8 or 6 x (pointer, outer stride,
+    # inner stride), inputs then x3, y3, z3), n, inner, stream
+    "zk_proj_add": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _I64, _P],
+    "zk_proj_double": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _I64, _P],
+    "zk_proj_madd": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _I64, _P],
+    # kind (0 add, 1 mixed add, 2 double), out {registers, local bytes}
+    "zk_g1_kernel_attrs": [ctypes.c_int, _P],
     # device, limbs, p (host), pinv, a, b, out, n, chain, stream
     "zk_mont_mul_chain": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _P, _I64, ctypes.c_int, _P],
 }
@@ -154,8 +155,9 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_cuda_operands(name: str, tensors, limbs: int) -> None:
-    """Device, dtype, width and contiguity checks before pointers are passed."""
+def check_cuda_operands(name: str, tensors, limbs: int, contiguous: bool = True) -> None:
+    """Device, dtype, width and (unless the kernel takes strides) contiguity
+    checks before pointers are passed."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
@@ -164,5 +166,5 @@ def check_cuda_operands(name: str, tensors, limbs: int) -> None:
             raise TypeError(f"{name}: expected torch.int32 limbs, got {t.dtype}")
         if t.shape[-1] != limbs:
             raise ValueError(f"{name}: expected {limbs} limbs in the last dim, got {tuple(t.shape)}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")

@@ -11,17 +11,30 @@ no branch.  The mixed add's affine identity is (0, 0), off the curve, which
 its final select handles; zero-padded rows therefore come out as P1.
 
 The CUDA kernels are csrc/g1.cu (formulas in csrc/g1.cuh).  On the H100 they
-are bound by registers and occupancy: one thread holds about 15 live Fq
-values of 12 limbs each, near the 255-register ceiling, so few warps fit on
-an SM.  The simple design accepts that: one thread per point, the whole
-formula fused so intermediates never touch device memory, and a launch bound
-of 128 threads so that no value has to spill.
+are bound by 32-bit integer multiply-adds issued as long dependent carry
+chains, so they need many warps per SM; one thread holds its point's
+intermediates in registers, which caps how many fit.  The add and the mixed
+add are written for that (carry-chain products, lazy reduction, operands
+re-read from memory, a budget of 168 registers for 3 blocks per SM; see
+g1.cu); ``kernel_attrs`` reads the registers and spills ptxas gave each
+kernel.
+
+The wrappers take strided operands without copying them: any broadcast of
+the batch shape whose rows are 16-byte aligned, with limbs contiguous and
+the batch dims collapsible to an (outer, inner) pair of strides (a slice
+``a[:, lo:hi]`` of a (B, N, 12) plane, a broadcast constant).  Another
+layout is copied once.  ``out=`` takes three planes of the batch shape to
+write into; they must not overlap the inputs or each other.
 
 The plain versions run the same operation sequence with the plain Montgomery
-product; the wrappers use them for CPU tensors only.
+product; the wrappers use them for CPU tensors only, through the same
+signatures.
 """
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from ..fields.host import FQ
@@ -125,76 +138,143 @@ def proj_madd_plain(P1, A2):
     return proj_madd_formula(_PlainOps(P1[0].device), P1, A2)
 
 
-def _flatten(name: str, coords):
-    shape = torch.broadcast_shapes(*[t.shape[:-1] for t in coords])
-    flat = [t.expand(tuple(shape) + (LIMBS,)).contiguous() for t in coords]
-    cuda_lib.check_cuda_operands(name, flat, LIMBS)
+_KIND = {"proj_add": 0, "proj_madd": 1, "proj_double": 2}
+
+
+def kernel_attrs(name: str) -> dict:
+    """Registers per thread and local-memory bytes (spills) of a kernel."""
+    out = (ctypes.c_int * 2)()
+    cuda_lib.check(cuda_lib.load().zk_g1_kernel_attrs(_KIND[name], out), f"{name} attributes")
+    return {"registers": out[0], "local_bytes": out[1]}
+
+
+def _plane(t: torch.Tensor, shape):
+    """(pointer, outer stride, inner stride), strides in rows, of t read as
+    the (outer, inner) flattening of batch `shape` (t broadcasts to it), or
+    None where the strides cannot say it (the kernels need 16-byte aligned
+    rows of contiguous limbs)."""
+    ptr, sh, st = t.data_ptr(), t.shape, t.stride()
+    if ptr % 16 or st[-1] != 1:
+        return None
+    k = len(shape)
+    off = k - len(sh) + 1  # t's batch dims sit right-aligned under shape's
+    strides = [0 if d < off or sh[d - off] == 1 else st[d - off] for d in range(k)]
+    if not k:
+        return ptr, 0, 0
+    si = strides[-1] if shape[-1] != 1 else 0
+    outer = [(s, x) for s, x in zip(shape[:-1], strides[:-1]) if s != 1]
+    for (_, x0), (s1, x1) in zip(outer, outer[1:]):
+        if x0 != x1 * s1:
+            return None
+    so = outer[-1][1] if outer else 0
+    if so % LIMBS or si % LIMBS:
+        return None
+    so, si = so // LIMBS, si // LIMBS
+    if (shape[-1] - 1) * si + sum((s - 1) * x for s, x in outer) // LIMBS >= 1 << 31:
+        return None  # the kernels index rows in 32 bits
+    return ptr, so, si
+
+
+def _span(t: torch.Tensor):
+    """The bytes [start, end) that t's elements lie in."""
+    if t.numel() == 0:
+        return t.data_ptr(), t.data_ptr()
+    last = sum((s - 1) * st for s, st in zip(t.shape, t.stride()))
+    return t.data_ptr(), t.data_ptr() + (last + 1) * t.element_size()
+
+
+def _check_out(name: str, out, full, ins) -> None:
+    if len(out) != 3:
+        raise ValueError(f"{name}: out= takes three planes")
+    for o in out:
+        if tuple(o.shape) != full or o.dtype != torch.int32 or o.device != ins[0].device:
+            raise ValueError(f"{name}: out= planes must be int32 {full} on {ins[0].device}, "
+                             f"got {o.dtype} {tuple(o.shape)} on {o.device}")
+        if any(st == 0 and s > 1 for s, st in zip(o.shape, o.stride())):
+            raise ValueError(f"{name}: out= planes must not broadcast")
+    spans = [_span(t) for t in out]
+    others = spans + [_span(t) for t in ins]
+    for k, (a0, a1) in enumerate(spans):
+        if any(a0 < b1 and b0 < a1 for b0, b1 in others[k + 1:]):
+            raise ValueError(f"{name}: out= planes must not overlap the inputs or each other")
+
+
+def _run(name: str, plain, ins, out):
+    """The group operation `name` on input coordinates `ins` (the first three
+    are P1).  Returns (the three output planes, launched)."""
+    full = tuple(ins[0].shape)
+    if any(t.shape != full for t in ins):
+        full = tuple(torch.broadcast_shapes(*[t.shape for t in ins]))
+    shape = full[:-1]
+    if out is not None:
+        _check_out(name, out, full, ins)
+    if all(t.device.type == "cpu" for t in (*ins, *(out or ()))):
+        res = plain(tuple(ins[:3]), tuple(ins[3:]))
+        if out is None:
+            return res, False
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return out, False
+    cuda_lib.check_cuda_operands(name, (*ins, *(out or ())), LIMBS, contiguous=False)
+    if out is None:
+        out = tuple(torch.empty(full, dtype=torch.int32, device=ins[0].device) for _ in range(3))
+    descs, keep = [], []  # keep: any copies, alive until the launch is enqueued
+    for t in ins:
+        d = _plane(t, shape)
+        if d is None:  # a layout the strides cannot express: one contiguous copy
+            t = t.expand(full).contiguous()
+            keep.append(t)
+            d = _plane(t, shape)
+        descs.append(d)
+    for o in out:
+        d = _plane(o, shape)
+        if d is None:
+            raise ValueError(f"{name}: out= planes need contiguous limbs, 16-byte aligned rows "
+                             f"and batch strides that collapse to (outer, inner)")
+        descs.append(d)
     n = 1
     for s in shape:
         n *= s
-    outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
-    return flat, outs, n
+    if n == 0:
+        return out, False
+    lib = cuda_lib.load()
+    p, pinv = cuda_lib.field_consts(FQ)
+    planes = np.array(descs, dtype=np.int64)
+    rc = getattr(lib, f"zk_{name}")(
+        ins[0].device.index, p.ctypes.data, pinv, planes.ctypes.data, n, shape[-1] if shape else 1,
+        cuda_lib.stream_of(out[0]),
+    )
+    cuda_lib.check(rc, name)
+    return out, True
 
 
-def proj_add(P1, P2):
-    """Complete projective add of broadcastable (..., 12) triples."""
-    if all(t.device.type == "cpu" for t in (*P1, *P2)):
-        return proj_add_plain(P1, P2)
-    flat, outs, n = _flatten("proj_add", (*P1, *P2))
-    if n:
-        lib = cuda_lib.load()
-        p, pinv = cuda_lib.field_consts(FQ)
-        rc = lib.zk_proj_add(
-            flat[0].device.index, p.ctypes.data, pinv,
-            *(t.data_ptr() for t in flat), *(t.data_ptr() for t in outs), n,
-            cuda_lib.stream_of(outs[0]),
-        )
-        cuda_lib.check(rc, "proj_add")
-        proj_add.launches += 1
-    return outs
+def proj_add(P1, P2, out=None):
+    """Complete projective add of broadcastable (..., 12) triples; out=:
+    three planes of the batch shape to write into."""
+    res, launched = _run("proj_add", proj_add_plain, (*P1, *P2), out)
+    proj_add.launches += launched
+    return res
 
 
 proj_add.launches = 0
 
 
-def proj_double(P):
+def proj_double(P, out=None):
     """Complete projective doubling of a (..., 12) triple."""
-    if all(t.device.type == "cpu" for t in P):
-        return proj_double_plain(P)
-    flat, outs, n = _flatten("proj_double", P)
-    if n:
-        lib = cuda_lib.load()
-        p, pinv = cuda_lib.field_consts(FQ)
-        rc = lib.zk_proj_double(
-            flat[0].device.index, p.ctypes.data, pinv,
-            *(t.data_ptr() for t in flat), *(t.data_ptr() for t in outs), n,
-            cuda_lib.stream_of(outs[0]),
-        )
-        cuda_lib.check(rc, "proj_double")
-        proj_double.launches += 1
-    return outs
+    res, launched = _run("proj_double", lambda P1, _: proj_double_plain(P1), tuple(P), out)
+    proj_double.launches += launched
+    return res
 
 
 proj_double.launches = 0
 
 
-def proj_madd(P1, A2):
+def proj_madd(P1, A2, out=None):
     """Mixed add of a projective (..., 12) triple and an affine (..., 12)
     pair, broadcastable; (0, 0) is the affine identity."""
-    if all(t.device.type == "cpu" for t in (*P1, *A2)):
-        return proj_madd_plain(P1, A2)
-    flat, outs, n = _flatten("proj_madd", (*P1, *A2))
-    if n:
-        lib = cuda_lib.load()
-        p, pinv = cuda_lib.field_consts(FQ)
-        rc = lib.zk_proj_madd(
-            flat[0].device.index, p.ctypes.data, pinv,
-            *(t.data_ptr() for t in flat), *(t.data_ptr() for t in outs), n,
-            cuda_lib.stream_of(outs[0]),
-        )
-        cuda_lib.check(rc, "proj_madd")
-        proj_madd.launches += 1
-    return outs
+    res, launched = _run("proj_madd", proj_madd_plain, (*P1, *A2), out)
+    proj_madd.launches += launched
+    return res
 
 
 proj_madd.launches = 0

@@ -22,13 +22,22 @@ from .g1 import affine_to_proj, proj_add, proj_identity, proj_madd
 
 
 def point_suffix_scan(P):
-    """T[:, i] = sum_{j >= i} P[:, j] over dim 1 of projective (B, N, 12) planes."""
-    n = P[0].shape[1]
-    d = 1
+    """T[:, i] = sum_{j >= i} P[:, j] over dim 1 of projective (B, N, 12) planes.
+
+    Two buffers take turns: each step's proj_add reads slices of one and
+    writes the other in place, and only the d-row tail that the step leaves
+    unchanged is copied over.  P itself is not written."""
+    B, n, L = P[0].shape
+    if n <= 1:
+        return P
+    bufs = [tuple(torch.empty((B, n, L), dtype=a.dtype, device=a.device) for a in P) for _ in range(2)]
+    d, k = 1, 0
     while d < n:
-        head = proj_add(tuple(a[:, : n - d] for a in P), tuple(a[:, d:] for a in P))
-        P = tuple(torch.cat([h, a[:, n - d :]], dim=1) for h, a in zip(head, P))
-        d *= 2
+        nxt = bufs[k]
+        proj_add(tuple(a[:, : n - d] for a in P), tuple(a[:, d:] for a in P), out=tuple(b[:, : n - d] for b in nxt))
+        for b, a in zip(nxt, P):
+            b[:, n - d :] = a[:, n - d :]
+        P, k, d = nxt, 1 - k, 2 * d
     return P
 
 
@@ -55,10 +64,8 @@ def point_suffix_scan_sparse_affine(A, idx: torch.Tensor, K: int = 16):
     S = tuple(torch.empty((K, B, g, L), dtype=Xa.dtype, device=device) for _ in range(3))
     for s, c in zip(S, carry):
         s[K - 1] = c
-    for t in range(K - 2, -1, -1):
-        carry = proj_madd(carry, (xb[t], yb[t]))
-        for s, c in zip(S, carry):
-            s[t] = c
+    for t in range(K - 2, -1, -1):  # each mixed add writes its column of S in place
+        carry = proj_madd(carry, (xb[t], yb[t]), out=tuple(s[t] for s in S))
 
     # phase 2: suffix scan of the block totals, shifted to exclusive
     R = point_suffix_scan(carry)  # (B, g, L) inclusive

@@ -9,8 +9,9 @@ The CUDA kernel is csrc/mont_mul.cu.  On the H100 it is bound by 32-bit
 integer multiply throughput (a CIOS product over L limbs issues about 2 L^2
 wide multiply-adds: 288 for Fq, 128 for Fr) and by registers (the L + 2 word
 accumulator and both operands stay in registers).  The simple design runs one
-thread per element with 64-bit accumulators, so memory traffic is just the
-operands and the result, and every block is independent.
+thread per element (the product as PTX carry chains for Fq and Fr, 64-bit
+sums for Goldilocks; csrc/field.cuh), so memory traffic is just the operands
+and the result, and every block is independent.
 
 The plain version computes in int64 on base-2^16 digits: a schoolbook column
 sum, m = t * (-p^{-1}) mod R and t + m p as products with constant Toeplitz
