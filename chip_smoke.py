@@ -6,9 +6,9 @@
 Phases:
   1. device: the card's name and power limit (fails without CUDA); the
      kernels built from zktpu_torch/csrc (one nvcc per source, in parallel;
-     ptxas's register and spill counts go to stderr), and the registers and
-     local (spill) bytes of the three group-law kernels (fails if one
-     spills);
+     ptxas's register and spill counts go to stderr), and the registers,
+     local (spill) bytes and shared memory per block of the group-law
+     kernels, the Horner combine and the NTT (fails if one spills);
   2. kernels: holds each CUDA kernel against its plain PyTorch version on
      the card, bit for bit (mont_mul for Fr, Fq and Goldilocks and
      mont_mul_chain at N = 2^16 + 3 with the edge values 0, 1, p - 1;
@@ -17,11 +17,21 @@ Phases:
      and proj_madd also on strided slices of (3, n + 5, 12) planes (n = 2^14
      + 5, 1, 333), a broadcast operand and out= planes; proj_double at the
      Horner combine's (K, 12) for K = 8 and 1, and mont_mul over Fr at one
-     stage of the 2^17 coset NTT, the shapes their paths give them;
+     stage of the 2^17 coset NTT (the shapes their paths gave them before
+     the NTT kernel and the one-launch combine) and at the coset division's
+     (2^17, 8) pointwise product, which the path still gives it; the NTT
+     (ntt against ntt_plain) at the path's 2^17 x batch 7 for fft, ifft,
+     coset_fft and coset_ifft, at 2^20 x 1, n = 2 and n = 2^8 (below one tile),
+     with an all-zero row and a row of p - 1; the Horner combine against its
+     plain loop at (c = 16, K = 1) and (c = 13, K = 8), parts holding the
+     identity;
   3. small proof: a 4-gate circuit proved with every tensor path forced,
      once on the GPU and once on the CPU; the proofs must be equal;
   4. PLONK path: synthetic_mul_chain(log_n) and its SRS on the GPU, prove,
-     verify, and reject a tampered proof; its kernels must have launched;
+     verify, and reject a tampered proof; its kernels must have launched and
+     proj_double must not have (the Horner combine replaces it); then,
+     outside the count, one more prove traced by torch.profiler for its
+     total CUDA kernel launches;
   5. MSM path: zktpu_torch.bench's inputs at 2^msm_log_n (SRS-like points in
      affine form), msm_proj and msm_affine on the same scalars, equal to each
      other and to the host's tau-power sum; its kernels must have launched.
@@ -35,7 +45,8 @@ Launches are set to 0 just before each path (phase 4, the bench, the tool)
 and read just after.  Then one JSON line with the kernels (launches summed
 over the three paths; times and bounds at the shapes the paths give them:
 proj_madd at msm_affine's mixed add, proj_add at msm_proj's first scan step,
-proj_double at K = 1, mont_mul Fr at the NTT stage, the others at phase 2's
+proj_double at K = 1, mont_mul Fr at the coset division's product, ntt_fr
+at 2^17 x 7 (fft), horner_combine at c = 16, K = 1, the others at phase 2's
 shapes), the card's name and power limit, and the final {"ok": true, ...}
 line.  Any failure raises and exits non-zero.
 """
@@ -272,12 +283,15 @@ def _strided_lanes(key: str, kernel, plain, first, second) -> int:
 
 
 def phase_small_path_shapes(device, results: dict) -> None:
-    """proj_double at the Horner combine's (K, 12) accumulators (K = 8, the
-    largest commit_many of the PLONK path, then K = 1, every MSM's and single
-    commit's; the kernels line takes K = 1), and mont_mul over Fr at one
-    butterfly stage of the 2^17 coset NTT (m = 2^9: 2^16 products of a
-    strided odd half by a 2^8-row twiddle table, the wrapper's copy
-    included), each against its plain version."""
+    """proj_double at the (K, 12) accumulators the Horner combine doubled
+    before it became one launch (K = 8, the largest commit_many of the PLONK
+    path, then K = 1, every MSM's and single commit's; the kernels line takes
+    K = 1), mont_mul over Fr at one butterfly stage of the 2^17 coset NTT
+    before the NTT kernel (m = 2^9: 2^16 products of a strided odd half by a
+    2^8-row twiddle table, the wrapper's copy included), and mont_mul over Fr
+    at the coset division's (2^17, 8) pointwise product, which the path
+    still runs (the kernels line takes this one); each against its plain
+    version."""
     from zktpu_torch.curves import g1
     from zktpu_torch.curves.g1_kernel import proj_double, proj_double_plain
     from zktpu_torch.curves.host_curve import G1Affine
@@ -305,9 +319,125 @@ def phase_small_path_shapes(device, results: dict) -> None:
     err = _compare("mont_mul Fr NTT stage", [mont_mul(FR, odd, table)], [mont_mul_plain(FR, odd, table)])
     ms = _cuda_ms(lambda: mont_mul(FR, odd, table), 50)
     plain_ms = _cuda_ms(lambda: mont_mul_plain(FR, odd, table), 5)
-    _record(results, "mont_mul_fr", n // 2, max(err, results["mont_mul_fr"]["max_abs_err"]), ms, plain_ms,
-            (2 * (n // 2) + m // 2) * 32, (n // 2) * _mont_words(8),
-            phase=f"phase 2: 2^17 coset NTT stage m=2^9 ({n // m}, {m // 2}, 8) x ({m // 2}, 8):")
+    print(f"phase 2: mont_mul Fr at a 2^17 NTT stage m=2^9 ({n // m}, {m // 2}, 8) x ({m // 2}, 8) (off the "
+          f"path since the NTT kernel): mismatches=0 kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+    err = max(err, results["mont_mul_fr"]["max_abs_err"])
+    # the coset division's pointwise product by 1/Z_H (plonk/prover.py _coset_divide_zh) at 8n = 2^17
+    y = fr.encode_ints([rng.randrange(FR.modulus) for _ in range(n)])
+    err = max(err, _compare("mont_mul Fr (2^17, 8) x (2^17, 8)", [mont_mul(FR, x, y)], [mont_mul_plain(FR, x, y)]))
+    ms = _cuda_ms(lambda: mont_mul(FR, x, y), 50)
+    plain_ms = _cuda_ms(lambda: mont_mul_plain(FR, x, y), 5)
+    _record(results, "mont_mul_fr", n, err, ms, plain_ms, 3 * n * 32, n * _mont_words(8),
+            phase="phase 2: coset division's product (2^17, 8) x (2^17, 8):")
+
+
+def _ntt_products(n: int, batch: int, factors: int) -> int:
+    """Fr products of a batch of transforms: (n/2) log n butterflies and n
+    per fused factor, for each row."""
+    return batch * ((n // 2) * (n.bit_length() - 1) + factors * n)
+
+
+def phase_ntt_horner(device, results: dict, ntt_sizes=((17, 7), (20, 1), (1, 3), (8, 3)),
+                     horner_shapes=((13, 8, 20), (16, 1, 16))) -> None:
+    """The NTT kernel against ntt_plain and the one-launch Horner combine
+    against its plain loop, 0 mismatching words on every lane.  ntt_sizes:
+    (log n, batch); the kernels line takes ntt_fr from the first one's fft
+    (the path's: _batched_coset_fft's 8n = 2^17 transform of 7 polynomials
+    at 2^14 gates).  horner_shapes: (c, K, W); the kernels line takes
+    horner_combine from the last (the MSM bench's combine at 2^20)."""
+    from zktpu_torch.curves import g1
+    from zktpu_torch.curves.g1_kernel import horner_combine, horner_combine_plain
+    from zktpu_torch.curves.host_curve import G1Affine
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fields.host import FR
+    from zktpu_torch.curves.g1_kernel import proj_add, proj_double
+    from zktpu_torch.poly.domain import Radix2Domain
+    from zktpu_torch.poly.ntt_kernel import ntt, ntt_plain, stage_loop
+
+    fr = field(FR, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+
+    def rows(batch, n):
+        """Canonical Fr limbs (top limb < 2^29 keeps them < 2^253 < p); row 0
+        all zero and row 1 all p - 1 when the batch has them."""
+        t = torch.randint(-(1 << 31), 1 << 31, (batch, n, 8), dtype=torch.int64, device=device, generator=gen)
+        t[..., 7] &= (1 << 29) - 1
+        t = t.to(torch.int32)
+        if batch > 2:
+            t[0] = 0
+            t[1] = fr.encode_int(FR.modulus - 1)
+        return t
+
+    err = 0
+    for log_n, batch in ntt_sizes:
+        n = 1 << log_n
+        dom = Radix2Domain(FR, n, device=device)
+        x = rows(batch, n)
+        g = FR.generator
+        lanes = (("fft", False, None, None), ("ifft", True, None, None),
+                 ("coset_fft", False, dom.offset_powers(g), None), ("coset_ifft", True, None, dom._coset_out(g)))
+        for name, inverse, fin, fout in lanes:
+            table = dom._inv_tw if inverse else dom._fwd_tw
+            got = ntt(x, table, inverse, fin, fout)
+            err = max(err, _compare(f"ntt {name} 2^{log_n} x {batch}", [got], [ntt_plain(x, table, inverse, fin, fout)]))
+            if (log_n, batch) == ntt_sizes[0] and name == "fft":
+                ms = _cuda_ms(lambda: ntt(x, table, inverse, fin, fout), 50)
+                plain_ms = _cuda_ms(lambda: ntt_plain(x, table, inverse, fin, fout), 3)
+                _record(results, "ntt_fr", n * batch, err, ms, plain_ms, (2 * batch * n + n // 2) * 32,
+                        _ntt_products(n, batch, 0) * _mont_words(8),
+                        phase=f"phase 2: ntt fft (2^{log_n}, 8) x batch {batch}:")
+                # what the kernel replaced: the stage loop over kernel 1 (the Goldilocks route)
+                err = max(err, _compare("stage loop over kernel 1", [stage_loop(FR, fr.mont_mul, x, table, inverse)],
+                                        [got]))
+                loop_ms = _cuda_ms(lambda: stage_loop(FR, fr.mont_mul, x, table, inverse), 5)
+                print(f"phase 2: the stage loop over kernel 1 it replaced, same fft: mismatches=0 ms={loop_ms:.4f}",
+                      flush=True)
+            elif batch * n >= 1 << 17:
+                ms = _cuda_ms(lambda: ntt(x, table, inverse, fin, fout), 20)
+                nf = (fin is not None) + (fout is not None) + (inverse and fout is None)
+                b = _bound((2 * batch * n + n // 2 + nf * n) * 32, _ntt_products(n, batch, nf) * _mont_words(8))
+                print(f"phase 2: ntt {name} (2^{log_n}, 8) x batch {batch}: mismatches=0 kernel_ms={ms:.4f} "
+                      f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']})", flush=True)
+        print(f"phase 2: ntt 2^{log_n} x batch {batch}: fft, ifft, coset_fft, coset_ifft mismatches=0", flush=True)
+        del x, dom
+    results["ntt_fr"]["max_abs_err"] = err
+    torch.cuda.empty_cache()
+
+    rng = random.Random(SEED + 2)
+    G = G1Affine.generator()
+    err = 0
+    for c, K, W in horner_shapes:
+        pts = [G.mul(rng.randrange(1, 1 << 30)) for _ in range(W * K)]
+        pts[K] = G1Affine.identity()  # window 1, point 0
+        if W * K > 2:
+            pts[W * K - 1] = G1Affine.identity()  # the top window's last point: the accumulator starts at O
+        parts = tuple(t.reshape(W, K, 12) for t in g1.host_points_to_device(pts, device))
+        got = horner_combine(parts, c)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = horner_combine_plain(parts, c)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err = max(err, _compare(f"horner_combine c={c} K={K}", got, want))
+        ms = _cuda_ms(lambda: horner_combine(parts, c), 20)
+
+        def launch_loop():  # what the kernel replaced: (W - 1)(c + 1) launches of kernels 2 and 4
+            acc = tuple(a[W - 1] for a in parts)
+            for w in range(W - 2, -1, -1):
+                for _ in range(c):
+                    acc = proj_double(acc)
+                acc = proj_add(acc, tuple(a[w] for a in parts))
+            return acc
+
+        err = max(err, _compare(f"launch loop c={c} K={K}", launch_loop(), got))
+        print(f"phase 2: the loop of {(W - 1) * (c + 1)} proj_double/proj_add launches it replaced, c={c} K={K}: "
+              f"mismatches=0 ms={_cuda_ms(launch_loop, 5):.4f}", flush=True)
+        products = K * (W - 1) * (8 * c + 12)
+        _record(results, "horner_combine", K, err, ms, plain_ms, 3 * (W + 1) * K * 48, products * _mont_words(12),
+                phase=f"phase 2: horner_combine c={c} K={K} W={W} ({(W - 1) * c} doubles, "
+                      f"{1e3 * ms / ((W - 1) * c):.2f} us each with the adds):")
 
 
 def _pythagorean_circuit():
@@ -351,10 +481,11 @@ def phase_small_proof(device) -> None:
 
 
 def _wrappers():
-    from zktpu_torch.curves.g1_kernel import proj_add, proj_double, proj_madd
+    from zktpu_torch.curves.g1_kernel import horner_combine, proj_add, proj_double, proj_madd
     from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_chain
+    from zktpu_torch.poly.ntt_kernel import ntt
 
-    return mont_mul, (proj_add, proj_double, proj_madd, mont_mul_chain)
+    return mont_mul, (proj_add, proj_double, proj_madd, mont_mul_chain, ntt, horner_combine)
 
 
 def _reset_launches() -> None:
@@ -368,7 +499,7 @@ def _reset_launches() -> None:
 def _read_launches() -> dict:
     from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
 
-    mont_mul, (proj_add, proj_double, proj_madd, mont_mul_chain) = _wrappers()
+    mont_mul, (proj_add, proj_double, proj_madd, mont_mul_chain, ntt, horner_combine) = _wrappers()
     return {
         "mont_mul_fr": mont_mul.launches[FR.name],
         "mont_mul_fq": mont_mul.launches[FQ.name],
@@ -377,6 +508,8 @@ def _read_launches() -> dict:
         "proj_double": proj_double.launches,
         "proj_madd": proj_madd.launches,
         "mont_mul_chain": mont_mul_chain.launches,
+        "ntt_fr": ntt.launches,
+        "horner_combine": horner_combine.launches,
     }
 
 
@@ -402,8 +535,9 @@ def phase_plonk(device, log_n: int) -> dict:
     verify(circuit, srs, proof)
     t_verify = time.perf_counter() - t0
     launches = _read_launches()
-    path = ("mont_mul_fr", "mont_mul_fq", "proj_add", "proj_double")
+    path = ("mont_mul_fr", "mont_mul_fq", "proj_add", "ntt_fr", "horner_combine")
     assert all(launches[k] > 0 for k in path), f"a kernel of the PLONK path never launched: {launches}"
+    assert launches["proj_double"] == 0, f"the PLONK path doubled outside the Horner combine: {launches}"
 
     proof.bar_a = FR.add(proof.bar_a, 1)
     try:
@@ -422,7 +556,20 @@ def phase_plonk(device, log_n: int) -> dict:
     )
     print(f"phase 4: rounds {json.dumps(rounds)}", flush=True)
     print(f"phase 4: launches {json.dumps(launches)}", flush=True)
+    print(f"phase 4: one traced prove (outside the count): {_traced_prove(circuit, srs)}", flush=True)
     return launches
+
+
+def _traced_prove(circuit, srs) -> str:
+    """One prove under torch.profiler (zktpu_torch.tools.prof_prove): its
+    CUDA kernel launches, device time and wall time; the table by device
+    time goes to stderr."""
+    from zktpu_torch.tools.prof_prove import trace_prove
+
+    t, table = trace_prove(circuit, srs, SEED)
+    print(table, file=sys.stderr)
+    return (f"{t['launch_calls']} kernel launch calls, {t['device_kernels']} device kernels, wall {t['wall_s']:.3f} s, "
+            f"device {t['device_s']:.3f} s (idle {100 * t['idle_share']:.1f}%)")
 
 
 def phase_msm(device, log_n: int):
@@ -444,8 +591,9 @@ def phase_msm(device, log_n: int):
           flush=True)
     r = bench.run(log_n, iters=2, device=device, inputs=inputs)  # asserts msm_affine == msm_proj
     launches = _read_launches()
-    path = ("mont_mul_fq", "proj_add", "proj_double", "proj_madd")
+    path = ("mont_mul_fq", "proj_add", "proj_madd", "horner_combine")
     assert all(launches[k] > 0 for k in path), f"a kernel of the MSM path never launched: {launches}"
+    assert launches["proj_double"] == 0, f"the MSM path doubled outside the Horner combine: {launches}"
 
     # the whole 2^log_n result against the host: sum s_i tau^i G = (sum s_i tau^i) G
     t0 = time.perf_counter()
@@ -568,6 +716,10 @@ _SOURCES = {
     "proj_double": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/pallas_g1.py:211"),
     "proj_madd": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/pallas_g1.py:161"),
     "mont_mul_chain": ("zktpu_torch/csrc/mont_mul.cu", "tools/prof_mulkernels.py:191"),
+    # the stage loop of zktpu's _transform around kernel 1 (pallas_mont.py:363)
+    "ntt_fr": ("zktpu_torch/csrc/ntt.cu", "zktpu/poly/domain.py:116"),
+    # the fori_loop of _proj_double_call (pallas_g1.py:211) and proj_add in zktpu's msm_proj
+    "horner_combine": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/msm.py:139"),
 }
 
 
@@ -594,14 +746,18 @@ def main(argv=None) -> int:
           f"-> {os.path.relpath(cuda_lib.library_path())}", flush=True)
     print(f"phase 1: pairing backend {pairing_backend()}", flush=True)
     from zktpu_torch.curves import g1_kernel
+    from zktpu_torch.poly import ntt_kernel
 
-    attrs = {k: g1_kernel.kernel_attrs(k) for k in ("proj_add", "proj_madd", "proj_double")}
+    attrs = {k: g1_kernel.kernel_attrs(k) for k in ("proj_add", "proj_madd", "proj_double", "horner_combine")}
+    attrs["ntt_fr"] = ntt_kernel.kernel_attrs()
     print("phase 1: registers " + "; ".join(
-        f"{k}: {a['registers']} registers, {a['local_bytes']} local bytes" for k, a in attrs.items()), flush=True)
-    assert all(a["local_bytes"] == 0 for a in attrs.values()), f"a group-law kernel spills: {attrs}"
+        f"{k}: {a['registers']} registers, {a['local_bytes']} local bytes, {a['shared_bytes']} shared bytes per block"
+        for k, a in attrs.items()), flush=True)
+    assert all(a["local_bytes"] == 0 for a in attrs.values()), f"a kernel spills: {attrs}"
 
     kernels = phase_kernels(device)
     phase_small_path_shapes(device, kernels)
+    phase_ntt_horner(device, kernels, ntt_sizes=((args.log_n + 3, 7), (20, 1), (1, 3), (8, 3)))
     phase_small_proof(device)
     plonk = phase_plonk(device, args.log_n)
     msm_path, tool, inputs = phase_msm(device, args.msm_log_n)

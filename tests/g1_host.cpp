@@ -59,3 +59,31 @@ extern "C" int host_mont_mul(int limbs, const uint32_t* p, uint32_t pinv, const 
     default: return -1;
   }
 }
+
+// The Horner combine as the kernel runs it: one block of HORNER_GROUPS
+// groups of HORNER_LANES lanes after another, each phase of the schedule
+// run by every lane in turn (the warp barrier between phases).  ptrs: X, Y,
+// Z of the (W, K, 12) parts, then X, Y, Z of the (K, 12) output.
+extern "C" void host_horner_combine(const uint32_t* p, uint32_t pinv, const int64_t* ptrs, int64_t W, int64_t K,
+                                    int64_t c) {
+  HornerArgs a;
+  for (int i = 0; i < 3; ++i) {
+    a.parts[i] = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[i]));
+    a.out[i] = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(ptrs[3 + i]));
+  }
+  a.W = (uint32_t)W;
+  a.K = (uint32_t)K;
+  a.c = (uint32_t)c;
+  const FqConsts f = make_consts<FQ_LIMBS>(p, pinv);
+  for (uint32_t block = 0; block * HORNER_GROUPS < a.K; ++block) {
+    HornerGroup groups[HORNER_GROUPS];
+    horner_schedule(
+        [&](int phase, uint32_t w) {
+          for (uint32_t t = 0; t < HORNER_THREADS; ++t) {
+            const uint32_t g = t / HORNER_LANES, kk = block * HORNER_GROUPS + g;
+            horner_phase(phase, groups[g], t % HORNER_LANES, a, kk < a.K ? kk : a.K - 1, kk < a.K, w, f);
+          }
+        },
+        a.W, a.c);
+  }
+}

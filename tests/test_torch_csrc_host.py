@@ -1,13 +1,17 @@
 """The CUDA kernels' own arithmetic on the CPU, against the plain versions.
 
-csrc/field.cuh and csrc/g1.cuh compile as host C++ (tests/g1_host.cpp): the
-PTX carry chains of the Montgomery product are emulated one instruction for
-one, and the per-point code of the add, mixed add and double runs as each
-CUDA thread runs it, strided planes and all.  So the carry chains, the lazy
-reduction bounds and the plane addressing are held word for word against
-the plain PyTorch versions here, though only the card can run the kernels.
-Inputs are arbitrary field elements (the formulas are field arithmetic and
-need no curve points), with the extreme values 0, 1 and p - 1.
+csrc/field.cuh, csrc/g1.cuh and csrc/ntt.cuh compile as host C++
+(tests/g1_host.cpp, tests/ntt_host.cpp): the PTX carry chains of the
+Montgomery product are emulated one instruction for one, the per-point code
+of the add, mixed add and double runs as each CUDA thread runs it, strided
+planes and all, the Horner combine runs its lane schedule phase by phase,
+and the NTT runs each pass block by block and each block's phases thread by
+thread.  So the carry chains, the lazy reduction bounds, the plane
+addressing, the lane exchange and the NTT's pass and tile index math are
+held word for word against the plain PyTorch versions here, though only the
+card can run the kernels.  Inputs are arbitrary field elements (the
+formulas are field arithmetic and need no curve points), with the extreme
+values 0, 1 and p - 1.
 """
 import ctypes
 import hashlib
@@ -21,39 +25,48 @@ import torch
 
 from zktpu_torch import cuda_lib
 from zktpu_torch.curves import g1_kernel
-from zktpu_torch.curves.g1_kernel import proj_add_plain, proj_double_plain, proj_madd_plain
+from zktpu_torch.curves.g1_kernel import horner_combine_plain, proj_add_plain, proj_double_plain, proj_madd_plain
 from zktpu_torch.fields.fp import field, ints_to_limbs
 from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
 from zktpu_torch.fields.mont_kernel import mont_mul_plain
+from zktpu_torch.poly import ntt_kernel
+from zktpu_torch.poly.domain import get_domain
 
 torch.set_num_threads(1)  # the suite runs one process per core: intra-op threads would oversubscribe it
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SHIM = os.path.join(HERE, "g1_host.cpp")
+NTT_SHIM = os.path.join(HERE, "ntt_host.cpp")
 FQT = field(FQ, "cpu")
+
+
+def _build(shim: str, name: str, flags=()) -> ctypes.CDLL:
+    """The host build of `shim` with extra g++ `flags`, cached by content."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the host copy of the kernels' code")
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in (shim, *(os.path.join(cuda_lib.CSRC_DIR, n) for n in cuda_lib.HEADERS)):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(cuda_lib.BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    if not os.path.exists(out):
+        os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas", *flags, "-o", tmp,
+                        shim], check=True, capture_output=True)
+        os.replace(tmp, out)
+    return ctypes.CDLL(out)
 
 
 @pytest.fixture(scope="module")
 def lib():
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ to build the host copy of the kernels' code")
-    h = hashlib.sha256()
-    for path in (SHIM, *(os.path.join(cuda_lib.CSRC_DIR, n) for n in cuda_lib.HEADERS)):
-        with open(path, "rb") as f:
-            h.update(f.read())
-    out = os.path.join(cuda_lib.BUILD_DIR, f"libg1_host-{h.hexdigest()[:16]}.so")
-    if not os.path.exists(out):
-        os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas", "-o", tmp, SHIM],
-                       check=True, capture_output=True)
-        os.replace(tmp, out)
-    so = ctypes.CDLL(out)
+    so = _build(SHIM, "g1_host")
     P = ctypes.c_void_p
     for name in ("host_proj_add", "host_proj_madd", "host_proj_double"):
         getattr(so, name).argtypes = [P, ctypes.c_uint32, P, ctypes.c_int64, ctypes.c_int64]
     so.host_mont_mul.argtypes = [ctypes.c_int, P, ctypes.c_uint32, P, P, P, ctypes.c_int64, ctypes.c_int]
+    so.host_horner_combine.argtypes = [P, ctypes.c_uint32, P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
     return so
 
 
@@ -148,3 +161,74 @@ def test_host_proj_double_matches_plain(lib):
     got = _host_op(lib, "proj_double", P, (3, 23))
     for g, w in zip(got, proj_double_plain(P)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("W,K,c", [(3, 3, 4), (2, 9, 2), (1, 2, 5)])
+def test_host_horner_combine_matches_plain(lib, W, K, c):
+    """The lane schedule (four lanes per point, eight points per warp) on
+    arbitrary elements: a group past the last point (K = 3), two blocks
+    (K = 9), no doubling at all (W = 1), and all-zero rows."""
+    rng = np.random.default_rng(12 + K)
+    parts = [FQT.encode_ints(_elements(rng, FQ, W * K)).reshape(W, K, 12) for _ in range(3)]
+    for t in parts:
+        t[0, 0] = 0
+    out = tuple(torch.zeros((K, 12), dtype=torch.int32) for _ in range(3))
+    ptrs = np.array([t.data_ptr() for t in (*parts, *out)], dtype=np.int64)
+    p, pinv = cuda_lib.field_consts(FQ)
+    lib.host_horner_combine(p.ctypes.data, pinv, ptrs.ctypes.data, W, K, c)
+    for g, w in zip(out, horner_combine_plain(parts, c)):
+        assert torch.equal(g, w)
+
+
+# Small tiles: 2^4 elements, at least 2 columns, 4 threads a block, so 2^7-2^9
+# take 2-3 passes; and the library's own tiles (2^12 takes 2 passes).
+SMALL_TILES = ("-DZK_NTT_LOG_TILE=4", "-DZK_NTT_LOG_MIN_COLS=1", "-DZK_NTT_THREADS=4")
+
+
+@pytest.fixture(scope="module")
+def ntt_lib(request):
+    so = _build(NTT_SHIM, "ntt_host", request.param)
+    P = ctypes.c_void_p
+    so.host_ntt_fr.argtypes = [P, ctypes.c_uint32, P, P, ctypes.c_int64, ctypes.c_int, P, P, ctypes.c_int64, P,
+                               ctypes.c_int64]
+    so.host_ntt_fr.restype = ctypes.c_int
+    return request.param, so
+
+
+def _host_ntt(so, x, table, in_factor, out_factor):
+    n = x.shape[-2]
+    out = torch.zeros_like(x)
+    args, keep = [], []  # keep: the factor rows, alive until the call returns
+    for t in (in_factor, out_factor):
+        rows = None if t is None else t.reshape(-1, 8).contiguous()
+        keep.append(rows)
+        args += [0 if rows is None else rows.data_ptr(), int(rows is not None and rows.shape[0] == n and n > 1)]
+    p, pinv = cuda_lib.field_consts(FR)
+    passes = so.host_ntt_fr(p.ctypes.data, pinv, x.data_ptr(), out.data_ptr(), x.shape[0], n.bit_length() - 1,
+                            table.data_ptr(), *args)
+    return out, passes
+
+
+@pytest.mark.parametrize("ntt_lib,log_n", [(SMALL_TILES, k) for k in (1, 5, 7, 8, 9)] + [((), 5), ((), 12)],
+                         indirect=["ntt_lib"], ids=lambda v: ("small_tiles" if v else "library_tiles")
+                         if isinstance(v, tuple) else f"2^{v}")
+def test_host_ntt_matches_plain(ntt_lib, log_n):
+    """fft, ifft, coset_fft and coset_ifft over a batch of 2 rows (0, 1 and
+    p - 1 among them), with the factors as the domain passes them."""
+    flags, so = ntt_lib
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    f = field(FR, "cpu")
+    x = f.encode_ints(_elements(rng, FR, 2 * n) if n > 2 else [0, 1, FR.modulus - 1, 5]).reshape(2, n, 8)
+    dom = get_domain(FR, n, device="cpu")
+    g = FR.generator
+    n_inv = ntt_kernel._n_inv(FR, n, x.device)
+    for inverse, fin, fout in ((False, None, None), (True, None, n_inv), (False, dom.offset_powers(g), None),
+                               (True, None, dom._coset_out(g))):
+        table = dom._inv_tw if inverse else dom._fwd_tw
+        got, passes = _host_ntt(so, x, table, fin, fout)
+        assert torch.equal(got, ntt_kernel.ntt_plain(x, table, inverse, fin, fout)), (inverse, fin is not None)
+    if flags and log_n >= 7:
+        assert passes >= 2
+    if not flags:
+        assert passes == (2 if log_n == 12 else 1)

@@ -186,3 +186,87 @@ def test_redesigned_adds_strided_broadcast_out(device, name):
     pts = g1.host_points_to_device([G.mul(3), G.mul(5)], device)
     if name == "proj_add":
         assert g1.proj_to_affine_host(kernel(pts, pts)) == [G.mul(6), G.mul(10)]
+
+
+@pytest.mark.parametrize("log_n", [0, 1, 5, 9, 12, 15])
+def test_ntt_kernel_matches_plain(device, log_n):
+    """fft, ifft, coset_fft and coset_ifft on a batch of 3 (an all-zero row,
+    a row of p - 1), one pass (n <= 2^9, one tile) and two; launches
+    counted; 0 spills."""
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.poly import ntt_kernel
+    from zktpu_torch.poly.domain import get_domain
+
+    n = 1 << log_n
+    f = field(FR, device)
+    rng = random.Random(log_n)
+    x = f.encode_ints([rng.randrange(FR.modulus) for _ in range(3 * n)]).reshape(3, n, 8)
+    x[0] = 0
+    x[1] = f.encode_int(FR.modulus - 1)
+    dom = get_domain(FR, n, device=device)
+    g = FR.generator
+    for inverse, fin, fout in ((False, None, None), (True, None, None), (False, dom.offset_powers(g), None),
+                               (True, None, dom._coset_out(g) if n > 1 else None)):
+        table = dom._inv_tw if inverse else dom._fwd_tw
+        before = ntt_kernel.ntt.launches
+        got = ntt_kernel.ntt(x, table, inverse, fin, fout)
+        assert ntt_kernel.ntt.launches == before + (1 if log_n <= 9 else 2)
+        assert torch.equal(got, ntt_kernel.ntt_plain(x, table, inverse, fin, fout)), (inverse, fin is not None)
+    assert ntt_kernel.kernel_attrs()["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("W,K,c", [(4, 1, 16), (3, 8, 13), (2, 9, 3), (1, 2, 4)])
+def test_horner_combine_kernel_matches_plain(device, W, K, c):
+    """One launch against the plain loop, with an identity among the parts,
+    K past one warp's eight points, and W = 1."""
+    from zktpu_torch.curves import g1
+    from zktpu_torch.curves.g1_kernel import horner_combine, horner_combine_plain, kernel_attrs
+
+    G = G1Affine.generator()
+    rng = random.Random(W * 100 + K)
+    pts = [G.mul(rng.randrange(1, 1 << 20)) for _ in range(W * K)]
+    pts[0] = G1Affine.identity()
+    parts = tuple(t.reshape(W, K, 12) for t in g1.host_points_to_device(pts, device))
+    before = horner_combine.launches
+    got = horner_combine(parts, c)
+    assert horner_combine.launches == before + 1
+    want = horner_combine_plain(parts, c)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert kernel_attrs("horner_combine")["local_bytes"] == 0
+
+
+def test_pythagorean_proof_tensor_paths_gpu_equals_cpu(device):
+    """Every tensor path forced (NTT kernel, Horner combine, coset quotient):
+    the proof from the card has the CPU's bytes and verifies."""
+    import zktpu_torch.config as cfg
+    from zktpu_torch.kzg import Srs
+    from zktpu_torch.plonk.circuit import Circuit
+    from zktpu_torch.plonk.prover import generate_proof
+    from zktpu_torch.plonk.verifier import verify
+    from zktpu_torch.poly import ntt_kernel
+    from zktpu_torch.transcript.chacha import StdRng
+
+    def circuit():
+        c = Circuit()
+        c.add_multiplication_gate((1, 0, 3), (0, 0, 3), (0, 3, 9), 0)
+        c.add_multiplication_gate((1, 1, 4), (0, 1, 4), (1, 3, 16), 0)
+        c.add_multiplication_gate((1, 2, 5), (0, 2, 5), (2, 3, 25), 0)
+        c.add_addition_gate((2, 0, 9), (2, 1, 16), (2, 2, 25), 0)
+        return c
+
+    saved = (cfg.HOST_MSM_MAX, cfg.HOST_NTT_MAX, cfg.HOST_POLY_MAX)
+    cfg.HOST_MSM_MAX = cfg.HOST_NTT_MAX = cfg.HOST_POLY_MAX = 0
+    try:
+        proofs = {}
+        for dev in (device, torch.device("cpu")):
+            compiled = circuit().compile(device=dev)
+            srs = Srs.new_from_secret(0x5EED5EED, compiled.size, device=dev)
+            before = ntt_kernel.ntt.launches
+            proofs[dev.type] = generate_proof(compiled, srs, StdRng.from_seed_u64(7), force="coset")
+            if dev.type == "cuda":
+                assert ntt_kernel.ntt.launches > before
+            verify(compiled, srs, proofs[dev.type])
+    finally:
+        cfg.HOST_MSM_MAX, cfg.HOST_NTT_MAX, cfg.HOST_POLY_MAX = saved
+    assert proofs["cuda"] == proofs["cpu"]

@@ -117,3 +117,32 @@ def test_scans_in_place_match_reference(n):
     sums = g1.proj_to_affine_host(point_suffix_scan_sparse_affine(A, idx))
     flat = g1.proj_to_affine_host(want)
     assert sums == [flat[b * n + i] if i < n else G1Affine.identity() for b in range(2) for i in idx[b].tolist()]
+
+
+@pytest.mark.parametrize("W,K", [(3, 1), (4, 3), (5, 1), (5, 3)])
+def test_horner_combine_plain_matches_old_loop_and_host(W, K):
+    """horner_combine_plain (what the one-launch kernel is held against) at
+    c = 4: equal words to the loop of proj_double / proj_add calls that
+    _combine ran before, and equal points to sum_w 2^(c w) part_w in host
+    arithmetic; one part is the identity."""
+    from zktpu_torch.curves.g1_kernel import horner_combine_plain
+
+    c = 4
+    pts = _points(W * K, seed=10 * W + K)
+    pts[1] = G1Affine.identity()
+    parts = tuple(t.reshape(W, K, 12) for t in g1.host_points_to_device(pts, device="cpu"))
+    got = horner_combine_plain(parts, c)
+    acc = tuple(a[W - 1] for a in parts)
+    for w in range(W - 2, -1, -1):
+        for _ in range(c):
+            acc = g1.proj_double(acc)
+        acc = g1.proj_add(acc, tuple(a[w] for a in parts))
+    for a, b in zip(got, acc):
+        assert torch.equal(a, b)
+    want = []
+    for k in range(K):
+        s = G1Affine.identity()
+        for w in range(W):
+            s = s + pts[w * K + k].mul(1 << (c * w))
+        want.append(s)
+    assert g1.proj_to_affine_host(got) == want

@@ -38,6 +38,39 @@ def test_transforms_match_zktpu_host_transform(spec, log_n):
     assert f.decode_ints(dom.elements_device()) == ref.elements_ints()
 
 
+@pytest.mark.parametrize("log_n", range(1, 9))
+def test_transforms_match_zktpu_host_transform_batched_factors(log_n):
+    """ntt_plain (what the NTT kernel is held against) on a batch of 3, with
+    the factors the domain fuses into the kernel: offset^i on the input
+    (coset_fft), 1/n and 1/n offset^-i on the output (ifft, coset_ifft)."""
+    from zktpu_torch.poly import ntt_kernel
+
+    spec, n = host.FR, 1 << log_n
+    rng = random.Random(100 + log_n)
+    rows = [[rng.randrange(P) for _ in range(n)] for _ in range(3)]
+    rows[1][0] = P - 1
+    ref = zktpu_domain(spec, n)
+    dom = get_domain(spec, n, device="cpu")
+    f = field(spec, "cpu")
+    x = f.encode_ints([v for r in rows for v in r]).reshape(3, n, 8)
+    g, g_inv = spec.generator, pow(spec.generator, -1, P)
+
+    def decoded(t):
+        flat = f.decode_ints(t)
+        return [flat[i * n:(i + 1) * n] for i in range(3)]
+
+    def scaled(r, o):
+        return [v * pow(o, i, P) % P for i, v in enumerate(r)]
+
+    got = ntt_kernel.ntt_plain(x, dom._fwd_tw, False, in_factor=dom.offset_powers(g))
+    assert decoded(got) == [ref._host_transform(scaled(r, g), False) for r in rows]
+    got = ntt_kernel.ntt_plain(x, dom._inv_tw, True)
+    assert decoded(got) == [ref._host_transform(r, True) for r in rows]
+    got = ntt_kernel.ntt_plain(x, dom._inv_tw, True, out_factor=dom._coset_out(g))
+    assert decoded(got) == [scaled(ref._host_transform(r, True), g_inv) for r in rows]
+    assert torch.equal(dom.coset_ifft(dom.coset_fft(x, g, force_device=True), g), x)
+
+
 def _ints(poly):
     return poly.to_ints()
 

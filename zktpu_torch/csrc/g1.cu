@@ -26,6 +26,8 @@
 //   broadcasts of (B, N, 12) planes are read in place, with no copy, and the
 //   outputs can be any caller-given planes that do not overlap the inputs.
 // The double (kernel 3) keeps canonical helpers and one block per SM.
+// The Horner combine (end of file) runs the MSM's chain of doubles and adds
+// in one launch.
 #include <cuda_runtime.h>
 
 #include "g1.cuh"
@@ -75,8 +77,40 @@ static Planes<N> make_planes(const int64_t* desc) {
   return pl;
 }
 
+// The Horner combine of the MSM's window sums in one launch.
+//
+// Replaces the loop of zktpu/curves/msm.py:139-148 (a fori_loop of c
+// proj_double calls, pallas_g1.py:211 _proj_double_call, and one proj_add,
+// pallas_g1.py:125, per window), which the port ran as (W - 1)(c + 1)
+// launches of a (K, 12) batch: 255 at c = 16, each about 25 us of device
+// time behind 70-80 us of host time.
+//
+// What bounds it: the serial depth of the chain, (W - 1) c doublings and
+// W - 1 adds one after another for each of K <= 8 points, so the latency of
+// one double and not throughput.  What the design does about it: one launch
+// runs the whole chain, with the accumulator in shared memory; a group of
+// HORNER_LANES = 4 lanes per point runs the independent products of each
+// formula step at once (g1.cuh horner_phase), so a double takes two product
+// latencies instead of eight and an add four instead of twelve; one warp
+// holds eight points, so K <= 8 is one block.
+__global__ void __launch_bounds__(HORNER_THREADS, 1)
+horner_combine_kernel(HornerArgs a, FqConsts f) {
+  __shared__ HornerGroup groups[HORNER_GROUPS];
+  const uint32_t lane = threadIdx.x % HORNER_LANES, g = threadIdx.x / HORNER_LANES;
+  const uint32_t kk = blockIdx.x * HORNER_GROUPS + g;
+  const bool live = kk < a.K;
+  const uint32_t k = live ? kk : a.K - 1;
+  horner_schedule(
+      [&](int phase, uint32_t w) {
+        horner_phase(phase, groups[g], lane, a, k, live, w, f);
+        __syncwarp();
+      },
+      a.W, a.c);
+}
+
 static const void* const KERNELS[] = {
-    (const void*)proj_add_kernel, (const void*)proj_madd_kernel, (const void*)proj_double_kernel};
+    (const void*)proj_add_kernel, (const void*)proj_madd_kernel, (const void*)proj_double_kernel,
+    (const void*)horner_combine_kernel};
 
 template <int N>
 static int launch_kind(int kind, int device, const uint32_t* p, uint32_t pinv, const int64_t* planes,
@@ -112,14 +146,38 @@ extern "C" int zk_proj_double(int device, const uint32_t* p, uint32_t pinv, cons
   return launch_kind<6>(2, device, p, pinv, planes, n, inner, stream);
 }
 
-// Registers per thread and local memory (spills) of one kernel: kind 0 add,
-// 1 mixed add, 2 double.  out = {registers, local bytes}.
+// sum_w 2^(c w) part_w for K points: parts = X, Y, Z of the (W, K, 12)
+// window sums, out = X, Y, Z of the (K, 12) result, all contiguous.
+// Returns cudaGetLastError() after the launch, or -1 for a bad size.
+extern "C" int zk_horner_combine(int device, const uint32_t* p, uint32_t pinv, const int64_t* ptrs, int64_t W,
+                                 int64_t K, int64_t c, void* stream) {
+  if (W < 1 || K < 1 || c < 0 || W * K >= (int64_t(1) << 31)) return -1;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  HornerArgs a;
+  for (int i = 0; i < 3; ++i) {
+    a.parts[i] = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[i]));
+    a.out[i] = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(ptrs[3 + i]));
+  }
+  a.W = (uint32_t)W;
+  a.K = (uint32_t)K;
+  a.c = (uint32_t)c;
+  FqConsts f = make_consts<FQ_LIMBS>(p, pinv);
+  const unsigned blocks = (unsigned)((K + HORNER_GROUPS - 1) / HORNER_GROUPS);
+  horner_combine_kernel<<<blocks, HORNER_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, f);
+  return (int)cudaGetLastError();
+}
+
+// Registers per thread, local memory (spills) and static shared memory of
+// one kernel: kind 0 add, 1 mixed add, 2 double, 3 Horner combine.
+// out = {registers, local bytes, shared bytes}.
 extern "C" int zk_g1_kernel_attrs(int kind, int* out) {
-  if (kind < 0 || kind > 2) return -1;
+  if (kind < 0 || kind > 3) return -1;
   cudaFuncAttributes a;
   const cudaError_t e = cudaFuncGetAttributes(&a, KERNELS[kind]);
   if (e != cudaSuccess) return (int)e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
   return 0;
 }

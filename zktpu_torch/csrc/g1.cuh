@@ -268,3 +268,202 @@ ZK_FN void proj_double_at(const Planes<6>& pl, uint32_t o, uint32_t j, const FqC
   store_row(row_ptr(q[4], o, j), Y3);
   store_row(row_ptr(q[5], o, j), Z3);
 }
+
+// ---------------------------------------------------------------------------
+// The Horner combine of the MSM's window sums: acc = part[W-1], then for
+// w = W-2 .. 0, c doublings (Alg. 9) and one add of part[w] (Alg. 7), the
+// same canonical formulas as proj_double_point and proj_add_formula, so the
+// same words.  The chain is serial, so its time is the latency of one
+// double times (W - 1) c.  A group of HORNER_LANES lanes runs one point:
+// the independent Montgomery products of each formula step go to separate
+// lanes, which exchange them through the group's shared memory.  The double
+// is two steps of four independent products (Y Y, Y Z, Z Z, X Y, then
+// t2 z3, t1 z3, t0' y3, t0' (X Y)), the add two steps of six; between them
+// every lane computes the few sums the next step needs, and lane 0 the
+// formula's outputs.  With one lane per point the same schedule runs every
+// product on that lane.  The schedule is a list of phases with a warp
+// barrier after each (horner_schedule); the host tests run each phase for
+// every lane in turn.
+// ---------------------------------------------------------------------------
+#ifndef ZK_HORNER_LANES
+#define ZK_HORNER_LANES 4
+#endif
+constexpr uint32_t HORNER_LANES = ZK_HORNER_LANES;
+constexpr uint32_t HORNER_THREADS = 32;  // one warp per block
+constexpr uint32_t HORNER_GROUPS = HORNER_THREADS / HORNER_LANES;
+
+struct HornerGroup {
+  uint32_t P[3][FQ_LIMBS];  // the accumulator X, Y, Z
+  uint32_t T[6][FQ_LIMBS];  // the products of a formula's first step
+  uint32_t V[6][FQ_LIMBS];  // the products of its second step
+};
+
+struct HornerArgs {
+  const uint32_t* parts[3];  // X, Y, Z of the window sums: contiguous (W, K, 12)
+  uint32_t* out[3];          // X, Y, Z of the result: contiguous (K, 12)
+  uint32_t W, K, c;
+};
+
+enum HornerPhase { H_LOAD, H_DBL1, H_DBL2, H_DBL3, H_ADD1, H_ADD2, H_ADD3, H_STORE };
+
+// run(phase, w) runs one phase for the lanes and then synchronises them.
+template <class Run>
+ZK_FN void horner_schedule(Run&& run, uint32_t W, uint32_t c) {
+  run(H_LOAD, W - 1);
+  for (uint32_t w = W - 1; w-- > 0;) {
+    for (uint32_t d = 0; d < c; ++d) {
+      run(H_DBL1, w);
+      run(H_DBL2, w);
+      run(H_DBL3, w);
+    }
+    run(H_ADD1, w);
+    run(H_ADD2, w);
+    run(H_ADD3, w);
+  }
+  run(H_STORE, 0);
+}
+
+// Row k of window w of coordinate `coord`; selects rather than an index
+// into the argument's array, which would put the array in local memory.
+ZK_FN const uint32_t* horner_part(const HornerArgs& a, uint32_t coord, uint32_t w, uint32_t k) {
+  const uint32_t* plane = coord == 0 ? a.parts[0] : (coord == 1 ? a.parts[1] : a.parts[2]);
+  return plane + ((uint64_t)w * a.K + k) * FQ_LIMBS;
+}
+
+// One phase of point k's chain for lane `lane` of its group G.  `live` is
+// false for the lanes of a group past the last point, which run along on
+// point K - 1 and store nothing.
+ZK_FN void horner_phase(int phase, HornerGroup& G, uint32_t lane, const HornerArgs& a, uint32_t k, bool live,
+                        uint32_t w, const FqConsts& f) {
+  constexpr int L = FQ_LIMBS;
+  switch (phase) {
+    case H_LOAD:
+      if (lane == 0) {
+        uint32_t x[L];
+        for (uint32_t i = 0; i < 3; ++i) {
+          load_row(x, horner_part(a, i, w, k));
+          copy_limbs<L>(G.P[i], x);
+        }
+      }
+      break;
+    case H_DBL1:  // T = (Y Y, Y Z, Z Z, X Y)
+#pragma unroll 1
+      for (uint32_t q = lane; q < 4; q += HORNER_LANES) {
+        uint32_t x[L], y[L];
+        copy_limbs<L>(x, G.P[q == 3 ? 0 : (q == 2 ? 2 : 1)]);
+        copy_limbs<L>(y, G.P[q == 0 || q == 3 ? 1 : 2]);
+        fmul<L>(x, x, y, f);
+        copy_limbs<L>(G.T[q], x);
+      }
+      break;
+    case H_DBL2: {  // V = (t2 z3, t1 z3, t0' y3, t0' xy)
+      uint32_t t0[L], t2[L], z3[L], y3[L], u[L];
+      copy_limbs<L>(t0, G.T[0]);
+      fdbl<L>(z3, t0, f);  // z3 = 8 Y^2
+      fdbl<L>(z3, z3, f);
+      fdbl<L>(z3, z3, f);
+      copy_limbs<L>(u, G.T[2]);
+      fq_mul12(t2, u, f);  // t2 = 3b Z^2
+      fadd<L>(y3, t0, t2, f);
+      fdbl<L>(u, t2, f);  // 9b Z^2
+      fadd<L>(u, u, t2, f);
+      fsub<L>(t0, t0, u, f);  // t0' = Y^2 - 9b Z^2
+#pragma unroll 1
+      for (uint32_t q = lane; q < 4; q += HORNER_LANES) {
+        uint32_t x[L], y[L];
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          x[j] = q == 0 ? t2[j] : (q == 1 ? G.T[1][j] : t0[j]);
+          y[j] = q <= 1 ? z3[j] : (q == 2 ? y3[j] : G.T[3][j]);
+        }
+        fmul<L>(x, x, y, f);
+        copy_limbs<L>(G.V[q], x);
+      }
+      break;
+    }
+    case H_DBL3:  // (X3, Y3, Z3) = (2 t0' xy, t0' y3 + t2 z3, t1 z3)
+      if (lane == 0) {
+        uint32_t x[L], y[L];
+        copy_limbs<L>(x, G.V[3]);
+        fdbl<L>(G.P[0], x, f);
+        copy_limbs<L>(x, G.V[2]);
+        copy_limbs<L>(y, G.V[0]);
+        fadd<L>(G.P[1], x, y, f);
+        copy_limbs<L>(G.P[2], G.V[1]);
+      }
+      break;
+    case H_ADD1:  // T = (X1 X2, Y1 Y2, Z1 Z2, (X1 + Y1)(X2 + Y2), (Y1 + Z1)(Y2 + Z2), (X1 + Z1)(X2 + Z2))
+#pragma unroll 1
+      for (uint32_t q = lane; q < 6; q += HORNER_LANES) {
+        const uint32_t i0 = q < 3 ? q : (q == 4 ? 1 : 0), i1 = q == 3 ? 1 : 2;
+        uint32_t x[L], y[L];
+        copy_limbs<L>(x, G.P[i0]);
+        load_row(y, horner_part(a, i0, w, k));
+        if (q >= 3) {
+          uint32_t t[L];
+          copy_limbs<L>(t, G.P[i1]);
+          fadd<L>(x, x, t, f);
+          load_row(t, horner_part(a, i1, w, k));
+          fadd<L>(y, y, t, f);
+        }
+        fmul<L>(x, x, y, f);
+        copy_limbs<L>(G.T[q], x);
+      }
+      break;
+    case H_ADD2: {  // V = (t3 t1, t4 t5, t1 Zc, t5 t0, Zc t4, t0 t3)
+      uint32_t t0[L], t1[L], t3[L], t4[L], t5[L], zc[L], s[L];
+      copy_limbs<L>(t0, G.T[0]);
+      copy_limbs<L>(t1, G.T[1]);
+      copy_limbs<L>(zc, G.T[2]);  // Z1 Z2 until Zc is formed
+      fadd<L>(s, t0, t1, f);      // t3 = X1 Y2 + X2 Y1
+      copy_limbs<L>(t3, G.T[3]);
+      fsub<L>(t3, t3, s, f);
+      fadd<L>(s, t1, zc, f);  // t4 = Y1 Z2 + Y2 Z1
+      copy_limbs<L>(t4, G.T[4]);
+      fsub<L>(t4, t4, s, f);
+      fadd<L>(s, t0, zc, f);  // t5 = X1 Z2 + X2 Z1
+      copy_limbs<L>(t5, G.T[5]);
+      fsub<L>(t5, t5, s, f);
+      fdbl<L>(s, t0, f);  // t0 = 3 X1 X2
+      fadd<L>(t0, s, t0, f);
+      fq_mul12(s, zc, f);  // 3b Z1 Z2
+      fadd<L>(zc, t1, s, f);  // Zc = Y1 Y2 + 3b Z1 Z2
+      fsub<L>(t1, t1, s, f);  // t1 = Y1 Y2 - 3b Z1 Z2
+      fq_mul12(t5, t5, f);    // t5 = 3b (X1 Z2 + X2 Z1)
+#pragma unroll 1
+      for (uint32_t q = lane; q < 6; q += HORNER_LANES) {
+        uint32_t x[L], y[L];
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          x[j] = q == 0 ? t3[j] : q == 1 ? t4[j] : q == 2 ? t1[j] : q == 3 ? t5[j] : q == 4 ? zc[j] : t0[j];
+          y[j] = q == 0 ? t1[j] : q == 1 ? t5[j] : q == 2 ? zc[j] : q == 3 ? t0[j] : q == 4 ? t4[j] : t3[j];
+        }
+        fmul<L>(x, x, y, f);
+        copy_limbs<L>(G.V[q], x);
+      }
+      break;
+    }
+    case H_ADD3:  // (X3, Y3, Z3) = (t3 t1 - t4 t5, t1 Zc + t5 t0, Zc t4 + t0 t3)
+      if (lane == 0) {
+        uint32_t x[L], y[L];
+        for (uint32_t i = 0; i < 3; ++i) {
+          copy_limbs<L>(x, G.V[2 * i]);
+          copy_limbs<L>(y, G.V[2 * i + 1]);
+          if (i == 0)
+            fsub<L>(G.P[0], x, y, f);
+          else
+            fadd<L>(G.P[i], x, y, f);
+        }
+      }
+      break;
+    case H_STORE:
+      if (lane == 0 && live) {
+        uint32_t x[L];
+        for (uint32_t i = 0; i < 3; ++i) {
+          copy_limbs<L>(x, G.P[i]);
+          store_row((i == 0 ? a.out[0] : (i == 1 ? a.out[1] : a.out[2])) + (uint64_t)k * L, x);
+        }
+      }
+      break;
+  }
+}

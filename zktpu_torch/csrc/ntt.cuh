@@ -1,0 +1,209 @@
+// The Fr NTT of zktpu_torch/poly/ntt_kernel.py as per-thread code for one
+// block (csrc/ntt.cu runs it on the card; tests/ntt_host.cpp runs the same
+// functions block by block, thread by thread, on the CPU).
+//
+// A transform of n = 2^log_n elements (8 little-endian u32 Montgomery limbs
+// each, rows of a (B, n, 8) batch) is the reference's radix-2 DIT: the
+// bit-reverse gather, then for s = 1..log_n and m = 2^s the butterflies
+//     (u, v) <- (u + w v, u - w v),  w = tw[(i mod m/2) (n / m)]
+// on the pairs (i, i + m/2) of each group of m, tw = gen^i (i < n/2).  The
+// output is multiplied by an optional factor (n^-1, or n^-1 offset^-i for
+// the coset inverse) and the input by another (offset^i for the coset
+// transform).  Every value is canonical (field.cuh's fmul, fadd, fsub), so
+// the words equal the stage loop's.
+//
+// The stages run in passes.  Pass k runs stages s0 + 1 .. s0 + ns on tiles
+// of 2^ns rows x 2^log_cols columns: tile element (j, c) is position
+//     h 2^(s0 + ns) + j 2^s0 + l0 + c
+// of the bit-reversed order, whose butterflies in these stages pair rows j
+// of one column only, so a block loads a tile into shared memory, runs its
+// ns stages there and writes it back.  The first pass (s0 = 0) takes
+// contiguous runs and gathers them through the bit reversal; later passes
+// run in place on the output.  A tile holds at most 2^ZK_NTT_LOG_TILE
+// elements, and later passes keep at least 2^ZK_NTT_LOG_MIN_COLS columns so
+// that each row of a tile is that many consecutive elements in memory.
+// The library builds with the defaults below; the host tests build smaller
+// tiles with -D so that several passes run at small n.
+#pragma once
+
+#include "field.cuh"
+
+#ifndef ZK_NTT_LOG_TILE
+#define ZK_NTT_LOG_TILE 9  // 2^9 elements x 32 bytes: 16 KB of shared memory
+#endif
+#ifndef ZK_NTT_LOG_MIN_COLS
+#define ZK_NTT_LOG_MIN_COLS 3  // 8 columns: 256 contiguous bytes per row
+#endif
+#ifndef ZK_NTT_THREADS
+#define ZK_NTT_THREADS 128
+#endif
+
+// Host and device: the launcher sizes its grid and shared memory with these.
+#if defined(__CUDACC__)
+#define ZK_HD __host__ __device__ __forceinline__
+#else
+#define ZK_HD inline
+#endif
+
+constexpr int FR_LIMBS = 8;
+constexpr int NTT_LOG_TILE = ZK_NTT_LOG_TILE;
+constexpr int NTT_LOG_MIN_COLS = ZK_NTT_LOG_MIN_COLS;
+constexpr uint32_t NTT_THREADS = ZK_NTT_THREADS;
+constexpr int NTT_MAX_PASSES = 32;
+using FrConsts = FieldConsts<FR_LIMBS>;
+
+struct NttPass {
+  int s0;        // stages done before this pass
+  int ns;        // stages this pass runs
+  int log_cols;  // log2 of the tile's columns
+};
+
+// The passes of a 2^log_n transform (log_n <= 31); returns their number.
+inline int ntt_plan(int log_n, NttPass* passes) {
+  int k = 0, s0 = 0;
+  do {
+    const int min_cols = s0 < NTT_LOG_MIN_COLS ? s0 : NTT_LOG_MIN_COLS;
+    const int ns = log_n - s0 < NTT_LOG_TILE - min_cols ? log_n - s0 : NTT_LOG_TILE - min_cols;
+    const int log_cols = s0 < NTT_LOG_TILE - ns ? s0 : NTT_LOG_TILE - ns;
+    passes[k++] = NttPass{s0, ns, log_cols};
+    s0 += ns;
+  } while (s0 < log_n);
+  return k;
+}
+
+// One pass over a batch: pointers to rows of 8 words.
+struct NttArgs {
+  const uint32_t* in;     // the input (read by the first pass only)
+  uint32_t* out;          // the output (later passes read and write it in place)
+  const uint32_t* tw;     // gen^i, i < n/2
+  const uint32_t* in_f;   // input factor rows, or null; row i (stride in_fs: 1 or 0)
+  const uint32_t* out_f;  // output factor rows, or null (stride out_fs)
+  uint32_t in_fs, out_fs;
+  int log_n;
+  NttPass pass;
+  bool first, last;
+};
+
+ZK_FN uint32_t ntt_bitrev(uint32_t i, int log_n) {
+  if (log_n == 0) return 0;
+#if defined(__CUDA_ARCH__)
+  return __brev(i) >> (32 - log_n);
+#else
+  uint32_t r = 0;
+  for (int b = 0; b < log_n; ++b) r |= ((i >> b) & 1u) << (log_n - 1 - b);
+  return r;
+#endif
+}
+
+ZK_FN void ntt_load8(uint32_t* dst, const uint32_t* src) {
+#if defined(__CUDA_ARCH__)
+  const uint4 lo = *reinterpret_cast<const uint4*>(src);
+  const uint4 hi = *reinterpret_cast<const uint4*>(src + 4);
+  dst[0] = lo.x; dst[1] = lo.y; dst[2] = lo.z; dst[3] = lo.w;
+  dst[4] = hi.x; dst[5] = hi.y; dst[6] = hi.z; dst[7] = hi.w;
+#else
+  std::memcpy(dst, src, FR_LIMBS * sizeof(uint32_t));
+#endif
+}
+
+ZK_FN void ntt_store8(uint32_t* dst, const uint32_t* src) {
+#if defined(__CUDA_ARCH__)
+  *reinterpret_cast<uint4*>(dst) = make_uint4(src[0], src[1], src[2], src[3]);
+  *reinterpret_cast<uint4*>(dst + 4) = make_uint4(src[4], src[5], src[6], src[7]);
+#else
+  std::memcpy(dst, src, FR_LIMBS * sizeof(uint32_t));
+#endif
+}
+
+// Where tile `tile` of a pass lies: position (j, c) is base + (j << s0) + c;
+// l0 is the position of column 0 inside its group of 2^s0.
+struct NttTile {
+  uint32_t base, l0;
+};
+
+ZK_FN NttTile ntt_tile(const NttPass& p, uint32_t tile) {
+  const int per_h = p.s0 - p.log_cols;  // log2 of the tiles that share one h
+  const uint32_t h = tile >> per_h;
+  const uint32_t l0 = (tile & ((1u << per_h) - 1)) << p.log_cols;
+  return NttTile{(h << p.s0 << p.ns) + l0, l0};
+}
+
+ZK_HD uint32_t ntt_tile_elems(const NttPass& p) { return 1u << (p.ns + p.log_cols); }
+
+// Thread `tid`'s share of loading tile `tile` of batch row `row` into sm
+// (element e at sm + 8 e, e = j 2^log_cols + c).  The first pass gathers
+// through the bit reversal and multiplies by the input factor.
+ZK_FN void ntt_load_thread(const NttArgs& a, uint32_t tile, uint32_t row, uint32_t tid, uint32_t* sm,
+                           const FrConsts& f) {
+  const NttPass& p = a.pass;
+  const NttTile t = ntt_tile(p, tile);
+  const uint64_t row_base = (uint64_t)row << a.log_n;
+  const uint32_t cmask = (1u << p.log_cols) - 1;
+  for (uint32_t e = tid; e < ntt_tile_elems(p); e += NTT_THREADS) {
+    const uint32_t pos = t.base + ((e >> p.log_cols) << p.s0) + (e & cmask);
+    uint32_t x[FR_LIMBS];
+    if (a.first) {
+      const uint32_t src = ntt_bitrev(pos, a.log_n);
+      ntt_load8(x, a.in + (row_base + src) * FR_LIMBS);
+      if (a.in_f) {
+        uint32_t g[FR_LIMBS];
+        ntt_load8(g, a.in_f + (uint64_t)src * a.in_fs * FR_LIMBS);
+        fmul<FR_LIMBS>(x, x, g, f);
+      }
+    } else {
+      ntt_load8(x, a.out + (row_base + pos) * FR_LIMBS);
+    }
+    ntt_store8(sm + e * FR_LIMBS, x);
+  }
+}
+
+// Thread `tid`'s butterflies of the pass's local stage r (1..ns), global
+// stage s = s0 + r: butterfly b is column c = b mod 2^log_cols and row pair
+// (ju, ju + 2^(r-1)) of the tile.
+ZK_FN void ntt_stage_thread(const NttArgs& a, uint32_t tile, int r, uint32_t tid, uint32_t* sm,
+                            const FrConsts& f) {
+  const NttPass& p = a.pass;
+  const NttTile t = ntt_tile(p, tile);
+  const uint32_t cmask = (1u << p.log_cols) - 1;
+  const uint32_t hmask = (1u << (r - 1)) - 1;
+  const int tw_shift = a.log_n - (p.s0 + r);  // stage s takes every (n / 2^s)-th power
+  const uint32_t butterflies = ntt_tile_elems(p) >> 1;
+  for (uint32_t b = tid; b < butterflies; b += NTT_THREADS) {
+    const uint32_t c = b & cmask, q = b >> p.log_cols;
+    const uint32_t jj = q & hmask;
+    const uint32_t ju = ((q >> (r - 1)) << r) + jj;
+    uint32_t* u = sm + ((ju << p.log_cols) + c) * FR_LIMBS;
+    uint32_t* v = u + ((1u << (r - 1)) << p.log_cols) * FR_LIMBS;
+    const uint32_t i = (jj << p.s0) + t.l0 + c;  // position in the stage's half group
+    uint32_t x[FR_LIMBS], w[FR_LIMBS], y[FR_LIMBS];
+    ntt_load8(x, v);
+    ntt_load8(w, a.tw + ((uint64_t)i << tw_shift) * FR_LIMBS);
+    fmul<FR_LIMBS>(w, x, w, f);  // w v
+    ntt_load8(x, u);
+    fadd<FR_LIMBS>(y, x, w, f);
+    fsub<FR_LIMBS>(x, x, w, f);
+    ntt_store8(u, y);
+    ntt_store8(v, x);
+  }
+}
+
+// Thread `tid`'s share of writing the tile back; the last pass multiplies
+// by the output factor.
+ZK_FN void ntt_store_thread(const NttArgs& a, uint32_t tile, uint32_t row, uint32_t tid, const uint32_t* sm,
+                            const FrConsts& f) {
+  const NttPass& p = a.pass;
+  const NttTile t = ntt_tile(p, tile);
+  const uint64_t row_base = (uint64_t)row << a.log_n;
+  const uint32_t cmask = (1u << p.log_cols) - 1;
+  for (uint32_t e = tid; e < ntt_tile_elems(p); e += NTT_THREADS) {
+    const uint32_t pos = t.base + ((e >> p.log_cols) << p.s0) + (e & cmask);
+    uint32_t x[FR_LIMBS];
+    ntt_load8(x, sm + e * FR_LIMBS);
+    if (a.last && a.out_f) {
+      uint32_t g[FR_LIMBS];
+      ntt_load8(g, a.out_f + (uint64_t)pos * a.out_fs * FR_LIMBS);
+      fmul<FR_LIMBS>(x, x, g, f);
+    }
+    ntt_store8(a.out + (row_base + pos) * FR_LIMBS, x);
+  }
+}

@@ -25,8 +25,8 @@ from .fields.host import FieldSpec
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "zktpu_torch")
-SOURCES = ("mont_mul.cu", "g1.cu")
-HEADERS = ("field.cuh", "g1.cuh")
+SOURCES = ("mont_mul.cu", "g1.cu", "ntt.cu")
+HEADERS = ("field.cuh", "g1.cuh", "ntt.cuh")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,8 +43,16 @@ _SIGNATURES = {
     "zk_proj_add": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _I64, _P],
     "zk_proj_double": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _I64, _P],
     "zk_proj_madd": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _I64, _P],
-    # kind (0 add, 1 mixed add, 2 double), out {registers, local bytes}
+    # kind (0 add, 1 mixed add, 2 double, 3 Horner combine), out {registers,
+    # local bytes, shared bytes}
     "zk_g1_kernel_attrs": [ctypes.c_int, _P],
+    # device, p (host), pinv, ptrs (host: X, Y, Z parts, X, Y, Z out), W, K, c, stream
+    "zk_horner_combine": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _I64, _I64, _P],
+    # device, p (host), pinv, in, out, batch, log_n, twiddles, in factor, its
+    # row stride, out factor, its row stride, stream, out: launches
+    "zk_ntt_fr": [ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _I64, ctypes.c_int, _P, _P, _I64, _P, _I64, _P, _P],
+    # out {registers, local bytes, shared bytes of the largest tile}
+    "zk_ntt_attrs": [_P],
     # device, limbs, p (host), pinv, a, b, out, n, chain, stream
     "zk_mont_mul_chain": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _P, _I64, ctypes.c_int, _P],
 }

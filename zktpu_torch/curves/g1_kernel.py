@@ -1,5 +1,6 @@
 """Kernels 2, 3 and 4: the fused complete projective G1 add, double and
-mixed add, and their plain PyTorch versions.
+mixed add; the MSM's Horner combine in one launch; and their plain PyTorch
+versions.
 
 Replace zktpu/curves/pallas_g1.py::_proj_add_call, _proj_double_call and
 _proj_madd_call (entry points proj_add_pallas, proj_double_pallas and
@@ -18,6 +19,11 @@ add are written for that (carry-chain products, lazy reduction, operands
 re-read from memory, a budget of 168 registers for 3 blocks per SM; see
 g1.cu); ``kernel_attrs`` reads the registers and spills ptxas gave each
 kernel.
+
+``horner_combine`` replaces the loop of doubles and adds that combines the
+MSM's window sums (zktpu/curves/msm.py:139-148): one launch runs the whole
+serial chain, four lanes per point running each formula step's independent
+products at once (csrc/g1.cu says why).
 
 The wrappers take strided operands without copying them: any broadcast of
 the batch shape whose rows are 16-byte aligned, with limbs contiguous and
@@ -138,14 +144,27 @@ def proj_madd_plain(P1, A2):
     return proj_madd_formula(_PlainOps(P1[0].device), P1, A2)
 
 
-_KIND = {"proj_add": 0, "proj_madd": 1, "proj_double": 2}
+def horner_combine_plain(parts, c: int):
+    """The Horner combine as a loop of plain doubles and adds (module
+    docstring of horner_combine)."""
+    W = parts[0].shape[0]
+    acc = tuple(a[W - 1] for a in parts)
+    for w in range(W - 2, -1, -1):
+        for _ in range(c):
+            acc = proj_double_plain(acc)
+        acc = proj_add_plain(acc, tuple(a[w] for a in parts))
+    return acc
+
+
+_KIND = {"proj_add": 0, "proj_madd": 1, "proj_double": 2, "horner_combine": 3}
 
 
 def kernel_attrs(name: str) -> dict:
-    """Registers per thread and local-memory bytes (spills) of a kernel."""
-    out = (ctypes.c_int * 2)()
+    """Registers per thread, local-memory bytes (spills) and static shared
+    memory per block of a kernel."""
+    out = (ctypes.c_int * 3)()
     cuda_lib.check(cuda_lib.load().zk_g1_kernel_attrs(_KIND[name], out), f"{name} attributes")
-    return {"registers": out[0], "local_bytes": out[1]}
+    return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2]}
 
 
 def _plane(t: torch.Tensor, shape):
@@ -278,3 +297,35 @@ def proj_madd(P1, A2, out=None):
 
 
 proj_madd.launches = 0
+
+
+def horner_combine(parts, c: int):
+    """sum_w 2^(c w) part_w of the MSM's window sums, three (W, K, 12)
+    planes (W >= 1), as (K, 12) x 3: acc = part_{W-1}, then for w = W-2 .. 0
+    c doublings and one add of part_w (MSB window first).  One launch of
+    csrc/g1.cu's horner_combine_kernel for CUDA tensors, the plain loop for
+    CPU tensors."""
+    if all(t.device.type == "cpu" for t in parts):
+        return horner_combine_plain(parts, c)
+    W, K = parts[0].shape[:2]
+    if any(t.shape != parts[0].shape for t in parts) or parts[0].ndim != 3 or W < 1:
+        raise ValueError(f"horner_combine: parts must be three (W >= 1, K, 12) planes, "
+                         f"got {[tuple(t.shape) for t in parts]}")
+    ins = [t.contiguous() for t in parts]
+    cuda_lib.check_cuda_operands("horner_combine", ins, LIMBS)
+    out = tuple(torch.empty((K, LIMBS), dtype=torch.int32, device=ins[0].device) for _ in range(3))
+    if K == 0:
+        return out
+    if any(t.data_ptr() % 16 for t in (*ins, *out)):
+        raise ValueError("horner_combine: planes must be 16-byte aligned")
+    lib = cuda_lib.load()
+    p, pinv = cuda_lib.field_consts(FQ)
+    ptrs = np.array([t.data_ptr() for t in (*ins, *out)], dtype=np.int64)
+    rc = lib.zk_horner_combine(ins[0].device.index, p.ctypes.data, pinv, ptrs.ctypes.data, W, K, int(c),
+                               cuda_lib.stream_of(out[0]))
+    cuda_lib.check(rc, "horner_combine")
+    horner_combine.launches += 1
+    return out
+
+
+horner_combine.launches = 0

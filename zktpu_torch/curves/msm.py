@@ -9,7 +9,8 @@ Per window of c bits, for every window and every scalar vector at once:
        sum_k k S_k = sum_{k=1}^{2^c - 1} T[lower_bound(ids, k)]
      (torch.searchsorted; an empty suffix gives the identity), summed by a
      tree of proj_adds.
-Windows combine MSB first with c doublings between (Horner).  Any grouping
+Windows combine MSB first with c doublings between (Horner,
+g1_kernel.horner_combine).  Any grouping
 gives the same group element; results are compared in affine form.
 
 Two point formats: ``msm_proj`` takes projective points and scans the whole
@@ -23,7 +24,8 @@ import torch
 
 from ..fields.limbs import MASK32, widen
 from . import g1
-from .g1 import proj_add, proj_double, proj_identity
+from .g1 import proj_identity
+from .g1_kernel import horner_combine
 from .scan import point_suffix_scan, point_suffix_scan_sparse_affine
 
 
@@ -56,14 +58,10 @@ def _buckets(scalars_u32: torch.Tensor, c: int):
 
 def _combine(G, W: int, K: int, c: int):
     """Tree-sum the (W K, 2^c - 1) gathered suffix values of each window, then
-    combine the windows MSB first with c doublings between (Horner)."""
+    combine the windows MSB first with c doublings between (Horner, one
+    launch on the card)."""
     parts = tuple(a.reshape(W, K, -1) for a in g1.proj_tree_sum(G, axis=1))
-    acc = tuple(a[W - 1] for a in parts)
-    for w in range(W - 2, -1, -1):
-        for _ in range(c):
-            acc = proj_double(acc)
-        acc = proj_add(acc, tuple(a[w] for a in parts))
-    return acc
+    return horner_combine(parts, c)
 
 
 def msm_proj_many(scalars_u32: torch.Tensor, X, Y, Z, c: int = 8):

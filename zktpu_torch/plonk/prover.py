@@ -289,8 +289,7 @@ def _batched_coset_fft(dom_big, polys: list[Poly], offset: int) -> torch.Tensor:
     """Evaluate all polys on offset * <w> in one batched transform: (K, m, 8)."""
     m = dom_big.size
     stacked = torch.stack([p._padded(m) for p in polys])
-    scaled = dom_big.df.mont_mul(stacked, dom_big.offset_powers(offset))
-    return dom_big.fft(scaled, force_device=True)
+    return dom_big.coset_fft(stacked, offset, force_device=True)
 
 
 def _coset_divide_zh(dom_big, evals: torch.Tensor, offset: int, n: int, max_deg: int) -> Poly:

@@ -5,32 +5,27 @@ arkworks Radix2EvaluationDomain conventions, so values agree element for
 element: size = next power of two; generator w = TWO_ADIC_ROOT^(2^(s - log n));
 fft maps coefficients to [p(w^0), ..., p(w^(n-1))] in natural order; ifft
 includes the 1/n scaling.  The tensor transform is a bit-reverse gather and
-log n DIT butterfly stages: one batched Montgomery product (kernel 1 on CUDA
-tensors) and one add and sub per stage.
+log n DIT butterfly stages.  Over Fr it is poly/ntt_kernel.py's ``ntt``: the
+NTT kernel for CUDA tensors (its stages in shared-memory tiles, the coset
+factors and 1/n fused into its loads and stores), the plain stage loop for
+CPU tensors.  Other fields (Goldilocks: no ported path transforms in it on
+the card) keep the stage loop over the Montgomery product, kernel 1 on CUDA
+tensors.
 """
 from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
 
-from ..fields.host import FieldSpec
 from .. import config
 from ..fields.fp import TorchField, field, ints_to_limbs, norm_device
+from ..fields.host import FR, FieldSpec
+from .ntt_kernel import bit_reverse_perm, ntt, stage_loop
 
 # Power tables of domains up to this size are built by host loops; larger
 # ones by a log-depth cumulative product on the tensor's device.
 _HOST_TWIDDLE_MAX = 1 << 12
-
-
-def _bit_reverse_perm(n: int) -> np.ndarray:
-    log_n = n.bit_length() - 1
-    idx = np.arange(n, dtype=np.int64)
-    rev = np.zeros(n, dtype=np.int64)
-    for b in range(log_n):
-        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
-    return rev
 
 
 class Radix2Domain:
@@ -48,13 +43,12 @@ class Radix2Domain:
         self.group_gen = spec.root_of_unity(n)
         self.group_gen_inv = spec.inv(self.group_gen) if n > 1 else 1
         self.size_inv = spec.inv(n)
-        self._perm_np = _bit_reverse_perm(n)
-        self._perm = torch.from_numpy(self._perm_np).to(self.device)
+        self._perm_np = bit_reverse_perm(n)
         self._fwd_tw = self._power_table(self.group_gen, max(n // 2, 1))
         self._inv_tw = self._power_table(self.group_gen_inv, max(n // 2, 1))
-        self._n_inv = self.df.encode_int(self.size_inv)
         self._elements = None
         self._offset_cache: dict[int, torch.Tensor] = {}
+        self._coset_out_cache: dict[int, torch.Tensor] = {}
 
     # -- host helpers --
 
@@ -89,23 +83,14 @@ class Radix2Domain:
 
     # -- tensor transforms --
 
-    def _transform(self, values: torch.Tensor, inverse: bool) -> torch.Tensor:
-        df, n, L = self.df, self.size, self.df.num_limbs
-        assert values.shape[-2] == n, (values.shape, n)
+    def _transform(self, values: torch.Tensor, inverse: bool, in_factor=None, out_factor=None) -> torch.Tensor:
+        """out_factor * DIT(in_factor * values); with inverse and no
+        out_factor the output factor is 1/n (ntt_kernel.py)."""
+        assert values.shape[-2] == self.size, (values.shape, self.size)
         E = self._inv_tw if inverse else self._fwd_tw
-        x = values.index_select(-2, self._perm)
-        lead = x.shape[:-2]
-        for s in range(1, self.log_n + 1):
-            m = 1 << s
-            half = m // 2
-            table = E[:: n // m][:half]  # this stage's twiddles
-            xr = x.reshape(lead + (n // m, m, L))
-            even, odd = xr[..., :half, :], xr[..., half:, :]
-            t = df.mont_mul(odd, table)
-            x = torch.cat([df.add(even, t), df.sub(even, t)], dim=-2).reshape(lead + (n, L))
-        if inverse:
-            x = df.mont_mul(x, self._n_inv)
-        return x
+        if self.spec is FR:
+            return ntt(values, E, inverse, in_factor, out_factor)
+        return stage_loop(self.spec, self.df.mont_mul, values, E, inverse, in_factor, out_factor)
 
     # -- host transform (small sizes: latency-bound, see config.py) --
 
@@ -129,8 +114,11 @@ class Radix2Domain:
             x = [spec.mul(v, self.size_inv) for v in x]
         return x
 
+    def _host_tier(self, arr: torch.Tensor) -> bool:
+        return self.size <= config.HOST_NTT_MAX and arr.ndim == 2
+
     def _transform_tiered(self, arr: torch.Tensor, inverse: bool) -> torch.Tensor:
-        if self.size <= config.HOST_NTT_MAX and arr.ndim == 2:
+        if self._host_tier(arr):
             out = self._host_transform(self.df.decode_ints(arr), inverse)
             return self.df.encode_ints(out)
         return self._transform(arr, inverse)
@@ -167,13 +155,28 @@ class Radix2Domain:
             self._offset_cache[offset] = self._power_table(offset, self.size)
         return self._offset_cache[offset]
 
-    def coset_fft(self, coeffs: torch.Tensor, offset: int) -> torch.Tensor:
-        scaled = self.df.mont_mul(self._pad(coeffs), self.offset_powers(offset))
-        return self.fft(scaled)
+    def _coset_out(self, offset: int) -> torch.Tensor:
+        """1/n offset^-i: coset_ifft's output factor, 1/n merged in."""
+        if offset not in self._coset_out_cache:
+            n_inv = self.df.encode_int(self.size_inv)
+            self._coset_out_cache[offset] = self.df.mont_mul(self.offset_powers(self.spec.inv(offset)), n_inv)
+        return self._coset_out_cache[offset]
+
+    def coset_fft(self, coeffs: torch.Tensor, offset: int, force_device: bool = False) -> torch.Tensor:
+        """coeffs: (..., m, L) with m <= n -> evaluations on offset * <w>;
+        the tensor transform multiplies by offset^i as it loads."""
+        coeffs = self._pad(coeffs)
+        if self.size == 1 or (not force_device and self._host_tier(coeffs)):
+            return self.fft(self.df.mont_mul(coeffs, self.offset_powers(offset)))
+        return self._transform(coeffs, False, in_factor=self.offset_powers(offset))
 
     def coset_ifft(self, evals: torch.Tensor, offset: int) -> torch.Tensor:
-        coeffs = self.ifft(evals)
-        return self.df.mont_mul(coeffs, self.offset_powers(self.spec.inv(offset)))
+        """Evaluations on offset * <w> -> coefficients; the tensor transform
+        multiplies by 1/n offset^-i as it stores."""
+        assert evals.shape[-2] == self.size
+        if self.size == 1 or self._host_tier(evals):
+            return self.df.mont_mul(self.ifft(evals), self.offset_powers(self.spec.inv(offset)))
+        return self._transform(evals, True, out_factor=self._coset_out(offset))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,144 @@
+"""The Fr NTT kernel (csrc/ntt.cu) and its plain PyTorch version.
+
+Replaces the stage loop of zktpu/poly/domain.py::_transform, a jnp graph of
+log n radix-2 stages around the Montgomery product kernel
+(zktpu/fields/pallas_mont.py::_mont_mul_call).  Both compute, for rows of n
+elements ((..., n, 8) Montgomery limbs over Fr),
+
+    out = out_factor * DIT(in_factor * values),
+
+DIT being the bit-reverse gather and the log n butterfly stages
+(u + w v, u - w v) with stage s taking every (n / 2^s)-th entry of `table`
+(gen^i, i < n/2).  A factor is an (n, 8) table or one (8,) value; with
+``inverse`` and no out_factor the output factor is n^-1 (a caller that
+merges n^-1 into its own table, as coset_ifft does, passes that table).
+
+On the H100 the transform is bound by 32-bit integer multiply-adds; the
+kernel runs the stages in 3-4 launches of shared-memory tiles, with the
+permutation and both factors fused into the loads and stores (csrc/ntt.cu
+says how).  ``ntt`` launches it for CUDA tensors and runs ``ntt_plain`` for
+CPU tensors only.  The kernel is Fr only; ``stage_loop`` is the stage loop
+over any product, which the domains of other fields use.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from .. import cuda_lib
+from ..fields.fp import field, ints_to_limbs
+from ..fields.host import FR, FieldSpec
+from ..fields.mont_kernel import mont_mul_plain
+
+LIMBS = FR.num_digits // 2
+
+
+def bit_reverse_perm(n: int) -> np.ndarray:
+    log_n = n.bit_length() - 1
+    idx = np.arange(n, dtype=np.int64)
+    rev = np.zeros(n, dtype=np.int64)
+    for b in range(log_n):
+        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    return rev
+
+
+@functools.lru_cache(maxsize=None)
+def _perm(n: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(bit_reverse_perm(n)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _n_inv(spec: FieldSpec, n: int, device: torch.device) -> torch.Tensor:
+    """n^-1 as (L,) Montgomery limbs."""
+    return torch.from_numpy(ints_to_limbs([spec.to_mont(spec.inv(n))], spec.num_digits // 2)[0]).to(device)
+
+
+def stage_loop(spec: FieldSpec, mul, values, table, inverse: bool, in_factor=None, out_factor=None):
+    """The transform as log n tensor stages: `mul` (a Montgomery product of
+    two broadcastable limb tensors) by the stage twiddles, then a field add
+    and sub and a concatenation per stage."""
+    df = field(spec, values.device)
+    n, L = values.shape[-2], values.shape[-1]
+    x = values if in_factor is None else mul(values, in_factor)
+    x = x.index_select(-2, _perm(n, values.device))
+    lead = x.shape[:-2]
+    for s in range(1, n.bit_length()):
+        m = 1 << s
+        half = m // 2
+        xr = x.reshape(lead + (n // m, m, L))
+        even, odd = xr[..., :half, :], xr[..., half:, :]
+        t = mul(odd, table[:: n // m][:half])
+        x = torch.cat([df.add(even, t), df.sub(even, t)], dim=-2).reshape(lead + (n, L))
+    if out_factor is None and inverse:
+        out_factor = _n_inv(spec, n, values.device)
+    return x if out_factor is None else mul(x, out_factor)
+
+
+def ntt_plain(values, table, inverse: bool, in_factor=None, out_factor=None, spec: FieldSpec = FR):
+    """The plain version: the stage loop over the plain Montgomery product."""
+    return stage_loop(spec, functools.partial(mont_mul_plain, spec), values, table, inverse, in_factor, out_factor)
+
+
+def _factor(name: str, t, n: int):
+    """(pointer, row stride) of a factor: an (n, 8) table or one (8,) value."""
+    if t is None:
+        return None, 0
+    rows = t.reshape(-1, LIMBS)
+    if rows.shape[0] not in (1, n) or t.shape[-1] != LIMBS:
+        raise ValueError(f"ntt: {name} must be ({n}, {LIMBS}) or ({LIMBS},), got {tuple(t.shape)}")
+    return rows.contiguous(), int(rows.shape[0] == n and n > 1)
+
+
+def ntt(values, table, inverse: bool, in_factor=None, out_factor=None):
+    """out_factor * DIT(in_factor * values) over Fr (module docstring) for
+    (..., n, 8) limbs: the kernel for CUDA tensors, ntt_plain for CPU ones."""
+    ts = [t for t in (values, table, in_factor, out_factor) if t is not None]
+    if all(t.device.type == "cpu" for t in ts):
+        return ntt_plain(values, table, inverse, in_factor, out_factor)
+    n = values.shape[-2]
+    log_n = n.bit_length() - 1
+    if n != 1 << log_n:
+        raise ValueError(f"ntt: the transform length must be a power of two, got {n}")
+    if table.shape[0] < max(n // 2, 1):
+        raise ValueError(f"ntt: the twiddle table has {table.shape[0]} rows, the transform needs {n // 2}")
+    if out_factor is None and inverse:
+        out_factor = _n_inv(FR, n, values.device)
+    x = values.contiguous()
+    tw = table.contiguous()
+    fin, fin_s = _factor("in_factor", in_factor, n)
+    fout, fout_s = _factor("out_factor", out_factor, n)
+    ops = [t for t in (x, tw, fin, fout) if t is not None]
+    cuda_lib.check_cuda_operands("ntt", ops, LIMBS)
+    if any(t.data_ptr() % 16 for t in ops):
+        raise ValueError("ntt: operands must be 16-byte aligned")
+    out = torch.empty_like(x)
+    batch = x.numel() // (n * LIMBS)
+    if batch == 0:
+        return out
+    if batch > 65535:
+        raise ValueError(f"ntt: at most 65535 rows per call, got {batch}")
+    lib = cuda_lib.load()
+    p, pinv = cuda_lib.field_consts(FR)
+    launched = ctypes.c_int(0)
+    rc = lib.zk_ntt_fr(
+        x.device.index, p.ctypes.data, pinv, x.data_ptr(), out.data_ptr(), batch, log_n, tw.data_ptr(),
+        0 if fin is None else fin.data_ptr(), fin_s, 0 if fout is None else fout.data_ptr(), fout_s,
+        cuda_lib.stream_of(out), ctypes.byref(launched),
+    )
+    ntt.launches += launched.value
+    cuda_lib.check(rc, "ntt")
+    return out
+
+
+ntt.launches = 0
+
+
+def kernel_attrs() -> dict:
+    """Registers per thread, local-memory bytes (spills) and the shared
+    memory per block of the largest tile."""
+    out = (ctypes.c_int * 3)()
+    cuda_lib.check(cuda_lib.load().zk_ntt_attrs(out), "ntt attributes")
+    return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2]}
