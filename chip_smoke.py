@@ -8,7 +8,8 @@ Phases:
      kernels built from zktpu_torch/csrc (one nvcc per source, in parallel;
      ptxas's register and spill counts go to stderr), and the registers,
      local (spill) bytes and shared memory per block of the group-law
-     kernels, the Horner combine and the NTT (fails if one spills);
+     kernels, the Horner combine, the NTT, the field scans and the field
+     add/sub (fails if one spills);
   2. kernels: holds each CUDA kernel against its plain PyTorch version on
      the card, bit for bit (mont_mul for Fr, Fq and Goldilocks and
      mont_mul_chain at N = 2^16 + 3 with the edge values 0, 1, p - 1;
@@ -24,12 +25,17 @@ Phases:
      coset_fft and coset_ifft, at 2^20 x 1, n = 2 and n = 2^8 (below one tile),
      with an all-zero row and a row of p - 1; the Horner combine against its
      plain loop at (c = 16, K = 1) and (c = 13, K = 8), parts holding the
-     identity;
+     identity; mont_mul Fr's kernel-only time from torch.profiler beside its
+     time with the wrapper; the field scans (cumprod, cumsum both ways, sum
+     on axis 0 and 1, powers, batch_inv) and the field add/sub against their
+     plain versions at the shapes the paths give them, Fr and Fq (phase_field_ops);
   3. small proof: a 4-gate circuit proved with every tensor path forced,
      once on the GPU and once on the CPU; the proofs must be equal;
   4. PLONK path: synthetic_mul_chain(log_n) and its SRS on the GPU, prove,
-     verify, and reject a tampered proof; its kernels must have launched and
-     proj_double must not have (the Horner combine replaces it); then,
+     verify, and reject a tampered proof; its kernels must have launched,
+     proj_double must not have (the Horner combine replaces it), and no
+     plain carry scan (fields/limbs.py resolve) may have run on the card
+     during prove and verify; then,
      outside the count, one more prove traced by torch.profiler for its
      total CUDA kernel launches;
   5. MSM path: zktpu_torch.bench's inputs at 2^msm_log_n (SRS-like points in
@@ -46,8 +52,10 @@ and read just after.  Then one JSON line with the kernels (launches summed
 over the three paths; times and bounds at the shapes the paths give them:
 proj_madd at msm_affine's mixed add, proj_add at msm_proj's first scan step,
 proj_double at K = 1, mont_mul Fr at the coset division's product, ntt_fr
-at 2^17 x 7 (fft), horner_combine at c = 16, K = 1, the others at phase 2's
-shapes), the card's name and power limit, and the final {"ok": true, ...}
+at 2^17 x 7 (fft), horner_combine at c = 16, K = 1, field_scan_fr at round
+2's 2^14 cumprod, field_scan_fq at Srs.g1_affine's 2^20 batch_inv,
+field_addsub_fr at the coset quotient's (2^17, 8) add, the others at phase
+2's shapes), the card's name and power limit, and the final {"ok": true, ...}
 line.  Any failure raises and exits non-zero.
 """
 from __future__ import annotations
@@ -329,6 +337,28 @@ def phase_small_path_shapes(device, results: dict) -> None:
     plain_ms = _cuda_ms(lambda: mont_mul_plain(FR, x, y), 5)
     _record(results, "mont_mul_fr", n, err, ms, plain_ms, 3 * n * 32, n * _mont_words(8),
             phase="phase 2: coset division's product (2^17, 8) x (2^17, 8):")
+    k_ms, count = _kernel_only_ms(lambda: mont_mul(FR, x, y), 50, "mont_mul_kernel")
+    print(f"phase 2: mont_mul Fr (2^17, 8) x (2^17, 8) kernel only (torch.profiler, {count} launches): "
+          f"{k_ms:.4f} ms per launch against {ms:.4f} ms with the wrapper", flush=True)
+    results["mont_mul_fr"]["kernel_only_ms"] = k_ms
+
+
+def _kernel_only_ms(fn, reps: int, name: str) -> tuple[float, int]:
+    """Mean device time of the kernels whose name holds `name` over `reps`
+    calls of fn, from torch.profiler's trace, and their count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in events)
+    assert count > 0, f"the profiler saw no {name} launch"
+    return sum(e.self_device_time_total for e in events) / 1e3 / count, count
 
 
 def _ntt_products(n: int, batch: int, factors: int) -> int:
@@ -440,6 +470,137 @@ def phase_ntt_horner(device, results: dict, ntt_sizes=((17, 7), (20, 1), (1, 3),
                       f"{1e3 * ms / ((W - 1) * c):.2f} us each with the adds):")
 
 
+def _field_rows(f, gen, n: int, cols: int = 1, nonzero: bool = False) -> torch.Tensor:
+    """(n, cols, L) canonical Montgomery limbs made on the card (the top limb
+    below p's keeps them < p), with 0, 1 and p - 1 in the first rows (1 in
+    place of 0 when `nonzero`)."""
+    L, p = f.num_limbs, f.spec.modulus
+    t = torch.randint(-(1 << 31), 1 << 31, (n, cols, L), dtype=torch.int64, device=f.device, generator=gen)
+    t[..., L - 1] &= (1 << ((p.bit_length() - 1) % 32)) - 1
+    t = t.to(torch.int32)
+    for i, v in enumerate((1 if nonzero else 0, 1, p - 1)[:n]):
+        t[i] = f.encode_int(v)
+    return t
+
+
+def _timed_once(fn):
+    """(result, ms) of one call, CUDA events around it (for the slow plain versions)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_field_ops(device, results: dict, log_n: int = 14, fq_log_n: int = 20) -> None:
+    """Kernels A and B (fields/field_kernel.py) against their plain versions
+    at the shapes the paths give them, 0 mismatching words each, with the
+    kernel's ms (CUDA events, the wrapper's passes and host copy included),
+    the plain version's and the bound.  Fr at 2^log_n gates: the round-2
+    grand product (cumprod, n x 1), the cumsum of divide_by_linear (reverse),
+    the powers of Poly.evaluate and of the 8n coset's offsets, the sums of
+    evaluate (axis 0) and evaluate_many (axis 1 of (8, n + 3, 8)), the
+    batch inversion of round 2, and the adds of the coset quotient ((8n, 8)
+    operands and a broadcast constant) and a sub; Fq: the batch inversion of
+    Srs.g1_affine at 2^fq_log_n, a reverse scan and add/sub at 2^16 + 3.
+    The kernels line takes field_scan_fr from the grand product,
+    field_scan_fq from the Fq batch inversion and field_addsub_fr from the
+    (8n, 8) add."""
+    from zktpu_torch.fields import field_kernel as fk
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fields.host import FQ, FR
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    n = 1 << log_n
+    fr, fq = field(FR, device), field(FQ, device)
+
+    def check(key, f, name, kernel, plain, nbytes, words, reps=20, rows=0):
+        """Kernel against plain on the same inputs; `key`: record it for the kernels line."""
+        got = kernel()
+        plain_out, plain_ms = _timed_once(plain)
+        err = _compare(f"{f.spec.name} {name}", [got], [plain_out])
+        ms = _cuda_ms(kernel, reps)
+        b = _bound(nbytes, words)
+        if key:
+            _record(results, key, rows, err, ms, plain_ms, nbytes, words, phase=f"phase 2: {f.spec.name} {name}:")
+        else:
+            print(f"phase 2: {f.spec.name} {name}: mismatches=0 kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']})", flush=True)
+        return err
+
+    E = 32  # bytes of an Fr element; an add counts as L word operations
+    mul_w, add_w = _mont_words(8), 8
+    err = 0
+    x = _field_rows(fr, gen, n)[:, 0]
+    err = max(err, check("field_scan_fr", fr, f"cumprod ({n}, 8) (round 2's grand product)",
+                         lambda: fr.cumprod(x), lambda: fk.scan_plain(fr, x, fk.OP_MUL),
+                         2 * n * E, (n - 1) * mul_w, rows=n))
+    for rev in (False, True):
+        err = max(err, check(None, fr, f"cumsum ({n}, 8) reverse={rev} (divide_by_linear)",
+                             lambda: fr.cumsum(x, reverse=rev), lambda: fk.scan_plain(fr, x, fk.OP_ADD, 0, rev),
+                             2 * n * E, (n - 1) * add_w))
+    err = max(err, check(None, fr, f"cumprod ({n}, 8) reverse",
+                         lambda: fr.cumprod(x, reverse=True), lambda: fk.scan_plain(fr, x, fk.OP_MUL, 0, True),
+                         2 * n * E, (n - 1) * mul_w))
+    z = 0x1234567 % FR.modulus
+    for count, where in ((n + 3, "Poly.evaluate"), (8 * n, "the 8n coset's offset powers")):
+        err = max(err, check(None, fr, f"powers({count}) ({where})", lambda: fr.powers(z, count),
+                             lambda: fk.powers_plain(fr, z, count), count * E, (count - 1) * mul_w))
+    y = _field_rows(fr, gen, n + 3, 8)
+    err = max(err, check(None, fr, f"sum axis 0 of ({n + 3}, 8) (Poly.evaluate)", lambda: fr.sum(y[:, 0]),
+                         lambda: fk.sum_plain(fr, y[:, 0]), (n + 4) * E, (n + 2) * add_w))
+    yt = y.transpose(0, 1)  # (8, n + 3, 8), as evaluate_many stacks its polynomials
+    err = max(err, check(None, fr, f"sum axis 1 of (8, {n + 3}, 8) (evaluate_many)", lambda: fr.sum(yt, axis=1),
+                         lambda: fk.sum_plain(fr, yt, 1), 8 * (n + 4) * E, 8 * (n + 2) * add_w))
+    d = _field_rows(fr, gen, n, nonzero=True)[:, 0]
+    err = max(err, check(None, fr, f"batch_inv ({n}, 8) (round 2)", lambda: fr.batch_inv(d, FR.inv),
+                         lambda: fk.batch_inv_plain(fr, d, FR.inv), 2 * n * E, 3 * (n - 1) * mul_w, reps=10))
+    results["field_scan_fr"]["max_abs_err"] = err
+
+    err = 0
+    a, b = (_field_rows(fr, gen, 8 * n)[:, 0] for _ in range(2))
+    err = max(err, check("field_addsub_fr", fr, f"add ({8 * n}, 8) + ({8 * n}, 8) (the coset quotient)",
+                         lambda: fr.add(a, b), lambda: fk.add_plain(fr, a, b), 3 * 8 * n * E, 8 * n * add_w,
+                         rows=8 * n))
+    err = max(err, check(None, fr, f"sub ({8 * n}, 8) - ({8 * n}, 8)", lambda: fr.sub(a, b),
+                         lambda: fk.sub_plain(fr, a, b), 3 * 8 * n * E, 8 * n * add_w))
+    c = b[5]
+    err = max(err, check(None, fr, f"add ({n}, 8) + one constant (round 2's + gamma)", lambda: fr.add(a[:n], c),
+                         lambda: fk.add_plain(fr, a[:n], c), (2 * n + 1) * E, n * add_w))
+    err = max(err, check(None, fr, f"neg ({n}, 8)", lambda: fr.neg(a[:n]),
+                         lambda: fk.sub_plain(fr, torch.zeros_like(a[:n]), a[:n]), 2 * n * E, n * add_w))
+    results["field_addsub_fr"]["max_abs_err"] = err
+    del a, b, x, y, yt, d
+
+    E = 48
+    mul_w, add_w = _mont_words(12), 12
+    m = 1 << fq_log_n
+    d = _field_rows(fq, gen, m, nonzero=True)[:, 0]
+    err = check("field_scan_fq", fq, f"batch_inv ({m}, 12) (Srs.g1_affine)", lambda: fq.batch_inv(d, FQ.inv),
+                lambda: fk.batch_inv_plain(fq, d, FQ.inv), 2 * m * E, 3 * (m - 1) * mul_w, reps=5, rows=m)
+    del d
+    torch.cuda.empty_cache()
+    k = (1 << 16) + 3
+    a, b = (_field_rows(fq, gen, k)[:, 0] for _ in range(2))
+    err = max(err, check(None, fq, f"cumprod ({k}, 12) reverse", lambda: fq.cumprod(a, reverse=True),
+                         lambda: fk.scan_plain(fq, a, fk.OP_MUL, 0, True), 2 * k * E, (k - 1) * mul_w))
+    err = max(err, check(None, fq, f"cumsum ({k}, 12)", lambda: fq.cumsum(a),
+                         lambda: fk.scan_plain(fq, a, fk.OP_ADD), 2 * k * E, (k - 1) * add_w))
+    err = max(err, check(None, fq, f"powers({k})", lambda: fq.powers(z, k), lambda: fk.powers_plain(fq, z, k),
+                         k * E, (k - 1) * mul_w))
+    err = max(err, check(None, fq, f"sum axis 0 of ({k}, 12)", lambda: fq.sum(a), lambda: fk.sum_plain(fq, a),
+                         (k + 1) * E, (k - 1) * add_w))
+    results["field_scan_fq"]["max_abs_err"] = err
+    err = 0
+    for name, op, plain in (("add", fq.add, fk.add_plain), ("sub", fq.sub, fk.sub_plain)):
+        err = max(err, check(None, fq, f"{name} ({k}, 12) (no path adds in Fq: the group-law kernels fuse theirs)",
+                             lambda: op(a, b), lambda: plain(fq, a, b), 3 * k * E, k * add_w))
+    print(f"phase 2: field_addsub Fq mismatches=0 (max_abs_err {err})", flush=True)
+    torch.cuda.empty_cache()
+
+
 def _pythagorean_circuit():
     from zktpu_torch.plonk.circuit import Circuit
 
@@ -489,14 +650,20 @@ def _wrappers():
 
 
 def _reset_launches() -> None:
+    from zktpu_torch.fields import field_kernel
+
     mont_mul, others = _wrappers()
     for name in mont_mul.launches:
         mont_mul.launches[name] = 0
     for w in others:
         w.launches = 0
+    for counts in field_kernel.launches.values():
+        for name in counts:
+            counts[name] = 0
 
 
 def _read_launches() -> dict:
+    from zktpu_torch.fields import field_kernel
     from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
 
     mont_mul, (proj_add, proj_double, proj_madd, mont_mul_chain, ntt, horner_combine) = _wrappers()
@@ -510,6 +677,8 @@ def _read_launches() -> dict:
         "mont_mul_chain": mont_mul_chain.launches,
         "ntt_fr": ntt.launches,
         "horner_combine": horner_combine.launches,
+        **{f"{k}_{short}": field_kernel.launches[k][spec.name]
+           for k in ("field_scan", "field_addsub") for short, spec in (("fr", FR), ("fq", FQ), ("goldilocks", GOLDILOCKS))},
     }
 
 
@@ -521,6 +690,8 @@ def phase_plonk(device, log_n: int) -> dict:
     from zktpu_torch.plonk.verifier import PlonkVerificationError, verify
     from zktpu_torch.transcript.chacha import StdRng
 
+    from zktpu_torch.fields.limbs import resolve
+
     _reset_launches()
     t0 = time.perf_counter()
     circuit = synthetic_mul_chain(log_n, seed=1, device=device)
@@ -528,16 +699,20 @@ def phase_plonk(device, log_n: int) -> dict:
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     timings = {}
+    resolve.cuda_calls = 0
     t0 = time.perf_counter()
     proof = generate_proof(circuit, srs, StdRng.from_seed_u64(SEED), timings=timings)
     t_prove = time.perf_counter() - t0
     t0 = time.perf_counter()
     verify(circuit, srs, proof)
     t_verify = time.perf_counter() - t0
+    plain_carries = resolve.cuda_calls
     launches = _read_launches()
-    path = ("mont_mul_fr", "mont_mul_fq", "proj_add", "ntt_fr", "horner_combine")
+    path = ("mont_mul_fr", "mont_mul_fq", "proj_add", "ntt_fr", "horner_combine", "field_scan_fr", "field_addsub_fr")
     assert all(launches[k] > 0 for k in path), f"a kernel of the PLONK path never launched: {launches}"
     assert launches["proj_double"] == 0, f"the PLONK path doubled outside the Horner combine: {launches}"
+    # no plain version runs on the card: every carry scan of limbs.resolve on a CUDA tensor is one
+    assert plain_carries == 0, f"prove + verify ran {plain_carries} plain carry scans (limbs.resolve) on the card"
 
     proof.bar_a = FR.add(proof.bar_a, 1)
     try:
@@ -555,7 +730,8 @@ def phase_plonk(device, log_n: int) -> dict:
         flush=True,
     )
     print(f"phase 4: rounds {json.dumps(rounds)}", flush=True)
-    print(f"phase 4: launches {json.dumps(launches)}", flush=True)
+    print(f"phase 4: launches {json.dumps(launches)}; limbs.resolve on CUDA tensors during prove + verify: "
+          f"{plain_carries}", flush=True)
     print(f"phase 4: one traced prove (outside the count): {_traced_prove(circuit, srs)}", flush=True)
     return launches
 
@@ -591,7 +767,7 @@ def phase_msm(device, log_n: int):
           flush=True)
     r = bench.run(log_n, iters=2, device=device, inputs=inputs)  # asserts msm_affine == msm_proj
     launches = _read_launches()
-    path = ("mont_mul_fq", "proj_add", "proj_madd", "horner_combine")
+    path = ("mont_mul_fq", "proj_add", "proj_madd", "horner_combine", "field_scan_fr", "field_scan_fq")
     assert all(launches[k] > 0 for k in path), f"a kernel of the MSM path never launched: {launches}"
     assert launches["proj_double"] == 0, f"the MSM path doubled outside the Horner combine: {launches}"
 
@@ -720,6 +896,12 @@ _SOURCES = {
     "ntt_fr": ("zktpu_torch/csrc/ntt.cu", "zktpu/poly/domain.py:116"),
     # the fori_loop of _proj_double_call (pallas_g1.py:211) and proj_add in zktpu's msm_proj
     "horner_combine": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/msm.py:139"),
+    # the doubling scan over kernel 1 (pallas_mont.py:363) or the add: cumprod, cumsum, sum, powers, batch_inv
+    "field_scan_fr": ("zktpu_torch/csrc/field_ops.cu", "zktpu/fields/fp.py:324"),
+    "field_scan_fq": ("zktpu_torch/csrc/field_ops.cu", "zktpu/fields/fp.py:324"),
+    # the fused jnp add/sub (RowOps.add/sub inside the Pallas kernels).  The Fq add is built and held
+    # against its plain version in phase 2, but no path adds in Fq outside the group-law kernels
+    "field_addsub_fr": ("zktpu_torch/csrc/field_ops.cu", "zktpu/fields/fp.py:270"),
 }
 
 
@@ -746,10 +928,12 @@ def main(argv=None) -> int:
           f"-> {os.path.relpath(cuda_lib.library_path())}", flush=True)
     print(f"phase 1: pairing backend {pairing_backend()}", flush=True)
     from zktpu_torch.curves import g1_kernel
+    from zktpu_torch.fields import field_kernel
     from zktpu_torch.poly import ntt_kernel
 
     attrs = {k: g1_kernel.kernel_attrs(k) for k in ("proj_add", "proj_madd", "proj_double", "horner_combine")}
     attrs["ntt_fr"] = ntt_kernel.kernel_attrs()
+    attrs.update({k: field_kernel.kernel_attrs(k) for k in ("field_scan", "field_addsub")})
     print("phase 1: registers " + "; ".join(
         f"{k}: {a['registers']} registers, {a['local_bytes']} local bytes, {a['shared_bytes']} shared bytes per block"
         for k, a in attrs.items()), flush=True)
@@ -758,6 +942,7 @@ def main(argv=None) -> int:
     kernels = phase_kernels(device)
     phase_small_path_shapes(device, kernels)
     phase_ntt_horner(device, kernels, ntt_sizes=((args.log_n + 3, 7), (20, 1), (1, 3), (8, 3)))
+    phase_field_ops(device, kernels, args.log_n, args.msm_log_n)
     phase_small_proof(device)
     plonk = phase_plonk(device, args.log_n)
     msm_path, tool, inputs = phase_msm(device, args.msm_log_n)

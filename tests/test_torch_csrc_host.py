@@ -26,6 +26,7 @@ import torch
 from zktpu_torch import cuda_lib
 from zktpu_torch.curves import g1_kernel
 from zktpu_torch.curves.g1_kernel import horner_combine_plain, proj_add_plain, proj_double_plain, proj_madd_plain
+from zktpu_torch.fields import field_kernel
 from zktpu_torch.fields.fp import field, ints_to_limbs
 from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
 from zktpu_torch.fields.mont_kernel import mont_mul_plain
@@ -232,3 +233,107 @@ def test_host_ntt_matches_plain(ntt_lib, log_n):
         assert passes >= 2
     if not flags:
         assert passes == (2 if log_n == 12 else 1)
+
+
+# Kernels A and B (csrc/field_ops.cuh) through the port's own wrappers: the
+# host build takes the library's arguments, so field_kernel's pass logic runs
+# unchanged.  Two warps a block and small sizes make small inputs take
+# several tiles and the three-pass scan; the library's 256 threads once.
+SCAN_SHIM = os.path.join(HERE, "scan_host.cpp")
+SCAN_DESIGNS = {
+    "two_warps_multi_pass": (("-DZK_SCAN_THREADS=64",), {"SCAN_CHUNK": 2, "ONE_BLOCK_MAX_MUL": 96,
+                                                          "ONE_BLOCK_MAX_ADD": 64, "POWERS_CHUNK": 3}),
+    "library_threads": ((), {}),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(SCAN_DESIGNS))
+def scan_lib(request):
+    flags, sizes = SCAN_DESIGNS[request.param]
+    so = _build(SCAN_SHIM, "scan_host", flags)
+    for name in ("zk_field_scan", "zk_field_scan_threads", "zk_field_powers", "zk_field_batch_inv",
+                 "zk_field_addsub"):
+        fn = getattr(so, name)
+        fn.argtypes = cuda_lib._SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    saved = {k: getattr(field_kernel, k) for k in sizes}
+    for k, v in sizes.items():
+        setattr(field_kernel, k, v)
+    yield request.param, so
+    for k, v in saved.items():
+        setattr(field_kernel, k, v)
+
+
+def _field_rows(spec, n, seed, nonzero=False):
+    rng = np.random.default_rng(seed)
+    vals = _elements(rng, spec, max(n, 4))[:n]
+    if nonzero:
+        vals = [v or 1 for v in vals]
+    return field(spec, "cpu").encode_ints(vals)
+
+
+@pytest.mark.parametrize("spec", [FR, FQ], ids=lambda s: s.name)
+@pytest.mark.parametrize("op", [field_kernel.OP_MUL, field_kernel.OP_ADD], ids=["cumprod", "cumsum"])
+def test_host_field_scan_matches_plain(scan_lib, spec, op):
+    """Forward and reverse scans of n = 1, 2, 3, 17, 64 and 300 rows (one
+    block up to one 128-row tile or the one-block limit, and three passes
+    over several tiles), one column and three
+    columns, along axis 0 and along the middle axis of (3, n, L)."""
+    design, so = scan_lib
+    f = field(spec, "cpu")
+    for n in (1, 2, 3, 17, 64, 300):
+        x = _field_rows(spec, 3 * n, n).reshape(n, 3, -1)
+        for a, axis in ((x[:, 0], 0), (x, 0), (x.permute(1, 0, 2).contiguous(), 1)):
+            for reverse in (False, True):
+                got, k = field_kernel.scan_kernel(so, f, a, op, axis, reverse)
+                assert torch.equal(got, field_kernel.scan_plain(f, a, op, axis, reverse)), (n, axis, reverse)
+                if design == "two_warps_multi_pass":
+                    assert k == (1 if n <= (96 if op == field_kernel.OP_MUL else 128) else 3)
+
+
+@pytest.mark.parametrize("spec", [FR, FQ], ids=lambda s: s.name)
+def test_host_field_sum_powers_batch_inv_match_plain(scan_lib, spec):
+    """The sum on axis 0 and 1 (one and two passes), powers (several rows a
+    thread, a count that is not a multiple of them), batch_inv (the forward
+    and the reverse scan in the same passes, the shifted reads at both ends)."""
+    design, so = scan_lib
+    f = field(spec, "cpu")
+    for n in (1, 3, 64, 200):
+        x = _field_rows(spec, 4 * n, 100 + n).reshape(4, n, -1)
+        for axis in (0, 1):
+            got, k = field_kernel.sum_kernel(so, f, x, axis)
+            assert torch.equal(got, field_kernel.sum_plain(f, x, axis)), (n, axis)
+        got, k = field_kernel.sum_kernel(so, f, x[0], 0)
+        assert torch.equal(got, field_kernel.sum_plain(f, x[0], 0))
+        if design == "two_warps_multi_pass":
+            assert k == (1 if n <= 128 else 2)
+    for count in (1, 2, 3, 17, 300):
+        for z in (0, 1, 5, spec.modulus - 1):
+            got, k = field_kernel.powers_kernel(so, f, z, count)
+            assert k == 1 and torch.equal(got, field_kernel.powers_plain(f, z, count)), (count, z)
+    for n in (1, 2, 17, 300):
+        a = _field_rows(spec, n, 200 + n, nonzero=True)
+        got, k = field_kernel.batch_inv_kernel(so, f, a, spec.inv)
+        assert torch.equal(got, field_kernel.batch_inv_plain(f, a, spec.inv)), n
+        if design == "two_warps_multi_pass":
+            assert k == (2 if n <= 96 else 4)
+    a = _field_rows(spec, 2 * 17, 7, nonzero=True).reshape(2, 17, -1)
+    assert torch.equal(field_kernel.batch_inv_kernel(so, f, a, spec.inv)[0],
+                       field_kernel.batch_inv_plain(f, a, spec.inv))
+
+
+@pytest.mark.parametrize("spec", [FR, FQ, GOLDILOCKS], ids=lambda s: s.name)
+def test_host_field_addsub_matches_plain(scan_lib, spec):
+    """add and sub with 0, 1 and p - 1 among the operands: equal shapes, an
+    (m,) table and one constant broadcast against (K, m), a broadcast that is
+    materialised, and neg as 0 - a with the zero row read by the modulo."""
+    _, so = scan_lib
+    f = field(spec, "cpu")
+    A = _field_rows(spec, 15, 1).reshape(3, 5, -1)
+    B = _field_rows(spec, 15, 2).reshape(3, 5, -1)
+    for op, plain in ((0, field_kernel.add_plain), (1, field_kernel.sub_plain)):
+        for a, b in ((A, B), (A, B[1]), (A, B[2, 3]), (B[0, 1], A), (A[:, :1], B), (A[:, 2:], B[:, 2:])):
+            got, k = field_kernel.addsub_kernel(so, f, a, b, op)
+            assert k == 1 and torch.equal(got, plain(f, a, b)), (op, a.shape, b.shape)
+    got, _ = field_kernel.addsub_kernel(so, f, f.zero, A, 1)
+    assert torch.equal(got, field_kernel.sub_plain(f, torch.zeros_like(A), A))

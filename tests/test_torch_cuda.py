@@ -270,3 +270,64 @@ def test_pythagorean_proof_tensor_paths_gpu_equals_cpu(device):
     finally:
         cfg.HOST_MSM_MAX, cfg.HOST_NTT_MAX, cfg.HOST_POLY_MAX = saved
     assert proofs["cuda"] == proofs["cpu"]
+
+
+@pytest.mark.parametrize("spec", [FR, FQ], ids=lambda s: s.name)
+@pytest.mark.parametrize("n", [1, 3, 17, 4096, 4097, 1 << 14, (1 << 15) + 1])
+def test_field_scan_kernel_matches_plain(device, spec, n):
+    """cumprod and cumsum forward and reverse, the sum on axis 0 and 1, powers
+    and batch_inv against their plain versions: one block (products up to
+    ONE_BLOCK_MAX_MUL rows, adds up to ONE_BLOCK_MAX_ADD) and three passes;
+    launches counted; 0 spills."""
+    from zktpu_torch.fields import field_kernel as fk
+    from zktpu_torch.fields.fp import field
+
+    f = field(spec, device)
+    rng = random.Random(n)
+    p = spec.modulus
+    vals = [0, 1, p - 1] + [rng.randrange(1, p) for _ in range(2 * n)]
+    x = f.encode_ints(vals[: 2 * n]).reshape(n, 2, -1)
+    for op in (fk.OP_MUL, fk.OP_ADD):
+        for reverse in (False, True):
+            before = fk.launches["field_scan"][spec.name]
+            got = fk.scan(f, x, op, 0, reverse)
+            one_block = fk.ONE_BLOCK_MAX_MUL if op == fk.OP_MUL else fk.ONE_BLOCK_MAX_ADD
+            assert fk.launches["field_scan"][spec.name] == before + (1 if n <= one_block else 3)
+            assert torch.equal(got, fk.scan_plain(f, x, op, 0, reverse)), (op, reverse)
+    for axis, a in ((0, x), (1, x.transpose(0, 1))):
+        assert torch.equal(f.sum(a, axis=axis), fk.sum_plain(f, a, axis)), axis
+    assert torch.equal(f.powers(p - 1, n), fk.powers_plain(f, p - 1, n))
+    assert torch.equal(f.powers(5, n), fk.powers_plain(f, 5, n))
+    nz = f.encode_ints(vals[3 : 3 + n])
+    before = fk.launches["field_scan"][spec.name]
+    got = f.batch_inv(nz, host_inv=spec.inv)
+    assert fk.launches["field_scan"][spec.name] == before + (2 if n <= fk.ONE_BLOCK_MAX_MUL else 4)
+    assert torch.equal(got, fk.batch_inv_plain(f, nz, spec.inv))
+    assert f.decode_ints(got[:4]) == [pow(v, -1, p) for v in vals[3:7]][: min(4, n)]
+    assert fk.kernel_attrs("field_scan")["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("spec", [FR, FQ, GOLDILOCKS], ids=lambda s: s.name)
+def test_field_addsub_kernel_matches_plain(device, spec):
+    """add, sub, neg and double against the plain versions: equal shapes, an
+    (m,) table and one constant read by the modulo, a materialised
+    broadcast, a slice off the 16-byte grid; one launch each; 0 spills."""
+    from zktpu_torch.fields import field_kernel as fk
+    from zktpu_torch.fields.fp import field
+
+    f = field(spec, device)
+    rng = random.Random(4)
+    p = spec.modulus
+    vals = [0, 1, p - 1] + [rng.randrange(p) for _ in range(3 * 1000 - 3)]
+    A = f.encode_ints(vals).reshape(3, 1000, -1)
+    B = torch.roll(A, 7, 1)
+    for a, b in ((A, B), (A, B[1]), (A, B[2, 9]), (A[:, :1], B), (A[:, 1:], B[:, :-1])):
+        for op, plain in ((f.add, fk.add_plain), (f.sub, fk.sub_plain)):
+            before = fk.launches["field_addsub"][spec.name]
+            got = op(a, b)
+            assert fk.launches["field_addsub"][spec.name] == before + 1
+            assert torch.equal(got, plain(f, a, b))
+    assert torch.equal(f.neg(A), fk.sub_plain(f, torch.zeros_like(A), A))
+    assert torch.equal(f.double(A), fk.add_plain(f, A, A))
+    assert f.decode_ints(f.add(A[0, :3], A[0, :3])) == [2 * v % p for v in vals[:3]]
+    assert fk.kernel_attrs("field_addsub")["local_bytes"] == 0

@@ -97,6 +97,16 @@ def test_wrapper_on_a_non_cpu_tensor_launches_or_raises():
         mont_mul_chain(FQ, a, a, 12)
     with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
         proj_madd((a, a, a), (a, a))
+    # kernels A and B (fields/field_kernel.py) through the field's ops
+    from zktpu_torch.fields import field_kernel
+    from zktpu_torch.fields.fp import field
+
+    f = field(FQ, "cpu")
+    for call in (lambda: field_kernel.add(f, a, a), lambda: field_kernel.sub(f, a, a),
+                 lambda: field_kernel.scan(f, a, field_kernel.OP_MUL), lambda: field_kernel.field_sum(f, a),
+                 lambda: field_kernel.batch_inv(f, a, FQ.inv)):
+        with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
+            call()
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

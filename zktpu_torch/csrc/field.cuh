@@ -283,6 +283,43 @@ ZK_FN void copy_limbs(uint32_t* dst, const uint32_t* src) {
   for (int j = 0; j < L; ++j) dst[j] = src[j];
 }
 
+// One row of L limbs from or to memory: on the card as 16-byte words when L
+// is a multiple of 4 (Fr, Fq).
+template <int L>
+ZK_FN void load_elem(uint32_t* dst, const uint32_t* src) {
+#if defined(__CUDA_ARCH__)
+  if constexpr (L % 4 == 0) {  // the caller passes a 16-byte aligned row
+#pragma unroll
+    for (int k = 0; k < L / 4; ++k) {
+      const uint4 v = reinterpret_cast<const uint4*>(src)[k];
+      dst[4 * k] = v.x;
+      dst[4 * k + 1] = v.y;
+      dst[4 * k + 2] = v.z;
+      dst[4 * k + 3] = v.w;
+    }
+  } else {
+    copy_limbs<L>(dst, src);
+  }
+#else
+  std::memcpy(dst, src, L * sizeof(uint32_t));
+#endif
+}
+
+template <int L>
+ZK_FN void store_elem(uint32_t* dst, const uint32_t* src) {
+#if defined(__CUDA_ARCH__)
+  if constexpr (L % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < L / 4; ++k)
+      reinterpret_cast<uint4*>(dst)[k] = make_uint4(src[4 * k], src[4 * k + 1], src[4 * k + 2], src[4 * k + 3]);
+  } else {
+    copy_limbs<L>(dst, src);
+  }
+#else
+  std::memcpy(dst, src, L * sizeof(uint32_t));
+#endif
+}
+
 template <int L>
 inline FieldConsts<L> make_consts(const uint32_t* p_host, uint32_t pinv) {
   FieldConsts<L> f;

@@ -5,7 +5,10 @@
 // in registers (field.cuh::fmul), instantiated for L = 12 (Fq), 8 (Fr) and
 // 2 (Goldilocks).  Operands broadcast by a modulo on the row index, which
 // covers the shapes the port uses (a full batch times one constant, or a
-// (K, m) batch times an (m,) table).  Plain C interface, loaded with ctypes.
+// (K, m) batch times an (m,) table).  Fr and Fq rows are read and written as
+// 16-byte words (2 and 3 a row) when every pointer is 16-byte aligned, which
+// the wrapper's contiguous operands are.  Plain C interface, loaded with
+// ctypes.
 //
 // Kernel 5, the chained product, replaces the base variant of
 // tools/prof_mulkernels.py::make_chain: each thread loads a and b once, runs
@@ -16,7 +19,8 @@
 
 #include "field.cuh"
 
-template <int L>
+// VEC: rows as 16-byte words (L = 8 or 12 and every pointer 16-byte aligned).
+template <int L, bool VEC>
 __global__ void __launch_bounds__(256)
 mont_mul_kernel(const uint32_t* __restrict__ a, int64_t na, const uint32_t* __restrict__ b,
                 int64_t nb, uint32_t* __restrict__ out, int64_t n, FieldConsts<L> f) {
@@ -25,10 +29,19 @@ mont_mul_kernel(const uint32_t* __restrict__ a, int64_t na, const uint32_t* __re
   const int64_t ia = na == n ? i : i % na;
   const int64_t ib = nb == n ? i : i % nb;
   uint32_t x[L], y[L], r[L];
-  copy_limbs<L>(x, a + ia * L);
-  copy_limbs<L>(y, b + ib * L);
+  if constexpr (VEC) {
+    load_elem<L>(x, a + ia * L);
+    load_elem<L>(y, b + ib * L);
+  } else {
+    copy_limbs<L>(x, a + ia * L);
+    copy_limbs<L>(y, b + ib * L);
+  }
   fmul<L>(r, x, y, f);
-  copy_limbs<L>(out + i * L, r);
+  if constexpr (VEC) {
+    store_elem<L>(out + i * L, r);
+  } else {
+    copy_limbs<L>(out + i * L, r);
+  }
 }
 
 template <int L>
@@ -36,9 +49,16 @@ static int launch_mont_mul(const uint32_t* p, uint32_t pinv, const void* a, int6
                            const void* b, int64_t nb, void* out, int64_t n, cudaStream_t stream) {
   const int threads = 256;
   const int64_t blocks = (n + threads - 1) / threads;
-  mont_mul_kernel<L><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const uint32_t*>(a), na, static_cast<const uint32_t*>(b), nb,
-      static_cast<uint32_t*>(out), n, make_consts<L>(p, pinv));
+  const uint32_t *x = static_cast<const uint32_t*>(a), *y = static_cast<const uint32_t*>(b);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  const FieldConsts<L> f = make_consts<L>(p, pinv);
+  const bool vec = L % 4 == 0 && ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                                   reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  if (vec) {
+    mont_mul_kernel<L, L % 4 == 0><<<(unsigned)blocks, threads, 0, stream>>>(x, na, y, nb, o, n, f);
+  } else {
+    mont_mul_kernel<L, false><<<(unsigned)blocks, threads, 0, stream>>>(x, na, y, nb, o, n, f);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -25,8 +25,8 @@ from .fields.host import FieldSpec
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "zktpu_torch")
-SOURCES = ("mont_mul.cu", "g1.cu", "ntt.cu")
-HEADERS = ("field.cuh", "g1.cuh", "ntt.cuh")
+SOURCES = ("mont_mul.cu", "g1.cu", "ntt.cu", "field_ops.cu")
+HEADERS = ("field.cuh", "g1.cuh", "ntt.cuh", "field_ops.cuh")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -55,6 +55,21 @@ _SIGNATURES = {
     "zk_ntt_attrs": [_P],
     # device, limbs, p (host), pinv, a, b, out, n, chain, stream
     "zk_mont_mul_chain": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _P, _I64, ctypes.c_int, _P],
+    # device, limbs, p (host), pinv, identity (host), op, mode, in, its row and
+    # column strides, n, B, chunk, dirs, out_fwd, out_rev, their row and column
+    # strides, totals, carry, stream
+    "zk_field_scan": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, ctypes.c_int, ctypes.c_int, _P, _I64, _I64,
+                      _I64, _I64, _I64, ctypes.c_int, _P, _P, _I64, _I64, _P, _P, _P],
+    "zk_field_scan_threads": [],
+    # device, limbs, p (host), pinv, one (host), z^(2^j) table (host), out, count, chunk, stream
+    "zk_field_powers": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _P, _I64, _I64, _P],
+    # device, limbs, p (host), pinv, one (host), inverse total (host), prefix, suffix, out, n, stream
+    "zk_field_batch_inv": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _P, _P, _P, _I64, _P],
+    # device, limbs, p (host), pinv, op (0 add, 1 sub), a, na, b, nb, out, n, stream
+    "zk_field_addsub": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, ctypes.c_int, _P, _I64, _P, _I64, _P, _I64,
+                        _P],
+    # kind (0 kernel A, 1 kernel B), out {registers, local bytes, shared bytes}
+    "zk_field_ops_attrs": [ctypes.c_int, _P],
 }
 
 

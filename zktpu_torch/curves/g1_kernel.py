@@ -39,12 +39,14 @@ signatures.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from ..fields.host import FQ
 from .. import cuda_lib
+from ..fields.field_kernel import add_plain, sub_plain
 from ..fields.fp import field
 from ..fields.mont_kernel import mont_mul_plain
 
@@ -52,11 +54,14 @@ LIMBS = FQ.num_digits // 2
 
 
 class _PlainOps:
-    """Fq ops for the plain group law: the plain product and tensor add/sub."""
+    """Fq ops for the plain group law: the plain product and the plain tensor
+    add/sub (fields/field_kernel.py), on any device."""
 
     def __init__(self, device: torch.device):
         f = field(FQ, device)
-        self.add, self.sub, self.dbl = f.add, f.sub, f.double
+        self.add = functools.partial(add_plain, f)
+        self.sub = functools.partial(sub_plain, f)
+        self.dbl = lambda a: add_plain(f, a, a)
 
     @staticmethod
     def mul(a, b):

@@ -2,9 +2,11 @@
 
 A field element is (..., L) little-endian 32-bit limbs in a torch.int32
 tensor, Montgomery form with R = 2^(32 L) (the same R as zktpu's 16-bit-digit
-layout), canonical (< p).  ``mont_mul`` is kernel 1 for CUDA tensors and its
-plain version for CPU tensors; add, sub and the scans are plain tensor ops
-around it.  Every op is shape-polymorphic over leading axes.
+layout), canonical (< p).  ``mont_mul`` is kernel 1 (fields/mont_kernel.py);
+add, sub, neg and double are kernel B and the scans (cumprod, cumsum, sum,
+powers, batch_inv) kernel A (fields/field_kernel.py).  Each runs its kernel
+for CUDA tensors and its plain version for CPU tensors.  Every op is
+shape-polymorphic over leading axes.
 """
 from __future__ import annotations
 
@@ -13,8 +15,9 @@ import functools
 import numpy as np
 import torch
 
+from . import field_kernel as _fk
 from .host import FieldSpec
-from .limbs import MASK32, narrow, resolve, widen
+from .limbs import widen
 from .mont_kernel import mont_mul as _mont_mul
 
 
@@ -77,78 +80,35 @@ class TorchField:
         """a * b * R^{-1} mod p (canonical)."""
         return _mont_mul(self.spec, a, b)
 
-    def _reduce(self, s: torch.Tensor, top: torch.Tensor) -> torch.Tensor:
-        """Value top * R + s (< 2p) -> canonical int32 limbs."""
-        d, no_borrow = resolve(s + self._neg_p, 32)  # s - p mod R
-        take = (top | no_borrow)[..., None]
-        return narrow(torch.where(take, d, s))
-
     def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        a, b = torch.broadcast_tensors(widen(a), widen(b))
-        s, top = resolve(a + b, 32)
-        return self._reduce(s, top)
+        return _fk.add(self, a, b)
 
     def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        a, b = torch.broadcast_tensors(widen(a), widen(b))
-        d, no_borrow = resolve(a + (MASK32 - b) + _unit(a), 32)  # a - b mod R
-        dp, _ = resolve(d + self._p, 32)  # a - b + p mod R
-        return narrow(torch.where(no_borrow[..., None], d, dp))
+        return _fk.sub(self, a, b)
 
     def neg(self, a: torch.Tensor) -> torch.Tensor:
-        return self.sub(torch.zeros_like(a), a)
+        return _fk.sub(self, self.zero, a)
 
     def double(self, a: torch.Tensor) -> torch.Tensor:
         return self.add(a, a)
 
     def sum(self, a: torch.Tensor, axis: int = 0) -> torch.Tensor:
-        """Field sum along `axis` by a binary tree of adds."""
-        a = torch.movedim(a, axis, 0)
-        while a.shape[0] > 1:
-            half = a.shape[0] // 2
-            s = self.add(a[:half], a[half : 2 * half])
-            a = torch.cat([s, a[2 * half :]], dim=0)
-        return a[0]
-
-    def _scan(self, op, a: torch.Tensor, identity: torch.Tensor, axis: int, reverse: bool) -> torch.Tensor:
-        """Inclusive scan by log-depth doubling (zktpu fp.py::_hillis_steele)."""
-        a = torch.movedim(a, axis, 0)
-        if reverse:
-            a = torch.flip(a, dims=(0,))
-        n = a.shape[0]
-        d = 1
-        while d < n:
-            shifted = torch.cat([identity.expand((d,) + a.shape[1:]), a[:-d]], dim=0)
-            a = op(a, shifted)
-            d *= 2
-        if reverse:
-            a = torch.flip(a, dims=(0,))
-        return torch.movedim(a, 0, axis)
+        return _fk.field_sum(self, a, axis)
 
     def cumprod(self, a: torch.Tensor, axis: int = 0, reverse: bool = False) -> torch.Tensor:
-        return self._scan(self.mont_mul, a, self.one, axis, reverse)
+        return _fk.scan(self, a, _fk.OP_MUL, axis, reverse)
 
     def cumsum(self, a: torch.Tensor, axis: int = 0, reverse: bool = False) -> torch.Tensor:
-        return self._scan(self.add, a, self.zero, axis, reverse)
+        return _fk.scan(self, a, _fk.OP_ADD, axis, reverse)
 
     def powers(self, base: int, count: int) -> torch.Tensor:
         """[1, z, ..., z^(count-1)] as (count, L) Montgomery limbs."""
-        if count <= 0:
-            return torch.zeros((0, self.num_limbs), dtype=torch.int32, device=self.device)
-        g = self.encode_int(int(base) % self.spec.modulus)
-        arr = torch.cat([self.one[None], g.expand(count - 1, self.num_limbs)], dim=0)
-        return self.cumprod(arr, axis=0)
+        return _fk.powers(self, base, count)
 
     def batch_inv(self, a: torch.Tensor, host_inv) -> torch.Tensor:
         """Montgomery-trick batch inversion over the leading axis; the total
         product is inverted on the host by `host_inv` (int -> int)."""
-        flat = a.reshape(-1, self.num_limbs)
-        prefix = self.cumprod(flat, axis=0)
-        suffix = self.cumprod(flat, axis=0, reverse=True)
-        inv_total = self.encode_int(host_inv(self.decode_int(prefix[-1])))
-        ones = self.one[None]
-        p_left = torch.cat([ones, prefix[:-1]], dim=0)
-        s_right = torch.cat([suffix[1:], ones], dim=0)
-        return self.mont_mul(self.mont_mul(p_left, s_right), inv_total).reshape(a.shape)
+        return _fk.batch_inv(self, a, host_inv)
 
     # -- conversions --
 
@@ -183,14 +143,6 @@ class TorchField:
 
     def decode_int(self, arr: torch.Tensor) -> int:
         return self.decode_ints(arr.reshape(1, -1))[0]
-
-
-def _unit(x: torch.Tensor) -> torch.Tensor:
-    """1 in the lowest limb, broadcastable against x: the +1 of a two's
-    complement subtraction."""
-    u = torch.zeros(x.shape[-1], dtype=x.dtype, device=x.device)
-    u[0] = 1
-    return u
 
 
 @functools.lru_cache(maxsize=None)

@@ -47,6 +47,8 @@ def resolve(v: torch.Tensor, bits: int, outer: bool | None = None):
     where a scan over a short innermost dim runs one row per thread and took
     89% of a 2^14-gate prove's device time).  Both layouts give equal results.
     """
+    if v.is_cuda:
+        resolve.cuda_calls += 1
     mask = (1 << bits) - 1
     outer = v.is_cuda if outer is None else outer
     dim = 0 if outer else -1
@@ -59,6 +61,9 @@ def resolve(v: torch.Tensor, bits: int, outer: bool | None = None):
     carry_in = torch.cat([torch.zeros_like(carry.narrow(dim, 0, 1)), carry.narrow(dim, 0, k - 1)], dim=dim)
     out = (t + carry_in) & mask
     return (out.movedim(0, -1) if outer else out), carry.select(dim, k - 1)
+
+
+resolve.cuda_calls = 0  # calls on CUDA tensors: the plain versions' carry scans on the card
 
 
 def normalize16(cols: torch.Tensor, width: int, bits: int) -> torch.Tensor:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import cuda_lib
+from ..fields.field_kernel import add_plain, sub_plain
 from ..fields.fp import field, ints_to_limbs
 from ..fields.host import FR, FieldSpec
 from ..fields.mont_kernel import mont_mul_plain
@@ -56,11 +57,13 @@ def _n_inv(spec: FieldSpec, n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(ints_to_limbs([spec.to_mont(spec.inv(n))], spec.num_digits // 2)[0]).to(device)
 
 
-def stage_loop(spec: FieldSpec, mul, values, table, inverse: bool, in_factor=None, out_factor=None):
+def stage_loop(spec: FieldSpec, mul, values, table, inverse: bool, in_factor=None, out_factor=None, plain=False):
     """The transform as log n tensor stages: `mul` (a Montgomery product of
     two broadcastable limb tensors) by the stage twiddles, then a field add
-    and sub and a concatenation per stage."""
+    and sub (kernel B, or with `plain` their plain versions) and a
+    concatenation per stage."""
     df = field(spec, values.device)
+    add, sub = (functools.partial(add_plain, df), functools.partial(sub_plain, df)) if plain else (df.add, df.sub)
     n, L = values.shape[-2], values.shape[-1]
     x = values if in_factor is None else mul(values, in_factor)
     x = x.index_select(-2, _perm(n, values.device))
@@ -71,7 +74,7 @@ def stage_loop(spec: FieldSpec, mul, values, table, inverse: bool, in_factor=Non
         xr = x.reshape(lead + (n // m, m, L))
         even, odd = xr[..., :half, :], xr[..., half:, :]
         t = mul(odd, table[:: n // m][:half])
-        x = torch.cat([df.add(even, t), df.sub(even, t)], dim=-2).reshape(lead + (n, L))
+        x = torch.cat([add(even, t), sub(even, t)], dim=-2).reshape(lead + (n, L))
     if out_factor is None and inverse:
         out_factor = _n_inv(spec, n, values.device)
     return x if out_factor is None else mul(x, out_factor)
@@ -79,7 +82,8 @@ def stage_loop(spec: FieldSpec, mul, values, table, inverse: bool, in_factor=Non
 
 def ntt_plain(values, table, inverse: bool, in_factor=None, out_factor=None, spec: FieldSpec = FR):
     """The plain version: the stage loop over the plain Montgomery product."""
-    return stage_loop(spec, functools.partial(mont_mul_plain, spec), values, table, inverse, in_factor, out_factor)
+    return stage_loop(spec, functools.partial(mont_mul_plain, spec), values, table, inverse, in_factor, out_factor,
+                      plain=True)
 
 
 def _factor(name: str, t, n: int):
