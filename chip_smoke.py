@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Run the zktpu_torch main paths once on one CUDA GPU and check them.
 
-    python3 chip_smoke.py [--log-n 14] [--msm-log-n 20]
+    python3 chip_smoke.py [--log-n 14] [--msm-log-n 20] [--fri-log-n 20]
 
 Phases:
   1. device: the card's name and power limit (fails without CUDA); the
      kernels built from zktpu_torch/csrc (one nvcc per source, in parallel;
      ptxas's register and spill counts go to stderr), and the registers,
      local (spill) bytes and shared memory per block of the group-law
-     kernels, the Horner combine, the NTT, the field scans and the field
-     add/sub (fails if one spills);
+     kernels, the Horner combine, the NTT (Fr and Goldilocks), the field
+     scans, the field add/sub and the field hash (fails if one spills);
   2. kernels: holds each CUDA kernel against its plain PyTorch version on
      the card, bit for bit (mont_mul for Fr, Fq and Goldilocks and
      mont_mul_chain at N = 2^16 + 3 with the edge values 0, 1, p - 1;
@@ -29,6 +29,11 @@ Phases:
      time with the wrapper; the field scans (cumprod, cumsum both ways, sum
      on axis 0 and 1, powers, batch_inv) and the field add/sub against their
      plain versions at the shapes the paths give them, Fr and Fq (phase_field_ops);
+     the Goldilocks NTT (fft, ifft, coset_fft, coset_ifft at 2^fri_log_n x 1,
+     2^13 x 3, n = 2 and 2^8, an all-zero row and a row of p - 1) and the
+     field hash (single at 2^fri_log_n values, pairs at 2^(fri_log_n - 1),
+     digit-length edges mixed in; the first 64 of each against hashlib)
+     (phase_fri_kernels);
   3. small proof: a 4-gate circuit proved with every tensor path forced,
      once on the GPU and once on the CPU; the proofs must be equal;
   4. PLONK path: synthetic_mul_chain(log_n) and its SRS on the GPU, prove,
@@ -46,17 +51,31 @@ Phases:
      versions on the operands msm_affine gives them and proj_add on the
      first step of msm_proj's doubling scan at 2^msm_log_n, timed.
      Last the chained-multiply tool (zktpu_torch.tools.prof_mulkernels) for
-     each field, as a path of its own.
-Launches are set to 0 just before each path (phase 4, the bench, the tool)
-and read just after.  Then one JSON line with the kernels (launches summed
-over the three paths; times and bounds at the shapes the paths give them:
+     each field, as a path of its own;
+  6. FRI path: generate_proof on the card for 2^(fri_log_n - 1) Goldilocks
+     coefficients (blowup 2, 32 queries) and the host verify; the Goldilocks
+     NTT, the hash, mont_mul, the add/sub and the scans (the domains' power
+     tables) must have launched.  Outside the count: the verifier rejects
+     one changed evaluation and one changed root; layer 0's root equals a
+     hashlib tree over its evaluations from the card, 64 of which equal
+     host evaluations; a 2^12-domain proof from the card equals the CPU's;
+     mont_mul, the add/sub and the powers over Goldilocks timed at the
+     path's shapes; prove and verify seconds at 2^12, 2^16 and 2^fri_log_n
+     (median of 3 warm runs) beside the card's power limit.
+Launches are set to 0 just before each path (phase 4, the bench, the tool,
+the FRI prove) and read just after.  Then one JSON line with the kernels
+(launches summed over the four paths; times and bounds at the shapes the
+paths give them:
 proj_madd at msm_affine's mixed add, proj_add at msm_proj's first scan step,
 proj_double at K = 1, mont_mul Fr at the coset division's product, ntt_fr
 at 2^17 x 7 (fft), horner_combine at c = 16, K = 1, field_scan_fr at round
 2's 2^14 cumprod, field_scan_fq at Srs.g1_affine's 2^20 batch_inv,
-field_addsub_fr at the coset quotient's (2^17, 8) add, the others at phase
-2's shapes), the card's name and power limit, and the final {"ok": true, ...}
-line.  Any failure raises and exits non-zero.
+field_addsub_fr at the coset quotient's (2^17, 8) add, ntt_gl at FRI layer
+0's coset_fft, sha256_field at its leaves, mont_mul_gl at its from_mont,
+field_addsub_gl at its first fold, field_scan_gl at its largest power
+table, the others at phase 2's shapes), the
+card's name and power limit, and the final {"ok": true, ...} line.  Any
+failure raises and exits non-zero.
 """
 from __future__ import annotations
 
@@ -83,6 +102,11 @@ CHAIN = 12
 # 32 x 32 -> 64-bit word product costs two of them (low and high halves).
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
+# Other 32-bit integer operations (adds, logic, shifts, byte permutes,
+# selects) issue to the integer ALU pipe, 64 a clock per SM, beside the
+# multiply-add pipe, and the compiler moves adds and moves onto either: so
+# a kernel of such operations takes at least their count over both pipes.
+INT_OPS_PER_S = 2 * IMAD_PER_S
 
 
 def _mont_words(limbs: int) -> int:
@@ -120,16 +144,18 @@ def _compare(name: str, got, want) -> int:
     return int(diff.abs().max()) if diff.numel() else 0
 
 
-def _bound(nbytes: int, word_products: int) -> dict:
-    """The least time for the work: bytes over HBM or multiply-adds over the integer rate."""
+def _bound(nbytes: int, word_products: int, int_ops: int = 0) -> dict:
+    """The least time for the work: bytes over HBM, or the multiply-adds (two
+    a word product) over their pipe's rate, or those and the other 32-bit
+    integer operations over both integer pipes, whichever is longest."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * word_products / IMAD_PER_S
+    t_ops = max(2 * word_products / IMAD_PER_S, (2 * word_products + int_ops) / INT_OPS_PER_S)
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def _record(results: dict, key: str, n: int, err: int, ms: float, plain_ms: float, nbytes: int, words: int,
-            phase: str = "phase 2:") -> None:
-    results[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "n": n, **_bound(nbytes, words)}
+            phase: str = "phase 2:", int_ops: int = 0) -> None:
+    results[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "n": n, **_bound(nbytes, words, int_ops)}
     print(f"{phase} {key} n={n} mismatches=0 kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={results[key]['bound_ms']:.5f} ({results[key]['bound_by']})", flush=True)
 
@@ -153,7 +179,7 @@ def phase_kernels(device) -> dict:
     rng = random.Random(SEED)
     results = {}
     n = (1 << 16) + 3
-    for spec, key in ((FR, "mont_mul_fr"), (FQ, "mont_mul_fq"), (GOLDILOCKS, "mont_mul_goldilocks")):
+    for spec, key in ((FR, "mont_mul_fr"), (FQ, "mont_mul_fq"), (GOLDILOCKS, "mont_mul_gl")):
         f = field(spec, device)
         p, L = spec.modulus, spec.num_digits // 2
         a, b = _edge_ints(rng, p, n)
@@ -644,17 +670,19 @@ def phase_small_proof(device) -> None:
 def _wrappers():
     from zktpu_torch.curves.g1_kernel import horner_combine, proj_add, proj_double, proj_madd
     from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_chain
+    from zktpu_torch.hash.sha256_kernel import hash_field
     from zktpu_torch.poly.ntt_kernel import ntt
 
-    return mont_mul, (proj_add, proj_double, proj_madd, mont_mul_chain, ntt, horner_combine)
+    return (mont_mul, ntt), (proj_add, proj_double, proj_madd, mont_mul_chain, horner_combine, hash_field)
 
 
 def _reset_launches() -> None:
     from zktpu_torch.fields import field_kernel
 
-    mont_mul, others = _wrappers()
-    for name in mont_mul.launches:
-        mont_mul.launches[name] = 0
+    per_field, others = _wrappers()
+    for w in per_field:
+        for name in w.launches:
+            w.launches[name] = 0
     for w in others:
         w.launches = 0
     for counts in field_kernel.launches.values():
@@ -666,19 +694,21 @@ def _read_launches() -> dict:
     from zktpu_torch.fields import field_kernel
     from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
 
-    mont_mul, (proj_add, proj_double, proj_madd, mont_mul_chain, ntt, horner_combine) = _wrappers()
+    (mont_mul, ntt), (proj_add, proj_double, proj_madd, mont_mul_chain, horner_combine, hash_field) = _wrappers()
     return {
         "mont_mul_fr": mont_mul.launches[FR.name],
         "mont_mul_fq": mont_mul.launches[FQ.name],
-        "mont_mul_goldilocks": mont_mul.launches[GOLDILOCKS.name],
+        "mont_mul_gl": mont_mul.launches[GOLDILOCKS.name],
         "proj_add": proj_add.launches,
         "proj_double": proj_double.launches,
         "proj_madd": proj_madd.launches,
         "mont_mul_chain": mont_mul_chain.launches,
-        "ntt_fr": ntt.launches,
+        "ntt_fr": ntt.launches[FR.name],
+        "ntt_gl": ntt.launches[GOLDILOCKS.name],
         "horner_combine": horner_combine.launches,
+        "sha256_field": hash_field.launches,
         **{f"{k}_{short}": field_kernel.launches[k][spec.name]
-           for k in ("field_scan", "field_addsub") for short, spec in (("fr", FR), ("fq", FQ), ("goldilocks", GOLDILOCKS))},
+           for k in ("field_scan", "field_addsub") for short, spec in (("fr", FR), ("fq", FQ), ("gl", GOLDILOCKS))},
     }
 
 
@@ -882,12 +912,260 @@ def phase_path_shapes(device, inputs: dict, results: dict) -> None:
         torch.cuda.empty_cache()
 
 
-# The kernels of the paths.  The Goldilocks product is built and held against
-# its plain version in phase 2, but no ported path multiplies in Goldilocks
-# (zktpu uses it for FRI, not ported), so it has no launches to report.
+def _gl_rows(f, gen, batch: int, n: int) -> torch.Tensor:
+    """(batch, n, 2) canonical Goldilocks Montgomery limbs made on the card
+    (top limb below 2^31 keeps them < p); row 0 all zero and row 1 all
+    p - 1 when the batch has three rows, else those values at the front."""
+    t = torch.randint(-(1 << 31), 1 << 31, (batch, n, 2), dtype=torch.int64, device=f.device, generator=gen)
+    t[..., 1] &= (1 << 31) - 1
+    t = t.to(torch.int32)
+    if batch >= 3:
+        t[0] = 0
+        t[1] = f.encode_int(f.spec.modulus - 1)
+    else:
+        t[0, : min(n, 2)] = torch.stack([f.zero, f.encode_int(f.spec.modulus - 1)])[: min(n, 2)]
+    return t
+
+
+def _hash_edge_values(gen, n: int, device) -> torch.Tensor:
+    """n canonical Goldilocks values on the card ((n, 2) limbs), with every
+    digit-length edge (10^k - 1, 10^k), 0, 2^32 +- 1 and p - 1 at the front
+    and scattered through the rest."""
+    from zktpu_torch.fields.fp import ints_to_limbs
+    from zktpu_torch.fields.host import GOLDILOCKS
+
+    p = GOLDILOCKS.modulus
+    edges = [0, 2**32 - 1, 2**32, 2**32 + 1, p - 2, p - 1] + [v for k in range(1, 20) for v in (10**k - 1, 10**k)]
+    t = torch.randint(-(1 << 31), 1 << 31, (n, 2), dtype=torch.int64, device=device, generator=gen)
+    t[:, 1] &= (1 << 31) - 1
+    t = t.to(torch.int32)
+    e = torch.from_numpy(ints_to_limbs(edges, 2)).to(device)
+    t[: len(edges)] = e
+    pos = torch.randint(0, n, (8 * len(edges),), device=device, generator=gen)
+    t[pos] = e.repeat(8, 1)
+    return t
+
+
+def phase_fri_kernels(device, results: dict, log_n: int = 20) -> None:
+    """Kernels 1g (the Goldilocks NTT) and 6 (the field hash) against their
+    plain versions on the card, 0 mismatching words: the NTT's fft, ifft,
+    coset_fft and coset_ifft at 2^log_n x 1, 2^13 x 3, n = 2 x 3 and 2^8 x 3
+    (an all-zero row and a row of p - 1); the hash in single mode at
+    2^log_n values and in pair mode at 2^(log_n - 1) pairs, digit-length
+    edges mixed in, and its first 64 outputs against hashlib.  The hash's
+    bound counts the 32-bit integer instructions of one hash from the SASS
+    of this build (prof_fri.hash_int_ops, cuobjdump) over both integer
+    pipes.  The kernels line takes ntt_gl from FRI layer 0's coset_fft at
+    2^log_n and sha256_field from the single mode (layer 0's leaves)."""
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fields.host import GOLDILOCKS
+    from zktpu_torch.hash import host_hash
+    from zktpu_torch.hash.sha256_kernel import hash_field, hash_field_plain
+    from zktpu_torch.poly.domain import Radix2Domain
+    from zktpu_torch.poly.ntt_kernel import ntt, ntt_plain
+    from zktpu_torch.tools.prof_fri import hash_int_ops
+
+    gl = field(GOLDILOCKS, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 4)
+    ops = hash_int_ops()
+    print(f"phase 2: sha256_field SASS: {ops['single']} integer instructions a hash (single), {ops['pairs']} (pairs); "
+          f"shifts and logic {ops['single_shf_lop3']} / {ops['pairs_shf_lop3']}", flush=True)
+    err = 0
+    for lg, batch in ((log_n, 1), (13, 3), (1, 3), (8, 3)):
+        n = 1 << lg
+        dom = Radix2Domain(GOLDILOCKS, n, device=device)
+        x = _gl_rows(gl, gen, batch, n)
+        g = GOLDILOCKS.generator
+        lanes = (("fft", False, None, None), ("ifft", True, None, None),
+                 ("coset_fft", False, dom.offset_powers(g), None), ("coset_ifft", True, None, dom._coset_out(g)))
+        for name, inverse, fin, fout in lanes:
+            table = dom._inv_tw if inverse else dom._fwd_tw
+            got = ntt(x, table, inverse, fin, fout, GOLDILOCKS)
+            want, plain_ms = _timed_once(lambda: ntt_plain(x, table, inverse, fin, fout, GOLDILOCKS))
+            err = max(err, _compare(f"ntt Goldilocks {name} 2^{lg} x {batch}", [got], [want]))
+            if lg == log_n and name == "coset_fft":  # FRI layer 0's transform
+                ms = _cuda_ms(lambda: ntt(x, table, inverse, fin, fout, GOLDILOCKS), 50)
+                products = _ntt_products(n, batch, 1)
+                _record(results, "ntt_gl", n * batch, err, ms, plain_ms, (2 * batch * n + n // 2 + n) * 8,
+                        products * _mont_words(2), phase=f"phase 2: ntt Goldilocks coset_fft (2^{lg}, 2) x {batch}:")
+        print(f"phase 2: ntt Goldilocks 2^{lg} x batch {batch}: fft, ifft, coset_fft, coset_ifft mismatches=0",
+              flush=True)
+        del x, dom
+    results["ntt_gl"]["max_abs_err"] = err
+    torch.cuda.empty_cache()
+
+    n = 1 << log_n
+    x = _hash_edge_values(gen, n, device)
+    err = 0
+    for pairs in (False, True):
+        got = hash_field(x, pairs)
+        want, plain_ms = _timed_once(lambda: hash_field_plain(x, pairs))
+        mode = "pairs" if pairs else "single"
+        err = max(err, _compare(f"sha256_field {mode} n={n}", [got], [want]))
+        vals = x[:128].cpu().numpy().view("<u8")[:, 0].tolist()
+        ints = got[:64].cpu().numpy().view("<u8")[:, 0].tolist()
+        host = ([host_hash.hash_slice(GOLDILOCKS, vals[2 * i : 2 * i + 2]) for i in range(64)] if pairs
+                else [host_hash.hash_elem(GOLDILOCKS, v) for v in vals[:64]])
+        assert ints == host, f"sha256_field {mode}: the first 64 hashes differ from hashlib"
+        ms = _cuda_ms(lambda: hash_field(x, pairs), 20)
+        out_rows = n // 2 if pairs else n
+        nbytes, int_ops = n * 8 + out_rows * 8, out_rows * ops["pairs" if pairs else "single"]
+        if not pairs:
+            _record(results, "sha256_field", n, err, ms, plain_ms, nbytes, 0,
+                    phase=f"phase 2: sha256_field single ({n}, 2):", int_ops=int_ops)
+        else:
+            b = _bound(nbytes, 0, int_ops)
+            print(f"phase 2: sha256_field pairs ({n // 2} pairs): mismatches=0 kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']})", flush=True)
+    results["sha256_field"]["max_abs_err"] = err
+    print(f"phase 2: sha256_field: first 64 hashes of each mode == hashlib", flush=True)
+    del x
+    torch.cuda.empty_cache()
+
+
+def _host_merkle_root(values: list[int]) -> int:
+    """The reference tree's root with hashlib alone (fri/src/merkle_tree.rs:
+    level 0 hashes each value, each level above hashes pairs)."""
+    import hashlib
+
+    p = (1 << 64) - (1 << 32) + 1
+
+    def h(data: bytes) -> int:
+        return int.from_bytes(hashlib.sha256(data).digest(), "little") % p
+
+    level = [h(str(v).encode()) for v in values]
+    while len(level) > 1:
+        level = [h(b"".join(str(v).encode() for v in level[i : i + 2])) for i in range(0, len(level), 2)]
+    return level[0]
+
+
+def phase_fri(device, log_n: int, results: dict) -> dict:
+    """The FRI path: generate_proof on the card for 2^(log_n - 1) Goldilocks
+    coefficients from SEED (blowup 2: a 2^log_n domain, log_n layers) and 32
+    queries, then the host verify; launches counted from 0 just before the
+    prove and read just after the verify.  Outside the count: the verifier
+    rejects the proof with one evaluation and with one root changed; layer
+    0's root equals a hashlib Merkle root over layer 0's evaluations read
+    from the card, 64 of which equal host evaluations at coset w^i; a
+    2^12-domain proof from the card equals the CPU's; mont_mul and the
+    add/sub over Goldilocks timed at the path's shapes (from_mont at
+    2^log_n, the first fold's (2^(log_n - 2), 2)) and the powers at the
+    domain's twiddle table (2^(log_n - 1)); prove and verify seconds
+    at 2^12, 2^16 and 2^log_n (median of 3 warm runs)."""
+    import copy
+
+    from zktpu_torch.convert import fri_proof_to_ints
+    from zktpu_torch.fields import field_kernel as fk
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fields.host import GOLDILOCKS
+    from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_plain
+    from zktpu_torch.fri.layer import FriLayer
+    from zktpu_torch.fri.prover import generate_proof
+    from zktpu_torch.fri.verifier import FriVerificationError, verify
+    from zktpu_torch.poly.poly import Poly
+    from zktpu_torch.tools.prof_fri import QUERIES, fri_poly, timed_runs
+
+    p = GOLDILOCKS.modulus
+    poly, coeffs = fri_poly(log_n - 1, SEED, device)
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    proof = generate_proof(poly, 2, QUERIES)
+    torch.cuda.synchronize()
+    t_prove = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verify(proof)
+    t_verify = time.perf_counter() - t0
+    launches = _read_launches()
+    path = ("ntt_gl", "sha256_field", "mont_mul_gl", "field_addsub_gl", "field_scan_gl")
+    assert all(launches[k] > 0 for k in path), f"a kernel of the FRI path never launched: {launches}"
+    assert proof.domain_size == 1 << log_n and len(proof.layers_root) == log_n
+    print(f"phase 6: FRI 2^{log_n} domain, {log_n} layers, {QUERIES} queries: first prove {t_prove:.3f} s "
+          f"(domain tables built), verify {t_verify:.3f} s; the host verifier accepts", flush=True)
+    print(f"phase 6: launches {json.dumps(launches)}", flush=True)
+
+    evaluation, root = copy.deepcopy(proof), copy.deepcopy(proof)
+    evaluation.decommitment_list[3].evaluations[5] = (evaluation.decommitment_list[3].evaluations[5] + 1) % p
+    root.layers_root[7] = (root.layers_root[7] + 1) % p
+    for what, bad in (("one evaluation", evaluation), ("one root", root)):
+        try:
+            verify(bad)
+        except FriVerificationError:
+            continue
+        raise AssertionError(f"FRI: a proof with {what} changed was accepted")
+    print("phase 6: the verifier rejects the proof with one evaluation changed and with one root changed", flush=True)
+
+    t0 = time.perf_counter()
+    layer0 = FriLayer.from_poly(poly, GOLDILOCKS.generator, 1 << log_n)
+    assert layer0.merkle_tree.root() == proof.layers_root[0]
+    evals = layer0.evaluations.cpu().numpy().view("<u8")[:, 0].tolist()
+    assert _host_merkle_root(evals) == proof.layers_root[0], "layer 0's root differs from the hashlib tree's"
+    w = GOLDILOCKS.root_of_unity(1 << log_n)
+    cs = [int(c) for c in coeffs]
+    for i in random.Random(SEED).sample(range(1 << log_n), 64):
+        x = GOLDILOCKS.generator * pow(w, i, p) % p
+        acc = 0
+        for c in reversed(cs):
+            acc = (acc * x + c) % p
+        assert evals[i] == acc, f"layer 0 evaluation {i} differs from the host's p(coset w^i)"
+    print(f"phase 6: layer 0's root == hashlib Merkle root over its 2^{log_n} evaluations from the card; 64 of them "
+          f"== host p(coset w^i) ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    small = [int(v) for v in coeffs[:1 << 11]]
+    gpu = generate_proof(Poly.from_ints(GOLDILOCKS, small, device=device), 2, QUERIES)
+    cpu = generate_proof(Poly.from_ints(GOLDILOCKS, small, device="cpu"), 2, QUERIES)
+    assert fri_proof_to_ints(gpu) == fri_proof_to_ints(cpu), "the 2^12-domain FRI proof from the card differs from the CPU's"
+    print("phase 6: 2^12-domain proof from the card == the CPU's (fri_proof_to_ints)", flush=True)
+
+    # the Goldilocks product and add/sub at the path's shapes (their rows in the kernels line)
+    gl = field(GOLDILOCKS, device)
+    ev = FriLayer.from_poly(poly, GOLDILOCKS.generator, 1 << log_n, force_device=True).evaluations
+    mont = gl.to_mont(ev)
+    one = gl._one_raw
+    got = mont_mul(GOLDILOCKS, mont, one)
+    want, plain_ms = _timed_once(lambda: mont_mul_plain(GOLDILOCKS, mont, one))
+    err = max(_compare("mont_mul Goldilocks from_mont", [got], [want]), results["mont_mul_gl"]["max_abs_err"])
+    ms = _cuda_ms(lambda: mont_mul(GOLDILOCKS, mont, one), 50)
+    n = mont.shape[0]
+    _record(results, "mont_mul_gl", n, err, ms, plain_ms, (2 * n + 1) * 8, n * _mont_words(2),
+            phase=f"phase 6: mont_mul Goldilocks at from_mont ({n}, 2) x (2,):")
+    even, odd = poly.coeffs[0::2].contiguous(), poly.coeffs[1::2].contiguous()
+    odd_r = gl.mont_mul(odd, gl.encode_int(12345))
+    got = gl.add(even, odd_r)
+    want, plain_ms = _timed_once(lambda: fk.add_plain(gl, even, odd_r))
+    err = _compare("field_addsub Goldilocks fold", [got], [want])
+    ms = _cuda_ms(lambda: gl.add(even, odd_r), 50)
+    m = even.shape[0]
+    _record(results, "field_addsub_gl", m, err, ms, plain_ms, 3 * m * 8, m * 2,
+            phase=f"phase 6: field_addsub Goldilocks at the first fold ({m}, 2) + ({m}, 2):")
+    # the largest power table the path builds: the 2^log_n domain's n/2 twiddles
+    g, count = GOLDILOCKS.root_of_unity(1 << log_n), 1 << (log_n - 1)
+    got = gl.powers(g, count)
+    want, plain_ms = _timed_once(lambda: fk.powers_plain(gl, g, count))
+    err = _compare("field_scan Goldilocks powers", [got], [want])
+    ms = _cuda_ms(lambda: gl.powers(g, count), 50)
+    _record(results, "field_scan_gl", count, err, ms, plain_ms, count * 8, (count - 1) * _mont_words(2),
+            phase=f"phase 6: field_scan Goldilocks powers({count}) (the 2^{log_n} domain's twiddles):")
+    del ev, mont, got, want, even, odd, odd_r, layer0
+
+    for lg in sorted({12, 16, log_n}):
+        pl = poly if lg == log_n else fri_poly(lg - 1, SEED, device)[0]
+        generate_proof(pl, 2, QUERIES)  # warm: this size's domain tables
+        r = timed_runs(pl, 2, QUERIES, 3)
+        print(f"phase 6: FRI 2^{lg} domain ({QUERIES} queries): prove median {r['prove_median_s']:.4f} s "
+              f"{[round(v, 4) for v in r['prove_s']]}, verify median {r['verify_median_s']:.4f} s "
+              f"{[round(v, 4) for v in r['verify_s']]}; {_smi()}", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The kernels of the paths.
 _SOURCES = {
     "mont_mul_fr": ("zktpu_torch/csrc/mont_mul.cu", "zktpu/fields/pallas_mont.py:363"),
     "mont_mul_fq": ("zktpu_torch/csrc/mont_mul.cu", "zktpu/fields/pallas_mont.py:363"),
+    # FRI's from_mont and the fold's r * odd
+    "mont_mul_gl": ("zktpu_torch/csrc/mont_mul.cu", "zktpu/fields/pallas_mont.py:363"),
     "proj_add": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/pallas_g1.py:125"),
     "proj_double": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/pallas_g1.py:211"),
     "proj_madd": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/pallas_g1.py:161"),
@@ -902,6 +1180,14 @@ _SOURCES = {
     # the fused jnp add/sub (RowOps.add/sub inside the Pallas kernels).  The Fq add is built and held
     # against its plain version in phase 2, but no path adds in Fq outside the group-law kernels
     "field_addsub_fr": ("zktpu_torch/csrc/field_ops.cu", "zktpu/fields/fp.py:270"),
+    # the fold's even + r * odd
+    "field_addsub_gl": ("zktpu_torch/csrc/field_ops.cu", "zktpu/fields/fp.py:270"),
+    # the domains' twiddle and coset power tables above 2^12 points
+    "field_scan_gl": ("zktpu_torch/csrc/field_ops.cu", "zktpu/fields/fp.py:324"),
+    # the Goldilocks stage loop of zktpu's _transform around kernel 1 (pallas_mont.py:363): FRI's coset NTT
+    "ntt_gl": ("zktpu_torch/csrc/ntt.cu", "zktpu/poly/domain.py:116"),
+    # sha256_single_block (:53) with the numpy block building and the digest fold of the same file
+    "sha256_field": ("zktpu_torch/csrc/sha256.cu", "zktpu/hash/sha256_vec.py:53"),
 }
 
 
@@ -909,6 +1195,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-n", type=int, default=14, help="log2 of the PLONK path's circuit size")
     ap.add_argument("--msm-log-n", type=int, default=20, help="log2 of the MSM path's point count")
+    ap.add_argument("--fri-log-n", type=int, default=20, help="log2 of the FRI path's domain (blowup 2)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -929,11 +1216,15 @@ def main(argv=None) -> int:
     print(f"phase 1: pairing backend {pairing_backend()}", flush=True)
     from zktpu_torch.curves import g1_kernel
     from zktpu_torch.fields import field_kernel
+    from zktpu_torch.fields.host import FR, GOLDILOCKS
+    from zktpu_torch.hash import sha256_kernel
     from zktpu_torch.poly import ntt_kernel
 
     attrs = {k: g1_kernel.kernel_attrs(k) for k in ("proj_add", "proj_madd", "proj_double", "horner_combine")}
-    attrs["ntt_fr"] = ntt_kernel.kernel_attrs()
+    attrs["ntt_fr"] = ntt_kernel.kernel_attrs(FR)
+    attrs["ntt_gl"] = ntt_kernel.kernel_attrs(GOLDILOCKS)
     attrs.update({k: field_kernel.kernel_attrs(k) for k in ("field_scan", "field_addsub")})
+    attrs["sha256_field"] = sha256_kernel.kernel_attrs()
     print("phase 1: registers " + "; ".join(
         f"{k}: {a['registers']} registers, {a['local_bytes']} local bytes, {a['shared_bytes']} shared bytes per block"
         for k, a in attrs.items()), flush=True)
@@ -943,20 +1234,24 @@ def main(argv=None) -> int:
     phase_small_path_shapes(device, kernels)
     phase_ntt_horner(device, kernels, ntt_sizes=((args.log_n + 3, 7), (20, 1), (1, 3), (8, 3)))
     phase_field_ops(device, kernels, args.log_n, args.msm_log_n)
+    phase_fri_kernels(device, kernels, args.fri_log_n)
     phase_small_proof(device)
     plonk = phase_plonk(device, args.log_n)
     msm_path, tool, inputs = phase_msm(device, args.msm_log_n)
     phase_path_shapes(device, inputs, kernels)
     del inputs
+    torch.cuda.empty_cache()
+    fri = phase_fri(device, args.fri_log_n, kernels)
 
     rows = []
     for name, (source, replaces) in _SOURCES.items():
         k = kernels[name]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": plonk[name] + msm_path[name] + tool[name], "max_abs_err": k["max_abs_err"],
+            "launches": plonk[name] + msm_path[name] + tool[name] + fri[name], "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None,  # no single PyTorch call computes a 381-bit Montgomery product or a curve add
+            # no PyTorch call computes a Montgomery product, a curve add, a Montgomery NTT or SHA-256
+            "library_ms": None,
         })
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -181,32 +181,34 @@ def test_host_horner_combine_matches_plain(lib, W, K, c):
         assert torch.equal(g, w)
 
 
-# Small tiles: 2^4 elements, at least 2 columns, 4 threads a block, so 2^7-2^9
-# take 2-3 passes; and the library's own tiles (2^12 takes 2 passes).
-SMALL_TILES = ("-DZK_NTT_LOG_TILE=4", "-DZK_NTT_LOG_MIN_COLS=1", "-DZK_NTT_THREADS=4")
+# Small tiles: 2^4 elements, at least 2 columns, 4 threads a block (both
+# fields), so 2^7-2^9 take 2-3 passes; and the library's own tiles (2^12
+# takes 2 passes in either field).
+SMALL_TILES = ("-DZK_NTT_LOG_TILE=4", "-DZK_NTT_LOG_MIN_COLS=1", "-DZK_NTT_LOG_TILE_L2=4",
+               "-DZK_NTT_LOG_MIN_COLS_L2=1", "-DZK_NTT_THREADS=4")
 
 
 @pytest.fixture(scope="module")
 def ntt_lib(request):
     so = _build(NTT_SHIM, "ntt_host", request.param)
     P = ctypes.c_void_p
-    so.host_ntt_fr.argtypes = [P, ctypes.c_uint32, P, P, ctypes.c_int64, ctypes.c_int, P, P, ctypes.c_int64, P,
-                               ctypes.c_int64]
-    so.host_ntt_fr.restype = ctypes.c_int
+    so.host_ntt.argtypes = [ctypes.c_int, P, ctypes.c_uint32, P, P, ctypes.c_int64, ctypes.c_int, P, P,
+                            ctypes.c_int64, P, ctypes.c_int64]
+    so.host_ntt.restype = ctypes.c_int
     return request.param, so
 
 
-def _host_ntt(so, x, table, in_factor, out_factor):
-    n = x.shape[-2]
+def _host_ntt(so, x, table, in_factor, out_factor, spec=FR):
+    n, L = x.shape[-2], spec.num_digits // 2
     out = torch.zeros_like(x)
     args, keep = [], []  # keep: the factor rows, alive until the call returns
     for t in (in_factor, out_factor):
-        rows = None if t is None else t.reshape(-1, 8).contiguous()
+        rows = None if t is None else t.reshape(-1, L).contiguous()
         keep.append(rows)
         args += [0 if rows is None else rows.data_ptr(), int(rows is not None and rows.shape[0] == n and n > 1)]
-    p, pinv = cuda_lib.field_consts(FR)
-    passes = so.host_ntt_fr(p.ctypes.data, pinv, x.data_ptr(), out.data_ptr(), x.shape[0], n.bit_length() - 1,
-                            table.data_ptr(), *args)
+    p, pinv = cuda_lib.field_consts(spec)
+    passes = so.host_ntt(L, p.ctypes.data, pinv, x.data_ptr(), out.data_ptr(), x.shape[0], n.bit_length() - 1,
+                         table.data_ptr(), *args)
     return out, passes
 
 
@@ -229,6 +231,37 @@ def test_host_ntt_matches_plain(ntt_lib, log_n):
         table = dom._inv_tw if inverse else dom._fwd_tw
         got, passes = _host_ntt(so, x, table, fin, fout)
         assert torch.equal(got, ntt_kernel.ntt_plain(x, table, inverse, fin, fout)), (inverse, fin is not None)
+    if flags and log_n >= 7:
+        assert passes >= 2
+    if not flags:
+        assert passes == (2 if log_n == 12 else 1)
+
+
+@pytest.mark.parametrize("ntt_lib,log_n", [(SMALL_TILES, k) for k in (1, 2, 7, 9)] + [((), 8), ((), 12)],
+                         indirect=["ntt_lib"], ids=lambda v: ("small_tiles" if v else "library_tiles")
+                         if isinstance(v, tuple) else f"2^{v}")
+def test_host_ntt_goldilocks_matches_plain(ntt_lib, log_n):
+    """The L = 2 instance (fmul_wide's products) for FRI's coset transforms:
+    fft, ifft, coset_fft and coset_ifft over a batch of 2 rows, one of them
+    all zero and one holding p - 1, down to n = 2 and 4."""
+    flags, so = ntt_lib
+    n = 1 << log_n
+    rng = np.random.default_rng(100 + log_n)
+    f = field(GOLDILOCKS, "cpu")
+    p = GOLDILOCKS.modulus
+    vals = [int(v) for v in rng.integers(0, p, size=2 * n, dtype=np.uint64)]
+    vals[:n] = [0] * n
+    vals[n] = p - 1
+    x = f.encode_ints(vals).reshape(2, n, 2)
+    dom = get_domain(GOLDILOCKS, n, device="cpu")
+    g = GOLDILOCKS.generator
+    n_inv = ntt_kernel._n_inv(GOLDILOCKS, n, x.device)
+    for inverse, fin, fout in ((False, None, None), (True, None, n_inv), (False, dom.offset_powers(g), None),
+                               (True, None, dom._coset_out(g))):
+        table = dom._inv_tw if inverse else dom._fwd_tw
+        got, passes = _host_ntt(so, x, table, fin, fout, GOLDILOCKS)
+        want = ntt_kernel.ntt_plain(x, table, inverse, fin, fout, GOLDILOCKS)
+        assert torch.equal(got, want), (inverse, fin is not None)
     if flags and log_n >= 7:
         assert passes >= 2
     if not flags:
@@ -337,3 +370,47 @@ def test_host_field_addsub_matches_plain(scan_lib, spec):
             assert k == 1 and torch.equal(got, plain(f, a, b)), (op, a.shape, b.shape)
     got, _ = field_kernel.addsub_kernel(so, f, f.zero, A, 1)
     assert torch.equal(got, field_kernel.sub_plain(f, torch.zeros_like(A), A))
+
+
+# The field hash (csrc/sha256.cuh): its per-thread code on the CPU, against
+# the plain version and hashlib, at the digit-length boundaries.
+SHA_SHIM = os.path.join(HERE, "sha256_host.cpp")
+
+
+def _boundary_values():
+    """0, 10^k - 1 and 10^k for every k (each digit length and its edges),
+    2^32 - 1, 2^32, 2^63, p - 2, p - 1, and arbitrary values."""
+    p = GOLDILOCKS.modulus
+    vals = [0, 2**32 - 1, 2**32, 2**63, p - 2, p - 1]
+    for k in range(1, 20):
+        vals += [10**k - 1, 10**k]
+    rng = np.random.default_rng(13)
+    return vals + [int(v) for v in rng.integers(0, p, size=31, dtype=np.uint64)]
+
+
+def test_host_sha256_field_matches_plain_and_hashlib():
+    """Single and pair mode, and an odd count (a trailing singleton); every
+    pair of boundary values once, so the 0x80 byte and the bit length land
+    after every combined length from 2 to 40."""
+    from zktpu_torch.hash import host_hash
+    from zktpu_torch.hash.sha256_kernel import hash_field_plain
+
+    so = _build(SHA_SHIM, "sha256_host")
+    P = ctypes.c_void_p
+    so.host_sha256_field.argtypes = [P, P, ctypes.c_int64, ctypes.c_int]
+    so.host_sha256_field.restype = None
+    vals = _boundary_values()
+    edges = vals[:44]
+    pairs = [v for a in edges[::3] for b in edges[1::3] for v in (a, b)]  # every length of a with every length of b
+    for data, mode in ((vals, 0), (pairs, 1), (vals[:-1], 1)):
+        x = torch.from_numpy(ints_to_limbs(data, 2))
+        n_out = (len(data) + 1) // 2 if mode else len(data)
+        out = torch.zeros((n_out, 2), dtype=torch.int32)
+        so.host_sha256_field(x.data_ptr(), out.data_ptr(), len(data), mode)
+        assert torch.equal(out, hash_field_plain(x, bool(mode))), mode
+        got = out.numpy().view("<u8")[:, 0].tolist()
+        if mode:
+            want = [host_hash.hash_slice(GOLDILOCKS, data[i : i + 2]) for i in range(0, len(data), 2)]
+        else:
+            want = [host_hash.hash_elem(GOLDILOCKS, v) for v in data]
+        assert got == want, mode

@@ -208,9 +208,9 @@ def test_ntt_kernel_matches_plain(device, log_n):
     for inverse, fin, fout in ((False, None, None), (True, None, None), (False, dom.offset_powers(g), None),
                                (True, None, dom._coset_out(g) if n > 1 else None)):
         table = dom._inv_tw if inverse else dom._fwd_tw
-        before = ntt_kernel.ntt.launches
+        before = ntt_kernel.ntt.launches[FR.name]
         got = ntt_kernel.ntt(x, table, inverse, fin, fout)
-        assert ntt_kernel.ntt.launches == before + (1 if log_n <= 9 else 2)
+        assert ntt_kernel.ntt.launches[FR.name] == before + (1 if log_n <= 9 else 2)
         assert torch.equal(got, ntt_kernel.ntt_plain(x, table, inverse, fin, fout)), (inverse, fin is not None)
     assert ntt_kernel.kernel_attrs()["local_bytes"] == 0
 
@@ -262,10 +262,10 @@ def test_pythagorean_proof_tensor_paths_gpu_equals_cpu(device):
         for dev in (device, torch.device("cpu")):
             compiled = circuit().compile(device=dev)
             srs = Srs.new_from_secret(0x5EED5EED, compiled.size, device=dev)
-            before = ntt_kernel.ntt.launches
+            before = ntt_kernel.ntt.launches[FR.name]
             proofs[dev.type] = generate_proof(compiled, srs, StdRng.from_seed_u64(7), force="coset")
             if dev.type == "cuda":
-                assert ntt_kernel.ntt.launches > before
+                assert ntt_kernel.ntt.launches[FR.name] > before
             verify(compiled, srs, proofs[dev.type])
     finally:
         cfg.HOST_MSM_MAX, cfg.HOST_NTT_MAX, cfg.HOST_POLY_MAX = saved
@@ -331,3 +331,84 @@ def test_field_addsub_kernel_matches_plain(device, spec):
     assert torch.equal(f.double(A), fk.add_plain(f, A, A))
     assert f.decode_ints(f.add(A[0, :3], A[0, :3])) == [2 * v % p for v in vals[:3]]
     assert fk.kernel_attrs("field_addsub")["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("log_n", [1, 2, 8, 11, 12, 16])
+def test_ntt_goldilocks_kernel_matches_plain(device, log_n):
+    """The L = 2 instance: fft, ifft, coset_fft and coset_ifft on a batch of
+    3 (an all-zero row, a row of p - 1), one pass (n <= 2^10) and two;
+    launches counted; 0 spills."""
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.poly import ntt_kernel
+    from zktpu_torch.poly.domain import get_domain
+
+    n = 1 << log_n
+    f = field(GOLDILOCKS, device)
+    rng = random.Random(50 + log_n)
+    x = f.encode_ints([rng.randrange(GOLDILOCKS.modulus) for _ in range(3 * n)]).reshape(3, n, 2)
+    x[0] = 0
+    x[1] = f.encode_int(GOLDILOCKS.modulus - 1)
+    dom = get_domain(GOLDILOCKS, n, device=device)
+    g = GOLDILOCKS.generator
+    for inverse, fin, fout in ((False, None, None), (True, None, None), (False, dom.offset_powers(g), None),
+                               (True, None, dom._coset_out(g))):
+        table = dom._inv_tw if inverse else dom._fwd_tw
+        before = ntt_kernel.ntt.launches[GOLDILOCKS.name]
+        got = ntt_kernel.ntt(x, table, inverse, fin, fout, GOLDILOCKS)
+        assert ntt_kernel.ntt.launches[GOLDILOCKS.name] == before + (1 if log_n <= 10 else 2)
+        want = ntt_kernel.ntt_plain(x, table, inverse, fin, fout, GOLDILOCKS)
+        assert torch.equal(got, want), (inverse, fin is not None)
+    assert ntt_kernel.kernel_attrs(GOLDILOCKS)["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("pairs", [False, True], ids=["single", "pairs"])
+def test_hash_field_kernel_matches_plain(device, pairs):
+    """Kernel 6 on every digit-length edge, 2^32 +- 1, p - 1 and random
+    values (an odd count: a trailing singleton in pair mode, which takes a
+    second launch), against its plain version on the card and hashlib; 0
+    spills."""
+    from zktpu_torch.fields.fp import ints_to_limbs
+    from zktpu_torch.hash import host_hash
+    from zktpu_torch.hash.sha256_kernel import hash_field, hash_field_plain, kernel_attrs
+
+    p = GOLDILOCKS.modulus
+    rng = random.Random(61)
+    vals = [0, 2**32 - 1, 2**32, p - 1] + [v for k in range(1, 20) for v in (10**k - 1, 10**k)]
+    vals += [rng.randrange(p) for _ in range(4097 - len(vals))]
+    x = torch.from_numpy(ints_to_limbs(vals, 2)).to(device)
+    before = hash_field.launches
+    got = hash_field(x, pairs)
+    assert hash_field.launches == before + (2 if pairs else 1)
+    assert torch.equal(got, hash_field_plain(x, pairs))
+    ints = got.cpu().numpy().view("<u8")[:, 0].tolist()
+    if pairs:
+        assert ints[:20] == [host_hash.hash_slice(GOLDILOCKS, vals[i : i + 2]) for i in range(0, 40, 2)]
+        assert ints[-1] == host_hash.hash_elem(GOLDILOCKS, vals[-1])
+    else:
+        assert ints[:50] == [host_hash.hash_elem(GOLDILOCKS, v) for v in vals[:50]]
+    assert kernel_attrs()["local_bytes"] == 0
+
+
+def test_fri_proof_gpu_equals_cpu(device):
+    """A 2^10-domain FRI proof made on the card (tensor NTT and vector hash
+    at every layer) equals the CPU's on zktpu's tiers and verifies; the
+    Goldilocks NTT, hash, product and add/sub launched."""
+    from zktpu_torch.convert import fri_proof_to_ints
+    from zktpu_torch.fields import field_kernel
+    from zktpu_torch.fields.mont_kernel import mont_mul
+    from zktpu_torch.fri.prover import generate_proof
+    from zktpu_torch.fri.verifier import verify
+    from zktpu_torch.hash.sha256_kernel import hash_field
+    from zktpu_torch.poly import ntt_kernel
+    from zktpu_torch.poly.poly import Poly
+
+    rng = random.Random(71)
+    coeffs = [rng.randrange(GOLDILOCKS.modulus) for _ in range(1 << 9)]
+    counts = lambda: (ntt_kernel.ntt.launches[GOLDILOCKS.name], hash_field.launches,  # noqa: E731
+                      mont_mul.launches[GOLDILOCKS.name], field_kernel.launches["field_addsub"][GOLDILOCKS.name])
+    before = counts()
+    gpu = generate_proof(Poly.from_ints(GOLDILOCKS, coeffs, device=device), 2, 8)
+    assert all(b > a for a, b in zip(before, counts())), (before, counts())
+    cpu = generate_proof(Poly.from_ints(GOLDILOCKS, coeffs, device="cpu"), 2, 8)
+    assert fri_proof_to_ints(gpu) == fri_proof_to_ints(cpu)
+    verify(gpu)

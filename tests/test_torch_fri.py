@@ -1,0 +1,199 @@
+"""The port's FRI (zktpu_torch/fri/) against zktpu's, exactly.
+
+- generate_proof against zktpu.fri.prover.generate_proof, live, through
+  fri_proof_to_ints (roots, const_val, every evaluation and auth path), on
+  zktpu's own tiers (host NTT, host hashing below 2^12 values), and the
+  port's forced tensor path (force_device: the NTT and the vector hash at
+  every size, which the card takes) on the same inputs;
+- at a 2^13 domain, where the first two layers take the vector hash,
+  against a committed golden of zktpu's proof (tests/goldens/fri_2e13.json,
+  written once by tests/goldens/make_goldens.py);
+- the verifier's accept and reject cases, mirroring tests/test_fri.py;
+- MerkleTree's quirks against zktpu's tree, with the forced vector path
+  below 2^12.
+
+zktpu runs here with its NTT host tier raised to 2^8 (the HOST_NTT_MAX that
+zktpu/poly/domain.py imported from its config), so its transforms stay on
+host ints and no JAX NTT graph compiles; its field products and adds still
+run through JAX on the CPU.
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from zktpu.fields import host as z_host
+from zktpu.fri import merkle as z_merkle
+from zktpu.fri import prover as z_prover
+from zktpu.poly import domain as z_domain
+from zktpu.poly.poly import Poly as ZPoly
+from zktpu_torch.convert import fri_proof_to_ints, goldilocks_digits_to_limbs
+from zktpu_torch.fields.host import FR, GOLDILOCKS
+from zktpu_torch.fri.merkle import MerkleTree, verify_merkle_proof
+from zktpu_torch.fri.prover import fold_polynomial, folding_phase, generate_proof, query_phase
+from zktpu_torch.fri.verifier import FriVerificationError, verify
+from zktpu_torch.poly.domain import get_domain
+from zktpu_torch.poly.poly import Poly
+
+torch.set_num_threads(1)  # the suite runs one process per core: intra-op threads would oversubscribe it
+
+GL = GOLDILOCKS
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(HERE, "goldens", "fri_2e13.json")
+# (coefficients, blowup, queries): degree 1-64, domains 2^2-2^8, odd lengths fold with padding
+CASES = [(2, 2, 2), (5, 4, 3), (64, 2, 4), (64, 4, 2)]
+# the golden proof: 2^12 coefficients from default_rng(GOLDEN_SEED), blowup 2 (a 2^13 domain)
+GOLDEN_SEED, GOLDEN_LOG_COEFFS, GOLDEN_QUERIES = 20261017, 12, 2
+
+
+def _coeffs(n: int, seed: int) -> list[int]:
+    rng = np.random.default_rng(seed)
+    vals = [int(v) for v in rng.integers(0, GL.modulus, size=n, dtype=np.uint64)]
+    vals[0] = GL.modulus - 1
+    return vals
+
+
+def _poly(coeffs) -> Poly:
+    return Poly.from_ints(GL, coeffs, device="cpu")
+
+
+def golden_coefficients() -> list[int]:
+    rng = np.random.default_rng(GOLDEN_SEED)
+    return [int(v) for v in rng.integers(0, GL.modulus, size=1 << GOLDEN_LOG_COEFFS, dtype=np.uint64)]
+
+
+@pytest.fixture(scope="module")
+def zk_proofs():
+    """zktpu's proofs of every case, with its NTT host tier raised to 2^8."""
+    saved = z_domain.HOST_NTT_MAX
+    z_domain.HOST_NTT_MAX = 1 << 8
+    try:
+        return {case: fri_proof_to_ints(z_prover.generate_proof(
+            ZPoly.from_ints(z_host.GOLDILOCKS, _coeffs(case[0], case[0])), case[1], case[2])) for case in CASES}
+    finally:
+        z_domain.HOST_NTT_MAX = saved
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"len{c[0]}-blowup{c[1]}-q{c[2]}")
+def test_proof_matches_zktpu(zk_proofs, case):
+    n, blowup, queries = case
+    proof = generate_proof(_poly(_coeffs(n, n)), blowup, queries)
+    assert fri_proof_to_ints(proof) == zk_proofs[case]
+    verify(proof)
+    if proof.domain_size <= 32:  # the card's path: tensor NTT and vector hash at every size
+        forced = generate_proof(_poly(_coeffs(n, n)), blowup, queries, force_device=True)
+        assert fri_proof_to_ints(forced) == zk_proofs[case]
+
+
+def test_coset_evaluations_match_zktpu(zk_proofs):
+    """A layer's coset evaluations in Montgomery form, word for word: zktpu's
+    digit arrays through goldilocks_digits_to_limbs against the port's
+    Goldilocks NTT (the forced tensor transform; zktpu's host tier)."""
+    coeffs = _coeffs(64, 64)
+    n, coset = 128, GL.generator
+    want = z_domain.get_domain(z_host.GOLDILOCKS, n).coset_fft(
+        ZPoly.from_ints(z_host.GOLDILOCKS, coeffs)._padded(n), coset)
+    got = get_domain(GL, n, device="cpu").coset_fft(_poly(coeffs)._padded(n), coset, force_device=True)
+    np.testing.assert_array_equal(got.numpy(), goldilocks_digits_to_limbs(np.asarray(want)))
+
+
+def test_proof_at_2e13_matches_zktpu_golden():
+    """2^12 coefficients, blowup 2: layers 0 and 1 hash on the vector path
+    (the plain kernel here), the NTT is the plain stage loop at 2^13."""
+    with open(GOLDEN) as f:
+        want = json.load(f)
+    proof = generate_proof(_poly(golden_coefficients()), 2, GOLDEN_QUERIES)
+    assert proof.domain_size == 1 << 13
+    assert fri_proof_to_ints(proof) == want
+    verify(proof)
+
+
+@pytest.mark.parametrize("coeffs", [[1, 2, 3, 4], [1, 2, 3, 4, 5, 6]])
+def test_fri_end_to_end(coeffs):
+    verify(generate_proof(_poly(coeffs), blowup_factor=2, number_of_queries=2))
+
+
+def _tamper_cases():
+    def const(p):
+        p.const_val = (p.const_val - 1) % GL.modulus
+
+    def evaluation(p):
+        d = p.decommitment_list[0]
+        d.evaluations[1] = (d.evaluations[1] + 1) % GL.modulus
+
+    def root(p):
+        p.layers_root[0] = (p.layers_root[0] + 1) % GL.modulus
+
+    def path(p):
+        ap = p.decommitment_list[1].auth_paths[0]
+        ap.hash_proof[0] = (ap.hash_proof[0] + 1) % GL.modulus
+
+    def sym_index(p):
+        p.decommitment_list[0].sym_auth_paths[1].index ^= 1
+
+    return [const, evaluation, root, path, sym_index]
+
+
+@pytest.mark.parametrize("tamper", _tamper_cases(), ids=lambda f: f.__name__)
+def test_tampered_proof_rejected(tamper):
+    proof = generate_proof(_poly([1, 2, 3, 4, 5, 6]), 2, 2)
+    verify(proof)
+    tamper(proof)
+    with pytest.raises(FriVerificationError):
+        verify(proof)
+
+
+def test_fold_and_phase_invariants():
+    """prover.rs:170-221: fold [1, 2, 3, 4] by 1, the second layer's coset and
+    size, and the symmetric query index."""
+    assert fold_polynomial(_poly([1, 2, 3, 4]), 1).to_ints() == [3, 7]
+    _c, transcript, layers = folding_phase(_poly([1, 2, 3, 4]), GL.generator, 4, 2)
+    assert layers[1].coset == 49 and layers[1].domain_size == 2
+    decommitments, _ = query_phase(1, 4, transcript, layers)
+    d = decommitments[0]
+    assert (d.auth_paths[0].index + 2) % 4 == d.sym_auth_paths[0].index
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 7, 13, 64])
+def test_merkle_tree_matches_zktpu(n):
+    """Odd lengths (a trailing singleton on several levels), one leaf, and a
+    power of two: every level, the padded leaves, the root and every proof,
+    on the host tier and on the forced vector path; out-of-range neighbours
+    raise IndexError as zktpu's do."""
+    vals = _coeffs(n, 100 + n)
+    want = z_merkle.MerkleTree(vals, z_host.GOLDILOCKS)
+    for force in (False, True):
+        tree = MerkleTree(torch.from_numpy(np.array(vals, dtype=np.uint64).view(np.int32).reshape(n, 2)), GL,
+                          force_device=force)
+        assert tree.internal_nodes == want.internal_nodes and tree.root() == want.root()
+        assert tree.leaves == want.leaves and tree.depth == want.depth
+        for i in range(len(want.leaves)):
+            try:
+                w = want.generate_proof(i)
+            except IndexError:
+                with pytest.raises(IndexError):
+                    tree.generate_proof(i)
+                continue
+            got = tree.generate_proof(i)
+            assert (got.index, got.leaf_val, got.hash_proof, got.root) == (w.index, w.leaf_val, w.hash_proof, w.root)
+            assert verify_merkle_proof(got) == (i < n)  # a padding leaf was never hashed
+    # from_levels: the same tree from its levels, as ints and as tensors
+    forced = MerkleTree(vals, GL, force_device=True, device="cpu")
+    for levels in (want.internal_nodes, forced.levels):
+        rebuilt = MerkleTree.from_levels(vals, levels, GL)
+        assert rebuilt.root() == want.root() and rebuilt.internal_nodes == want.internal_nodes
+
+
+def test_merkle_roundtrip_and_other_fields():
+    """merkle_tree.rs:134-152, and a tree over Fr (host hashing, as zktpu)."""
+    tree = MerkleTree([1, 2, 3, 4], GL)
+    proof = tree.generate_proof(1)
+    assert verify_merkle_proof(proof)
+    proof.index = 2
+    assert not verify_merkle_proof(proof)
+    vals = [0, 1, FR.modulus - 1, 12345, 7]
+    ours = MerkleTree(vals, FR, force_device=True)  # hashes on the host: no device needed
+    want = z_merkle.MerkleTree(vals, z_host.FR)
+    assert ours.internal_nodes == want.internal_nodes and ours.root() == want.root()

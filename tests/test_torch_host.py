@@ -1,12 +1,17 @@
 """The port's own host layer against zktpu's: the same constants, the same
-StdRng stream, the same transcript challenges, pairings and gates.
+StdRng stream, the same transcript challenges, pairings, gates, field hash
+and size tiers.
 
 zktpu_torch keeps copies of zktpu's pure-Python host modules (fields/host.py,
 curves/host_curve.py, curves/pairing.py with its C++ library,
-transcript/*.py, plonk/gate.py) so that it imports nothing of zktpu; these
-tests hold each copy to the original.  All comparisons are exact.
+transcript/*.py, plonk/gate.py, hash/host_hash.py) so that it imports nothing
+of zktpu; these tests hold each copy to the original.  All comparisons are
+exact.
 """
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -15,6 +20,7 @@ import torch
 from zktpu.curves import host_curve as z_curve
 from zktpu.curves import pairing as z_pairing
 from zktpu.fields import host as z_host
+from zktpu.hash import host_hash as z_hash
 from zktpu.plonk import gate as z_gate
 from zktpu.transcript import ark_rand as z_rand
 from zktpu.transcript import chacha as z_chacha
@@ -22,6 +28,7 @@ from zktpu.transcript import serialize as z_ser
 from zktpu.transcript import transcripts as z_tr
 from zktpu_torch.curves import host_curve, native_pairing, pairing
 from zktpu_torch.fields import host
+from zktpu_torch.hash import host_hash
 from zktpu_torch.plonk import gate
 from zktpu_torch.transcript import ark_rand, chacha, serialize, transcripts
 
@@ -110,3 +117,35 @@ def test_gate():
         assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
         assert ours.is_dummy() == theirs.is_dummy() is False
     assert dataclasses.asdict(gate.Gate.new_dummy_gate()) == dataclasses.asdict(z_gate.Gate.new_dummy_gate())
+
+
+def test_host_hash():
+    """hash(x) and hash_slice(xs) over Goldilocks and Fr, values reduced mod p."""
+    for name in ("GOLDILOCKS", "FR"):
+        ours, theirs = getattr(host, name), getattr(z_host, name)
+        p = ours.modulus
+        vals = [0, 1, 9, 10, p - 1, p, p + 5, 10**19, 2**64 - 1]
+        assert [host_hash.hash_elem(ours, v) for v in vals] == [z_hash.hash_elem(theirs, v) for v in vals]
+        for xs in ([], [7], vals[:2], vals[3:6]):
+            assert host_hash.hash_slice(ours, xs) == z_hash.hash_slice(theirs, xs)
+
+
+_TIERS = ("HOST_MSM_MAX", "HOST_MSM_SRS_MAX", "HOST_NTT_MAX", "HOST_POLY_MAX", "QUOTIENT_8N_MAX_N")
+_READ_TIERS = f"""
+import zktpu.config as a, zktpu_torch.config as b
+print([(getattr(a, k), getattr(b, k)) for k in {_TIERS!r}])
+"""
+
+
+def test_config_reads_the_same_environment_overrides():
+    """Each ZKTPU_* tier override, set in a subprocess, gives both packages
+    the same value; unset, both keep the same defaults."""
+    import zktpu.config as z_config
+    from zktpu_torch import config
+
+    assert [getattr(config, k) for k in _TIERS] == [getattr(z_config, k) for k in _TIERS]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(sys.path)}
+    env.update({f"ZKTPU_{k}": str(17 + i) for i, k in enumerate(_TIERS)})
+    out = subprocess.run([sys.executable, "-c", _READ_TIERS], env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == str([(17 + i, 17 + i) for i in range(len(_TIERS))])

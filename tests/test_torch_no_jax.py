@@ -40,9 +40,14 @@ Xa, Ya = srs.g1_affine()  # the SRS's first 5 points, tau^i G, in an affine MSM
 R = msm.msm_affine(g1.scalars_to_u32([3, 0, 5, 1, 9], device="cpu"), Xa[:5], Ya[:5], c=4)
 assert g1.proj_to_affine_host(tuple(a[None] for a in R)) == [G1Affine.generator().mul(
     sum(s * pow(1234567, i, srs_order) for i, s in enumerate([3, 0, 5, 1, 9])))]
+from zktpu_torch.fields.host import GOLDILOCKS
+from zktpu_torch.fri.prover import generate_proof as fri_prove
+from zktpu_torch.fri.verifier import verify as fri_verify
+from zktpu_torch.poly.poly import Poly
+fri_verify(fri_prove(Poly.from_ints(GOLDILOCKS, [1, 2, 3, 4, 5], device="cpu"), 2, 2, force_device=True))
 loaded = sorted(m for m in sys.modules if m in ("jax", "zktpu") or m.startswith(("jax.", "jaxlib", "zktpu.")))
 assert loaded == ["jax", "zktpu"] and sys.modules["jax"] is None and sys.modules["zktpu"] is None, loaded
-print("proved, verified and ran msm_affine without jax or zktpu")
+print("proved, verified and ran msm_affine and FRI without jax or zktpu")
 """
 
 
@@ -53,7 +58,7 @@ def test_prove_and_verify_with_jax_blocked():
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    assert "proved, verified and ran msm_affine without jax or zktpu" in out.stdout
+    assert "proved, verified and ran msm_affine and FRI without jax or zktpu" in out.stdout
 
 
 def test_no_jax_import_in_the_port():
@@ -107,6 +112,16 @@ def test_wrapper_on_a_non_cpu_tensor_launches_or_raises():
                  lambda: field_kernel.batch_inv(f, a, FQ.inv)):
         with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
             call()
+    # the Goldilocks NTT and the field hash (kernels 1g and 6)
+    from zktpu_torch.fields.host import GOLDILOCKS
+    from zktpu_torch.hash.sha256_kernel import hash_field
+    from zktpu_torch.poly.ntt_kernel import ntt
+
+    g = torch.zeros((8, 2), dtype=torch.int32, device="meta")
+    for call in (lambda: ntt(g, g[:4], False, spec=GOLDILOCKS), lambda: hash_field(g, False),
+                 lambda: hash_field(g, True)):
+        with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
+            call()
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -121,7 +136,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from zktpu_torch.plonk.synthetic import synthetic_mul_chain
     from zktpu_torch.poly.domain import Radix2Domain, get_domain
     from zktpu_torch.poly.poly import Poly
-    from zktpu_torch.tools import prof_mulkernels
+    from zktpu_torch.fields.host import GOLDILOCKS
+    from zktpu_torch.fri.merkle import MerkleTree
+    from zktpu_torch.hash import sha256_vec
+    from zktpu_torch.tools import prof_fri, prof_mulkernels
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     circuit = Circuit()
@@ -144,6 +162,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lambda: g1.scalars_to_u32([1]),
         lambda: bench.main(["--log-n", "4"]),
         lambda: prof_mulkernels.main(["16"]),
+        lambda: Poly.from_ints(GOLDILOCKS, [1, 2]),
+        lambda: sha256_vec.hash_elems_vec(GOLDILOCKS, [1, 2]),
+        lambda: MerkleTree([1, 2, 3], GOLDILOCKS, force_device=True),
+        lambda: prof_fri.main(["--log-n", "4"]),
     ]
     for call in calls:
         with pytest.raises(NoCudaDeviceError, match="CUDA device"):

@@ -1,4 +1,5 @@
-"""Carry state across from zktpu: digit planes -> limb tensors.
+"""Carry state across from zktpu: digit planes -> limb tensors, and FRI
+proofs of either package -> plain ints.
 
 zktpu stores a field element as D base-2^16 digits in u32 lanes; this package
 stores L = D/2 little-endian 32-bit limbs, limb i = d[2i] | d[2i+1] << 16,
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from .curves.host_curve import G2Affine
-from .fields.host import FQ, FR
+from .fields.host import FQ, FR, GOLDILOCKS
 from .kzg.srs import Srs
 from .plonk.constraint import CompiledCircuit, CopyConstraints, GateConstraints
 from .poly.poly import Poly
@@ -33,6 +34,43 @@ def limbs_to_digits(limbs) -> np.ndarray:
     out[..., 0::2] = u & np.uint32(0xFFFF)
     out[..., 1::2] = u >> np.uint32(16)
     return out
+
+
+def goldilocks_digits_to_limbs(digits) -> np.ndarray:
+    """zktpu's Goldilocks digit arrays ((n, 4) u32, Montgomery or canonical)
+    -> the port's (n, 2) int32 limbs (the same words)."""
+    d = np.asarray(digits)
+    assert d.shape[-1] == GOLDILOCKS.num_digits, d.shape
+    return digits_to_limbs(d)
+
+
+def _merkle_proof_to_ints(p) -> dict:
+    return {"index": int(p.index), "leaf_val": int(p.leaf_val), "hash_proof": [int(h) for h in p.hash_proof],
+            "root": int(p.root), "spec": p.spec.name}
+
+
+def fri_proof_to_ints(proof) -> dict:
+    """A FRI proof of either package (zktpu.fri.prover.Proof or
+    zktpu_torch.fri.prover.Proof) as plain nested ints, lists and dicts with
+    the fields of Proof, Decommitment and MerkleProof (a spec by its name),
+    so proofs of the two packages compare with ==."""
+    return {
+        "domain_size": int(proof.domain_size),
+        "coset": int(proof.coset),
+        "number_of_queries": int(proof.number_of_queries),
+        "layers_root": [int(r) for r in proof.layers_root],
+        "const_val": int(proof.const_val),
+        "decommitment_list": [
+            {
+                "evaluations": [int(v) for v in d.evaluations],
+                "auth_paths": [_merkle_proof_to_ints(p) for p in d.auth_paths],
+                "sym_evaluations": [int(v) for v in d.sym_evaluations],
+                "sym_auth_paths": [_merkle_proof_to_ints(p) for p in d.sym_auth_paths],
+            }
+            for d in proof.decommitment_list
+        ],
+        "spec": proof.spec.name,
+    }
 
 
 def _tensor(digits, device) -> torch.Tensor:

@@ -1,9 +1,10 @@
-// The Fr NTT of zktpu_torch/poly/ntt_kernel.py as per-thread code for one
+// The NTT of zktpu_torch/poly/ntt_kernel.py as per-thread code for one
 // block (csrc/ntt.cu runs it on the card; tests/ntt_host.cpp runs the same
-// functions block by block, thread by thread, on the CPU).
+// functions block by block, thread by thread, on the CPU).  Every function
+// is a template on the limb count L: L = 8 for Fr, L = 2 for Goldilocks.
 //
-// A transform of n = 2^log_n elements (8 little-endian u32 Montgomery limbs
-// each, rows of a (B, n, 8) batch) is the reference's radix-2 DIT: the
+// A transform of n = 2^log_n elements (L little-endian u32 Montgomery limbs
+// each, rows of a (B, n, L) batch) is the reference's radix-2 DIT: the
 // bit-reverse gather, then for s = 1..log_n and m = 2^s the butterflies
 //     (u, v) <- (u + w v, u - w v),  w = tw[(i mod m/2) (n / m)]
 // on the pairs (i, i + m/2) of each group of m, tw = gen^i (i < n/2).  The
@@ -20,10 +21,13 @@
 // ns stages there and writes it back.  The first pass (s0 = 0) takes
 // contiguous runs and gathers them through the bit reversal; later passes
 // run in place on the output.  A tile holds at most 2^ZK_NTT_LOG_TILE
-// elements, and later passes keep at least 2^ZK_NTT_LOG_MIN_COLS columns so
-// that each row of a tile is that many consecutive elements in memory.
-// The library builds with the defaults below; the host tests build smaller
-// tiles with -D so that several passes run at small n.
+// elements (Fr; ZK_NTT_LOG_TILE_L2 for Goldilocks), and later passes keep
+// at least 2^ZK_NTT_LOG_MIN_COLS columns (ZK_NTT_LOG_MIN_COLS_L2) so that
+// each row of a tile is that many consecutive elements in memory.  An Fr
+// tile is 2^9 elements (16 KB of shared memory), a Goldilocks one 2^10 (8
+// KB: at 2^20 it took 20% less time than 2^11, zktpu_torch/tools/ntt_tiles.py
+// --field goldilocks).  The library builds with the defaults below; the host
+// tests build smaller tiles with -D so that several passes run at small n.
 #pragma once
 
 #include "field.cuh"
@@ -33,6 +37,12 @@
 #endif
 #ifndef ZK_NTT_LOG_MIN_COLS
 #define ZK_NTT_LOG_MIN_COLS 3  // 8 columns: 256 contiguous bytes per row
+#endif
+#ifndef ZK_NTT_LOG_TILE_L2
+#define ZK_NTT_LOG_TILE_L2 10  // 2^10 elements x 8 bytes: 8 KB
+#endif
+#ifndef ZK_NTT_LOG_MIN_COLS_L2
+#define ZK_NTT_LOG_MIN_COLS_L2 4  // 16 columns: 128 contiguous bytes per row
 #endif
 #ifndef ZK_NTT_THREADS
 #define ZK_NTT_THREADS 128
@@ -45,12 +55,16 @@
 #define ZK_HD inline
 #endif
 
-constexpr int FR_LIMBS = 8;
-constexpr int NTT_LOG_TILE = ZK_NTT_LOG_TILE;
-constexpr int NTT_LOG_MIN_COLS = ZK_NTT_LOG_MIN_COLS;
 constexpr uint32_t NTT_THREADS = ZK_NTT_THREADS;
 constexpr int NTT_MAX_PASSES = 32;
-using FrConsts = FieldConsts<FR_LIMBS>;
+
+// The tile of a field of L limbs: log2 of its elements and of the least
+// columns a later pass keeps.
+template <int L>
+struct NttTileShape {
+  static constexpr int log_tile = L == 2 ? ZK_NTT_LOG_TILE_L2 : ZK_NTT_LOG_TILE;
+  static constexpr int log_min_cols = L == 2 ? ZK_NTT_LOG_MIN_COLS_L2 : ZK_NTT_LOG_MIN_COLS;
+};
 
 struct NttPass {
   int s0;        // stages done before this pass
@@ -58,20 +72,23 @@ struct NttPass {
   int log_cols;  // log2 of the tile's columns
 };
 
-// The passes of a 2^log_n transform (log_n <= 31); returns their number.
+// The passes of a 2^log_n transform (log_n <= 31) over a field of L limbs;
+// returns their number.
+template <int L>
 inline int ntt_plan(int log_n, NttPass* passes) {
+  constexpr int tile = NttTileShape<L>::log_tile, least = NttTileShape<L>::log_min_cols;
   int k = 0, s0 = 0;
   do {
-    const int min_cols = s0 < NTT_LOG_MIN_COLS ? s0 : NTT_LOG_MIN_COLS;
-    const int ns = log_n - s0 < NTT_LOG_TILE - min_cols ? log_n - s0 : NTT_LOG_TILE - min_cols;
-    const int log_cols = s0 < NTT_LOG_TILE - ns ? s0 : NTT_LOG_TILE - ns;
+    const int min_cols = s0 < least ? s0 : least;
+    const int ns = log_n - s0 < tile - min_cols ? log_n - s0 : tile - min_cols;
+    const int log_cols = s0 < tile - ns ? s0 : tile - ns;
     passes[k++] = NttPass{s0, ns, log_cols};
     s0 += ns;
   } while (s0 < log_n);
   return k;
 }
 
-// One pass over a batch: pointers to rows of 8 words.
+// One pass over a batch: pointers to rows of L words.
 struct NttArgs {
   const uint32_t* in;     // the input (read by the first pass only)
   uint32_t* out;          // the output (later passes read and write it in place)
@@ -95,23 +112,33 @@ ZK_FN uint32_t ntt_bitrev(uint32_t i, int log_n) {
 #endif
 }
 
-ZK_FN void ntt_load8(uint32_t* dst, const uint32_t* src) {
+// One element from or to global or shared memory: 16-byte words for Fr,
+// one 8-byte word for Goldilocks (the wrapper passes 16-byte aligned rows).
+template <int L>
+ZK_FN void ntt_load(uint32_t* dst, const uint32_t* src) {
 #if defined(__CUDA_ARCH__)
-  const uint4 lo = *reinterpret_cast<const uint4*>(src);
-  const uint4 hi = *reinterpret_cast<const uint4*>(src + 4);
-  dst[0] = lo.x; dst[1] = lo.y; dst[2] = lo.z; dst[3] = lo.w;
-  dst[4] = hi.x; dst[5] = hi.y; dst[6] = hi.z; dst[7] = hi.w;
+  if constexpr (L == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(src);
+    dst[0] = v.x;
+    dst[1] = v.y;
+  } else {
+    load_elem<L>(dst, src);
+  }
 #else
-  std::memcpy(dst, src, FR_LIMBS * sizeof(uint32_t));
+  std::memcpy(dst, src, L * sizeof(uint32_t));
 #endif
 }
 
-ZK_FN void ntt_store8(uint32_t* dst, const uint32_t* src) {
+template <int L>
+ZK_FN void ntt_store(uint32_t* dst, const uint32_t* src) {
 #if defined(__CUDA_ARCH__)
-  *reinterpret_cast<uint4*>(dst) = make_uint4(src[0], src[1], src[2], src[3]);
-  *reinterpret_cast<uint4*>(dst + 4) = make_uint4(src[4], src[5], src[6], src[7]);
+  if constexpr (L == 2) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(src[0], src[1]);
+  } else {
+    store_elem<L>(dst, src);
+  }
 #else
-  std::memcpy(dst, src, FR_LIMBS * sizeof(uint32_t));
+  std::memcpy(dst, src, L * sizeof(uint32_t));
 #endif
 }
 
@@ -131,37 +158,39 @@ ZK_FN NttTile ntt_tile(const NttPass& p, uint32_t tile) {
 ZK_HD uint32_t ntt_tile_elems(const NttPass& p) { return 1u << (p.ns + p.log_cols); }
 
 // Thread `tid`'s share of loading tile `tile` of batch row `row` into sm
-// (element e at sm + 8 e, e = j 2^log_cols + c).  The first pass gathers
+// (element e at sm + L e, e = j 2^log_cols + c).  The first pass gathers
 // through the bit reversal and multiplies by the input factor.
+template <int L>
 ZK_FN void ntt_load_thread(const NttArgs& a, uint32_t tile, uint32_t row, uint32_t tid, uint32_t* sm,
-                           const FrConsts& f) {
+                           const FieldConsts<L>& f) {
   const NttPass& p = a.pass;
   const NttTile t = ntt_tile(p, tile);
   const uint64_t row_base = (uint64_t)row << a.log_n;
   const uint32_t cmask = (1u << p.log_cols) - 1;
   for (uint32_t e = tid; e < ntt_tile_elems(p); e += NTT_THREADS) {
     const uint32_t pos = t.base + ((e >> p.log_cols) << p.s0) + (e & cmask);
-    uint32_t x[FR_LIMBS];
+    uint32_t x[L];
     if (a.first) {
       const uint32_t src = ntt_bitrev(pos, a.log_n);
-      ntt_load8(x, a.in + (row_base + src) * FR_LIMBS);
+      ntt_load<L>(x, a.in + (row_base + src) * L);
       if (a.in_f) {
-        uint32_t g[FR_LIMBS];
-        ntt_load8(g, a.in_f + (uint64_t)src * a.in_fs * FR_LIMBS);
-        fmul<FR_LIMBS>(x, x, g, f);
+        uint32_t g[L];
+        ntt_load<L>(g, a.in_f + (uint64_t)src * a.in_fs * L);
+        fmul<L>(x, x, g, f);
       }
     } else {
-      ntt_load8(x, a.out + (row_base + pos) * FR_LIMBS);
+      ntt_load<L>(x, a.out + (row_base + pos) * L);
     }
-    ntt_store8(sm + e * FR_LIMBS, x);
+    ntt_store<L>(sm + e * L, x);
   }
 }
 
 // Thread `tid`'s butterflies of the pass's local stage r (1..ns), global
 // stage s = s0 + r: butterfly b is column c = b mod 2^log_cols and row pair
 // (ju, ju + 2^(r-1)) of the tile.
+template <int L>
 ZK_FN void ntt_stage_thread(const NttArgs& a, uint32_t tile, int r, uint32_t tid, uint32_t* sm,
-                            const FrConsts& f) {
+                            const FieldConsts<L>& f) {
   const NttPass& p = a.pass;
   const NttTile t = ntt_tile(p, tile);
   const uint32_t cmask = (1u << p.log_cols) - 1;
@@ -172,38 +201,39 @@ ZK_FN void ntt_stage_thread(const NttArgs& a, uint32_t tile, int r, uint32_t tid
     const uint32_t c = b & cmask, q = b >> p.log_cols;
     const uint32_t jj = q & hmask;
     const uint32_t ju = ((q >> (r - 1)) << r) + jj;
-    uint32_t* u = sm + ((ju << p.log_cols) + c) * FR_LIMBS;
-    uint32_t* v = u + ((1u << (r - 1)) << p.log_cols) * FR_LIMBS;
+    uint32_t* u = sm + ((ju << p.log_cols) + c) * L;
+    uint32_t* v = u + ((1u << (r - 1)) << p.log_cols) * L;
     const uint32_t i = (jj << p.s0) + t.l0 + c;  // position in the stage's half group
-    uint32_t x[FR_LIMBS], w[FR_LIMBS], y[FR_LIMBS];
-    ntt_load8(x, v);
-    ntt_load8(w, a.tw + ((uint64_t)i << tw_shift) * FR_LIMBS);
-    fmul<FR_LIMBS>(w, x, w, f);  // w v
-    ntt_load8(x, u);
-    fadd<FR_LIMBS>(y, x, w, f);
-    fsub<FR_LIMBS>(x, x, w, f);
-    ntt_store8(u, y);
-    ntt_store8(v, x);
+    uint32_t x[L], w[L], y[L];
+    ntt_load<L>(x, v);
+    ntt_load<L>(w, a.tw + ((uint64_t)i << tw_shift) * L);
+    fmul<L>(w, x, w, f);  // w v
+    ntt_load<L>(x, u);
+    fadd<L>(y, x, w, f);
+    fsub<L>(x, x, w, f);
+    ntt_store<L>(u, y);
+    ntt_store<L>(v, x);
   }
 }
 
 // Thread `tid`'s share of writing the tile back; the last pass multiplies
 // by the output factor.
+template <int L>
 ZK_FN void ntt_store_thread(const NttArgs& a, uint32_t tile, uint32_t row, uint32_t tid, const uint32_t* sm,
-                            const FrConsts& f) {
+                            const FieldConsts<L>& f) {
   const NttPass& p = a.pass;
   const NttTile t = ntt_tile(p, tile);
   const uint64_t row_base = (uint64_t)row << a.log_n;
   const uint32_t cmask = (1u << p.log_cols) - 1;
   for (uint32_t e = tid; e < ntt_tile_elems(p); e += NTT_THREADS) {
     const uint32_t pos = t.base + ((e >> p.log_cols) << p.s0) + (e & cmask);
-    uint32_t x[FR_LIMBS];
-    ntt_load8(x, sm + e * FR_LIMBS);
+    uint32_t x[L];
+    ntt_load<L>(x, sm + e * L);
     if (a.last && a.out_f) {
-      uint32_t g[FR_LIMBS];
-      ntt_load8(g, a.out_f + (uint64_t)pos * a.out_fs * FR_LIMBS);
-      fmul<FR_LIMBS>(x, x, g, f);
+      uint32_t g[L];
+      ntt_load<L>(g, a.out_f + (uint64_t)pos * a.out_fs * L);
+      fmul<L>(x, x, g, f);
     }
-    ntt_store8(a.out + (row_base + pos) * FR_LIMBS, x);
+    ntt_store<L>(a.out + (row_base + pos) * L, x);
   }
 }

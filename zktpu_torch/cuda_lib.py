@@ -25,8 +25,8 @@ from .fields.host import FieldSpec
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "zktpu_torch")
-SOURCES = ("mont_mul.cu", "g1.cu", "ntt.cu", "field_ops.cu")
-HEADERS = ("field.cuh", "g1.cuh", "ntt.cuh", "field_ops.cuh")
+SOURCES = ("mont_mul.cu", "g1.cu", "ntt.cu", "field_ops.cu", "sha256.cu")
+HEADERS = ("field.cuh", "g1.cuh", "ntt.cuh", "field_ops.cuh", "sha256.cuh")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,11 +48,12 @@ _SIGNATURES = {
     "zk_g1_kernel_attrs": [ctypes.c_int, _P],
     # device, p (host), pinv, ptrs (host: X, Y, Z parts, X, Y, Z out), W, K, c, stream
     "zk_horner_combine": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _I64, _I64, _P],
-    # device, p (host), pinv, in, out, batch, log_n, twiddles, in factor, its
-    # row stride, out factor, its row stride, stream, out: launches
-    "zk_ntt_fr": [ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _I64, ctypes.c_int, _P, _P, _I64, _P, _I64, _P, _P],
-    # out {registers, local bytes, shared bytes of the largest tile}
-    "zk_ntt_attrs": [_P],
+    # device, limbs, p (host), pinv, in, out, batch, log_n, twiddles, in factor,
+    # its row stride, out factor, its row stride, stream, out: launches
+    "zk_ntt": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _I64, ctypes.c_int, _P, _P, _I64, _P, _I64,
+               _P, _P],
+    # limbs, out {registers, local bytes, shared bytes of the largest tile}
+    "zk_ntt_attrs": [ctypes.c_int, _P],
     # device, limbs, p (host), pinv, a, b, out, n, chain, stream
     "zk_mont_mul_chain": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _P, _I64, ctypes.c_int, _P],
     # device, limbs, p (host), pinv, identity (host), op, mode, in, its row and
@@ -70,6 +71,10 @@ _SIGNATURES = {
                         _P],
     # kind (0 kernel A, 1 kernel B), out {registers, local bytes, shared bytes}
     "zk_field_ops_attrs": [ctypes.c_int, _P],
+    # device, in, out, n_in, pairs (0 or 1), stream, out: launches
+    "zk_sha256_field": [ctypes.c_int, _P, _P, _I64, ctypes.c_int, _P, _P],
+    # out {registers, local bytes, shared bytes}
+    "zk_sha256_attrs": [_P],
 }
 
 

@@ -5,12 +5,11 @@ arkworks Radix2EvaluationDomain conventions, so values agree element for
 element: size = next power of two; generator w = TWO_ADIC_ROOT^(2^(s - log n));
 fft maps coefficients to [p(w^0), ..., p(w^(n-1))] in natural order; ifft
 includes the 1/n scaling.  The tensor transform is a bit-reverse gather and
-log n DIT butterfly stages.  Over Fr it is poly/ntt_kernel.py's ``ntt``: the
-NTT kernel for CUDA tensors (its stages in shared-memory tiles, the coset
-factors and 1/n fused into its loads and stores), the plain stage loop for
-CPU tensors.  Other fields (Goldilocks: no ported path transforms in it on
-the card) keep the stage loop over the Montgomery product, kernel 1 on CUDA
-tensors.
+log n DIT butterfly stages.  Over Fr and Goldilocks it is
+poly/ntt_kernel.py's ``ntt``: the NTT kernel for CUDA tensors (its stages in
+shared-memory tiles, the coset factors and 1/n fused into its loads and
+stores), the plain stage loop for CPU tensors.  Fq (two-adicity 1: domains
+of at most two points) keeps the stage loop over the Montgomery product.
 """
 from __future__ import annotations
 
@@ -20,8 +19,8 @@ import torch
 
 from .. import config
 from ..fields.fp import TorchField, field, ints_to_limbs, norm_device
-from ..fields.host import FR, FieldSpec
-from .ntt_kernel import bit_reverse_perm, ntt, stage_loop
+from ..fields.host import FieldSpec
+from .ntt_kernel import KERNEL_FIELDS, bit_reverse_perm, ntt, stage_loop
 
 # Power tables of domains up to this size are built by host loops; larger
 # ones by a log-depth cumulative product on the tensor's device.
@@ -88,8 +87,8 @@ class Radix2Domain:
         out_factor the output factor is 1/n (ntt_kernel.py)."""
         assert values.shape[-2] == self.size, (values.shape, self.size)
         E = self._inv_tw if inverse else self._fwd_tw
-        if self.spec is FR:
-            return ntt(values, E, inverse, in_factor, out_factor)
+        if self.spec in KERNEL_FIELDS:
+            return ntt(values, E, inverse, in_factor, out_factor, self.spec)
         return stage_loop(self.spec, self.df.mont_mul, values, E, inverse, in_factor, out_factor)
 
     # -- host transform (small sizes: latency-bound, see config.py) --

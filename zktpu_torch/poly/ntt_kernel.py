@@ -1,24 +1,26 @@
-"""The Fr NTT kernel (csrc/ntt.cu) and its plain PyTorch version.
+"""The NTT kernel (csrc/ntt.cu) over Fr and Goldilocks, and its plain
+PyTorch version.
 
 Replaces the stage loop of zktpu/poly/domain.py::_transform, a jnp graph of
 log n radix-2 stages around the Montgomery product kernel
 (zktpu/fields/pallas_mont.py::_mont_mul_call).  Both compute, for rows of n
-elements ((..., n, 8) Montgomery limbs over Fr),
+elements ((..., n, L) Montgomery limbs; L = 8 over Fr, 2 over Goldilocks),
 
     out = out_factor * DIT(in_factor * values),
 
 DIT being the bit-reverse gather and the log n butterfly stages
 (u + w v, u - w v) with stage s taking every (n / 2^s)-th entry of `table`
-(gen^i, i < n/2).  A factor is an (n, 8) table or one (8,) value; with
+(gen^i, i < n/2).  A factor is an (n, L) table or one (L,) value; with
 ``inverse`` and no out_factor the output factor is n^-1 (a caller that
 merges n^-1 into its own table, as coset_ifft does, passes that table).
 
 On the H100 the transform is bound by 32-bit integer multiply-adds; the
-kernel runs the stages in 3-4 launches of shared-memory tiles, with the
+kernel runs the stages in 1-4 launches of shared-memory tiles, with the
 permutation and both factors fused into the loads and stores (csrc/ntt.cu
 says how).  ``ntt`` launches it for CUDA tensors and runs ``ntt_plain`` for
-CPU tensors only.  The kernel is Fr only; ``stage_loop`` is the stage loop
-over any product, which the domains of other fields use.
+CPU tensors only.  The kernel has an Fr and a Goldilocks instance
+(``KERNEL_FIELDS``); ``stage_loop`` is the stage loop over any product,
+which Fq's two-point domains use.
 """
 from __future__ import annotations
 
@@ -31,10 +33,11 @@ import torch
 from .. import cuda_lib
 from ..fields.field_kernel import add_plain, sub_plain
 from ..fields.fp import field, ints_to_limbs
-from ..fields.host import FR, FieldSpec
+from ..fields.host import FR, GOLDILOCKS, FieldSpec
 from ..fields.mont_kernel import mont_mul_plain
 
-LIMBS = FR.num_digits // 2
+# The fields the kernel is built for (its instances L = 8 and L = 2).
+KERNEL_FIELDS = (FR, GOLDILOCKS)
 
 
 def bit_reverse_perm(n: int) -> np.ndarray:
@@ -86,22 +89,25 @@ def ntt_plain(values, table, inverse: bool, in_factor=None, out_factor=None, spe
                       plain=True)
 
 
-def _factor(name: str, t, n: int):
-    """(pointer, row stride) of a factor: an (n, 8) table or one (8,) value."""
+def _factor(name: str, t, n: int, limbs: int):
+    """(pointer, row stride) of a factor: an (n, L) table or one (L,) value."""
     if t is None:
         return None, 0
-    rows = t.reshape(-1, LIMBS)
-    if rows.shape[0] not in (1, n) or t.shape[-1] != LIMBS:
-        raise ValueError(f"ntt: {name} must be ({n}, {LIMBS}) or ({LIMBS},), got {tuple(t.shape)}")
+    rows = t.reshape(-1, limbs)
+    if rows.shape[0] not in (1, n) or t.shape[-1] != limbs:
+        raise ValueError(f"ntt: {name} must be ({n}, {limbs}) or ({limbs},), got {tuple(t.shape)}")
     return rows.contiguous(), int(rows.shape[0] == n and n > 1)
 
 
-def ntt(values, table, inverse: bool, in_factor=None, out_factor=None):
-    """out_factor * DIT(in_factor * values) over Fr (module docstring) for
-    (..., n, 8) limbs: the kernel for CUDA tensors, ntt_plain for CPU ones."""
+def ntt(values, table, inverse: bool, in_factor=None, out_factor=None, spec: FieldSpec = FR):
+    """out_factor * DIT(in_factor * values) over `spec` (module docstring)
+    for (..., n, L) limbs: the kernel for CUDA tensors, ntt_plain for CPU ones."""
     ts = [t for t in (values, table, in_factor, out_factor) if t is not None]
     if all(t.device.type == "cpu" for t in ts):
-        return ntt_plain(values, table, inverse, in_factor, out_factor)
+        return ntt_plain(values, table, inverse, in_factor, out_factor, spec)
+    if spec not in KERNEL_FIELDS:
+        raise ValueError(f"ntt: the kernel is built for {[f.name for f in KERNEL_FIELDS]}, not {spec.name}")
+    limbs = spec.num_digits // 2
     n = values.shape[-2]
     log_n = n.bit_length() - 1
     if n != 1 << log_n:
@@ -109,40 +115,40 @@ def ntt(values, table, inverse: bool, in_factor=None, out_factor=None):
     if table.shape[0] < max(n // 2, 1):
         raise ValueError(f"ntt: the twiddle table has {table.shape[0]} rows, the transform needs {n // 2}")
     if out_factor is None and inverse:
-        out_factor = _n_inv(FR, n, values.device)
+        out_factor = _n_inv(spec, n, values.device)
     x = values.contiguous()
     tw = table.contiguous()
-    fin, fin_s = _factor("in_factor", in_factor, n)
-    fout, fout_s = _factor("out_factor", out_factor, n)
+    fin, fin_s = _factor("in_factor", in_factor, n, limbs)
+    fout, fout_s = _factor("out_factor", out_factor, n, limbs)
     ops = [t for t in (x, tw, fin, fout) if t is not None]
-    cuda_lib.check_cuda_operands("ntt", ops, LIMBS)
+    cuda_lib.check_cuda_operands("ntt", ops, limbs)
     if any(t.data_ptr() % 16 for t in ops):
         raise ValueError("ntt: operands must be 16-byte aligned")
     out = torch.empty_like(x)
-    batch = x.numel() // (n * LIMBS)
+    batch = x.numel() // (n * limbs)
     if batch == 0:
         return out
     if batch > 65535:
         raise ValueError(f"ntt: at most 65535 rows per call, got {batch}")
     lib = cuda_lib.load()
-    p, pinv = cuda_lib.field_consts(FR)
+    p, pinv = cuda_lib.field_consts(spec)
     launched = ctypes.c_int(0)
-    rc = lib.zk_ntt_fr(
-        x.device.index, p.ctypes.data, pinv, x.data_ptr(), out.data_ptr(), batch, log_n, tw.data_ptr(),
+    rc = lib.zk_ntt(
+        x.device.index, limbs, p.ctypes.data, pinv, x.data_ptr(), out.data_ptr(), batch, log_n, tw.data_ptr(),
         0 if fin is None else fin.data_ptr(), fin_s, 0 if fout is None else fout.data_ptr(), fout_s,
         cuda_lib.stream_of(out), ctypes.byref(launched),
     )
-    ntt.launches += launched.value
+    ntt.launches[spec.name] += launched.value
     cuda_lib.check(rc, "ntt")
     return out
 
 
-ntt.launches = 0
+ntt.launches = {f.name: 0 for f in KERNEL_FIELDS}
 
 
-def kernel_attrs() -> dict:
+def kernel_attrs(spec: FieldSpec = FR) -> dict:
     """Registers per thread, local-memory bytes (spills) and the shared
-    memory per block of the largest tile."""
+    memory per block of the largest tile, for the kernel of `spec`."""
     out = (ctypes.c_int * 3)()
-    cuda_lib.check(cuda_lib.load().zk_ntt_attrs(out), "ntt attributes")
+    cuda_lib.check(cuda_lib.load().zk_ntt_attrs(spec.num_digits // 2, out), "ntt attributes")
     return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2]}
