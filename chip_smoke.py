@@ -9,10 +9,15 @@ Phases:
      ptxas's register and spill counts go to stderr), and the registers,
      local (spill) bytes and shared memory per block of the group-law
      kernels, the Horner combine, the NTT (Fr and Goldilocks), the field
-     scans, the field add/sub and the field hash (fails if one spills);
+     scans, the field add/sub, the field hash and the tensor-core chained
+     products (mxu and f32, Fr and Fq) (fails if one spills); the SASS of
+     the chained product's three bodies (IMMA, FFMA, IMAD: cuobjdump), the
+     mxu and f32 kernels must hold IMMA and the f32 ones FFMA;
   2. kernels: holds each CUDA kernel against its plain PyTorch version on
      the card, bit for bit (mont_mul for Fr, Fq and Goldilocks and
-     mont_mul_chain at N = 2^16 + 3 with the edge values 0, 1, p - 1;
+     mont_mul_chain at N = 2^16 + 3 with the edge values 0, 1, p - 1, for
+     Fr and Fq in each body, base, mxu and f32, each also against the base
+     plain chain, timed with the wrapper and kernel only;
      proj_add, proj_double and proj_madd at N = 2^14 + 5 with identity,
      P + P, P + (-P), (0, 0) and padding lanes), with both times; proj_add
      and proj_madd also on strided slices of (3, n + 5, 12) planes (n = 2^14
@@ -50,8 +55,9 @@ Phases:
      host curve arithmetic, and proj_madd and proj_add against their plain
      versions on the operands msm_affine gives them and proj_add on the
      first step of msm_proj's doubling scan at 2^msm_log_n, timed.
-     Last the chained-multiply tool (zktpu_torch.tools.prof_mulkernels) for
-     each field, as a path of its own;
+     Last the chained-multiply tool (zktpu_torch.tools.prof_mulkernels),
+     its three bodies for Fq and Fr and base for Goldilocks, as a path of
+     its own;
   6. FRI path: generate_proof on the card for 2^(fri_log_n - 1) Goldilocks
      coefficients (blowup 2, 32 queries) and the host verify; the Goldilocks
      NTT, the hash, mont_mul, the add/sub and the scans (the domains' power
@@ -160,10 +166,69 @@ def _record(results: dict, key: str, n: int, err: int, ms: float, plain_ms: floa
           f"bound_ms={results[key]['bound_ms']:.5f} ({results[key]['bound_by']})", flush=True)
 
 
+def _chain_variants(spec, f, a_ints, b_ints, A, B, results) -> None:
+    """The three bodies of kernel 5 at one shape: each against its own plain
+    version (every word) and the base plain chain, its time with the
+    wrapper (CUDA events) and kernel only (torch.profiler), its bound
+    (prof_mulkernels.chain_bound: the busiest pipe).  The kernels line
+    takes the Fq rows."""
+    from zktpu_torch.fields.host import FQ
+    from zktpu_torch.fields.mont_kernel import PLAIN_CHAINS, mont_mul_chain, mont_mul_chain_plain
+    from zktpu_torch.tools.prof_mulkernels import chain_bound
+
+    n = A.shape[0]
+    p = spec.modulus
+    base_plain = mont_mul_chain_plain(spec, A, B, CHAIN)
+    for variant, plain in PLAIN_CHAINS.items():
+        key = "mont_mul_chain" + ("" if variant == "base" else f"_{variant}")
+        got = mont_mul_chain(spec, A, B, CHAIN, variant)
+        err = _compare(f"{key} {spec.name}", [got], [base_plain if variant == "base" else plain(spec, A, B, CHAIN)])
+        if variant != "base":
+            _compare(f"{key} {spec.name} vs the base plain chain", [got], [base_plain])
+        assert f.decode_ints(got[:8]) == [x * pow(y, CHAIN, p) % p for x, y in zip(a_ints[:8], b_ints[:8])]
+        ms = _cuda_ms(lambda: mont_mul_chain(spec, A, B, CHAIN, variant), 50)
+        plain_ms = _cuda_ms(lambda: plain(spec, A, B, CHAIN), 2)
+        kernel = "mont_mul_chain_kernel" if variant == "base" else "mont_mma_chain_kernel"
+        k_ms, count = _kernel_only_ms(lambda: mont_mul_chain(spec, A, B, CHAIN, variant), 50, kernel)
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "n": n, "kernel_only_ms": k_ms,
+               **chain_bound(spec, variant, n, CHAIN)}
+        print(f"phase 2: {key} {spec.name} n={n} chain={CHAIN} mismatches=0 (own plain and base plain) "
+              f"kernel_ms={ms:.4f} kernel_only_ms={k_ms:.4f} ({count} launches) plain_ms={plain_ms:.4f} "
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}: {row['bound_pipe']}) "
+              f"Mmul/s={n * CHAIN / ms / 1e3:.1f} (kernel only {n * CHAIN / k_ms / 1e3:.1f})", flush=True)
+        if spec is FQ:  # the microbench's field: its rows in the kernels line
+            results[key] = row
+
+
 def _edge_ints(rng, p: int, n: int):
     a = [0, 1, p - 1, p - 1] + [rng.randrange(p) for _ in range(n - 4)]
     b = [p - 1, p - 1, p - 1, 1] + [rng.randrange(p) for _ in range(n - 4)]
     return a, b
+
+
+def phase_chain_sass() -> None:
+    """The SASS of kernel 5's three bodies (cuobjdump, through
+    tools/g1_budgets.py's sass_counts): IMMA (tensor-core u8 products),
+    FFMA, IMAD and all instructions of each instance.  The mxu and f32
+    kernels must hold IMMA, the f32 ones FFMA."""
+    from zktpu_torch.fields.host import FQ, FR
+    from zktpu_torch.fields.mont_mats import mma_products
+    from zktpu_torch.tools.g1_budgets import sass_counts
+
+    kernels = [("base<12>", r"21mont_mul_chain_kernelILi12E"), ("base<8>", r"21mont_mul_chain_kernelILi8E")]
+    kernels += [(f"{v}<{L}>", rf"21mont_mma_chain_kernelILi{L}ELb{int(v == 'f32')}E")
+                for L in (12, 8) for v in ("mxu", "f32")]
+    counts = sass_counts(kernels=kernels)
+    for label, _ in kernels:
+        c = counts[label]
+        top = sorted(c["by_op"].items(), key=lambda kv: -kv[1])[:10]
+        print(f"phase 1: SASS {label}: {c['by_op'].get('IMMA', 0)} IMMA, {c['by_op'].get('FFMA', 0)} FFMA, "
+              f"{c.get('IMAD', 0)} IMAD, {c['total']} instructions; by opcode {dict(top)}", flush=True)
+    for L, spec in ((12, FQ), (8, FR)):
+        for v in ("mxu", "f32"):
+            c = counts[f"{v}<{L}>"]["by_op"]
+            assert c.get("IMMA", 0) >= 2 * mma_products(spec), f"{v}<{L}>: no tensor-core products in its SASS: {c}"
+        assert counts[f"f32<{L}>"]["by_op"].get("FFMA", 0) > 0, f"f32<{L}>: no FFMA in its SASS"
 
 
 def phase_kernels(device) -> dict:
@@ -190,16 +255,14 @@ def phase_kernels(device) -> dict:
         plain_ms = _cuda_ms(lambda: mont_mul_plain(spec, A, B), 5)
         _record(results, key, n, err, ms, plain_ms, 3 * n * 4 * L, n * _mont_words(L))
 
-        # kernel 5 at the same shape: CHAIN products by b in registers
-        got = mont_mul_chain(spec, A, B, CHAIN)
-        err = _compare(f"mont_mul_chain {spec.name}", [got], [mont_mul_chain_plain(spec, A, B, CHAIN)])
-        assert f.decode_ints(got[:8]) == [x * pow(y, CHAIN, p) % p for x, y in zip(a[:8], b[:8])]
-        if spec is FQ:  # the microbench's field: its row in the kernels line
-            ms = _cuda_ms(lambda: mont_mul_chain(spec, A, B, CHAIN), 50)
-            plain_ms = _cuda_ms(lambda: mont_mul_chain_plain(spec, A, B, CHAIN), 3)
-            _record(results, "mont_mul_chain", n, err, ms, plain_ms, 3 * n * 4 * L, CHAIN * n * _mont_words(L))
-        else:
+        # kernel 5 at the same shape: CHAIN products by b, each body (mxu and f32 need D >= 16)
+        if spec is GOLDILOCKS:
+            got = mont_mul_chain(spec, A, B, CHAIN)
+            _compare(f"mont_mul_chain {spec.name}", [got], [mont_mul_chain_plain(spec, A, B, CHAIN)])
+            assert f.decode_ints(got[:8]) == [x * pow(y, CHAIN, p) % p for x, y in zip(a[:8], b[:8])]
             print(f"phase 2: mont_mul_chain {spec.name} n={n} chain={CHAIN} mismatches=0", flush=True)
+        else:
+            _chain_variants(spec, f, a, b, A, B, results)
 
     # points: a host chain (i + 1) G, lifted to general Z by one plain add
     n = (1 << 14) + 5
@@ -673,7 +736,7 @@ def _wrappers():
     from zktpu_torch.hash.sha256_kernel import hash_field
     from zktpu_torch.poly.ntt_kernel import ntt
 
-    return (mont_mul, ntt), (proj_add, proj_double, proj_madd, mont_mul_chain, horner_combine, hash_field)
+    return (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field)
 
 
 def _reset_launches() -> None:
@@ -694,7 +757,7 @@ def _read_launches() -> dict:
     from zktpu_torch.fields import field_kernel
     from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
 
-    (mont_mul, ntt), (proj_add, proj_double, proj_madd, mont_mul_chain, horner_combine, hash_field) = _wrappers()
+    (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field) = _wrappers()
     return {
         "mont_mul_fr": mont_mul.launches[FR.name],
         "mont_mul_fq": mont_mul.launches[FQ.name],
@@ -702,7 +765,9 @@ def _read_launches() -> dict:
         "proj_add": proj_add.launches,
         "proj_double": proj_double.launches,
         "proj_madd": proj_madd.launches,
-        "mont_mul_chain": mont_mul_chain.launches,
+        "mont_mul_chain": mont_mul_chain.launches["base"],
+        "mont_mul_chain_mxu": mont_mul_chain.launches["mxu"],
+        "mont_mul_chain_f32": mont_mul_chain.launches["f32"],
         "ntt_fr": ntt.launches[FR.name],
         "ntt_gl": ntt.launches[GOLDILOCKS.name],
         "horner_combine": horner_combine.launches,
@@ -836,12 +901,15 @@ def phase_msm(device, log_n: int):
     print(f"phase 5: launches {json.dumps(launches)}", flush=True)
 
     _reset_launches()
-    for spec in (FQ, FR, GOLDILOCKS):  # the tool's field is Fq; Fr and Goldilocks for comparison
-        for row in prof_mulkernels.run(1 << 16, CHAIN, spec, device=device):
+    # the tool's field is Fq; Fr and Goldilocks for comparison (Goldilocks: base only, D < 16)
+    for spec in (FQ, FR, GOLDILOCKS):
+        variants = ("base",) if spec is GOLDILOCKS else prof_mulkernels.VARIANTS
+        for row in prof_mulkernels.run(1 << 16, CHAIN, spec, variants, device=device):
             print(f"phase 5: prof_mulkernels {spec.name} {row['variant']} N={row['n']} CHAIN={row['chain']}: "
                   f"{row['ms_per_mul']:.5f} ms/mul, {row['mmul_per_s']:.2f} Mmul/s, MATCH", flush=True)
     tool = _read_launches()
-    assert tool["mont_mul_chain"] > 0, f"the microbench never launched its kernel: {tool}"
+    chains = ("mont_mul_chain", "mont_mul_chain_mxu", "mont_mul_chain_f32")
+    assert all(tool[k] > 0 for k in chains), f"the microbench never launched a body's kernel: {tool}"
     print(f"phase 5: microbench launches {json.dumps(tool)}", flush=True)
     return launches, tool, inputs
 
@@ -1170,6 +1238,9 @@ _SOURCES = {
     "proj_double": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/pallas_g1.py:211"),
     "proj_madd": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/pallas_g1.py:161"),
     "mont_mul_chain": ("zktpu_torch/csrc/mont_mul.cu", "tools/prof_mulkernels.py:191"),
+    # the same Pallas call with the RowOpsMXU (:94) and RowOpsF32 (:133) bodies
+    "mont_mul_chain_mxu": ("zktpu_torch/csrc/mont_mma.cu", "tools/prof_mulkernels.py:191"),
+    "mont_mul_chain_f32": ("zktpu_torch/csrc/mont_mma.cu", "tools/prof_mulkernels.py:191"),
     # the stage loop of zktpu's _transform around kernel 1 (pallas_mont.py:363)
     "ntt_fr": ("zktpu_torch/csrc/ntt.cu", "zktpu/poly/domain.py:116"),
     # the fori_loop of _proj_double_call (pallas_g1.py:211) and proj_add in zktpu's msm_proj
@@ -1215,8 +1286,8 @@ def main(argv=None) -> int:
           f"-> {os.path.relpath(cuda_lib.library_path())}", flush=True)
     print(f"phase 1: pairing backend {pairing_backend()}", flush=True)
     from zktpu_torch.curves import g1_kernel
-    from zktpu_torch.fields import field_kernel
-    from zktpu_torch.fields.host import FR, GOLDILOCKS
+    from zktpu_torch.fields import field_kernel, mont_kernel
+    from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
     from zktpu_torch.hash import sha256_kernel
     from zktpu_torch.poly import ntt_kernel
 
@@ -1225,10 +1296,14 @@ def main(argv=None) -> int:
     attrs["ntt_gl"] = ntt_kernel.kernel_attrs(GOLDILOCKS)
     attrs.update({k: field_kernel.kernel_attrs(k) for k in ("field_scan", "field_addsub")})
     attrs["sha256_field"] = sha256_kernel.kernel_attrs()
+    for spec in (FR, FQ):
+        for variant in ("mxu", "f32"):
+            attrs[f"mont_mul_chain_{variant} {spec.name}"] = mont_kernel.mont_mma_attrs(spec, variant)
     print("phase 1: registers " + "; ".join(
         f"{k}: {a['registers']} registers, {a['local_bytes']} local bytes, {a['shared_bytes']} shared bytes per block"
         for k, a in attrs.items()), flush=True)
     assert all(a["local_bytes"] == 0 for a in attrs.values()), f"a kernel spills: {attrs}"
+    phase_chain_sass()
 
     kernels = phase_kernels(device)
     phase_small_path_shapes(device, kernels)

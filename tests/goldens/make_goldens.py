@@ -1,6 +1,6 @@
 """Write the goldens that the port's CPU tests compare against, from zktpu.
 
-    JAX_PLATFORMS=cpu python tests/goldens/make_goldens.py
+    JAX_PLATFORMS=cpu python tests/goldens/make_goldens.py [field_ops] [fri] [mont_mma]
 
 - field_ops.npz: zktpu's DeviceField (cumprod and cumsum both ways, sum on
   axis 0 and 1, powers, batch_inv, add, sub, neg, double) on the inputs of
@@ -9,7 +9,14 @@
 - fri_2e13.json: zktpu's FRI proof of tests/test_torch_fri.py's golden
   coefficients (2^12 Goldilocks values from numpy's default_rng), blowup 2
   (a 2^13 domain: its first two layers take the vector hash), its
-  GOLDEN_QUERIES queries, as plain ints.
+  GOLDEN_QUERIES queries, as plain ints;
+- mont_mma.npz: for Fr and Fq, tests/test_torch_mont_mma.py's operands,
+  zktpu's mont_mul_pallas (interpret mode: the matrix-unit path) chained
+  CHAIN times, one product's m_cols and mp_cols (RowOps._const_mxu, on the
+  steps of RowOps.mul), tools/prof_mulkernels.py's RowOpsF32 chained CHAIN
+  times and one product's two f32 accumulators (the values its conv_full
+  converts to int32), and mont_matmats; words as the port's (..., L) int32
+  limbs, columns as (N, columns) int32 and the matrices as uint8.
 
 Run once; the tests need neither JAX nor zktpu for these comparisons.  Not
 collected by pytest.
@@ -98,6 +105,89 @@ def fri() -> None:
         json.dump(fri_proof_to_ints(proof), f, separators=(",", ":"))
 
 
+def _f32_accumulators(conv_full, a, b):
+    """accA and accB of RowOpsF32.conv_full(a, b): the two f32 values it
+    converts to int32, read by evaluating its jaxpr one equation at a time."""
+    import jax
+    import jax.numpy as jnp
+    from jax.extend.core import Literal
+
+    closed = jax.make_jaxpr(conv_full)(a, b)
+    env = dict(zip(closed.jaxpr.constvars, closed.consts))
+    env.update(zip(closed.jaxpr.invars, (a, b)))
+    seen = []
+    for eqn in closed.jaxpr.eqns:
+        ins = [v.val if isinstance(v, Literal) else env[v] for v in eqn.invars]
+        if (eqn.primitive.name == "convert_element_type" and ins[0].dtype == jnp.float32
+                and eqn.params["new_dtype"] == jnp.int32):
+            seen.append(np.asarray(ins[0]))
+        outs = eqn.primitive.bind(*ins, **eqn.params)
+        for v, o in zip(eqn.outvars, outs if eqn.primitive.multiple_results else [outs]):
+            env[v] = o
+    assert len(seen) == 2, len(seen)
+    return seen
+
+
+def mont_mma() -> None:
+    import importlib.util
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    import test_torch_mont_mma as t
+    from zktpu.fields import host as zhost
+    from zktpu.fields.fp import device_field
+    from zktpu.fields.pallas_mont import RowOps, _carry_rows, mont_matmats, mont_mul_pallas, row_consts
+    from zktpu_torch.convert import digits_to_limbs
+
+    # tools/prof_mulkernels.py reads N and its variants from sys.argv at import
+    argv, sys.argv = sys.argv, [sys.argv[0], "256"]
+    try:
+        path = os.path.join(os.path.dirname(os.path.dirname(HERE)), "tools", "prof_mulkernels.py")
+        spec_ = importlib.util.spec_from_file_location("prof_mulkernels", path)
+        pmk = importlib.util.module_from_spec(spec_)
+        spec_.loader.exec_module(pmk)
+    finally:
+        sys.argv = argv
+
+    out = {}
+    for ours, theirs in ((t.FR, zhost.FR), (t.FQ, zhost.FQ)):
+        df = device_field(theirs)
+        D = theirs.num_digits
+        va, vb = t.golden_inputs(ours)
+        a, b = df.encode_ints(va), df.encode_ints(vb)  # (N, D) Montgomery digits
+        x = a
+        for _ in range(t.CHAIN):
+            x = mont_mul_pallas(theirs, x, b, interpret=True)
+        consts = row_consts(theirs).T
+        ops = RowOps(theirs, consts, mont_matmats(theirs))
+        aT, bT = jnp.asarray(a).T, jnp.asarray(b).T
+        cols = ops.conv_full(aT, bT)
+        t_lo, _ = _carry_rows(cols[:D], D)
+        m_cols = ops._const_mxu(t_lo, ops.m_pinv_A, ops.m_pinv_B)
+        m, _ = _carry_rows(m_cols, D)
+        mp_cols = ops._const_mxu(m, ops.m_p_A, ops.m_p_B)
+        f32 = pmk.RowOpsF32(theirs, consts, pmk.const_matmats(theirs))
+        mul = jax.jit(f32.mul)
+        y = aT
+        for _ in range(t.CHAIN):
+            y = mul(y, bT)
+        acc_a, acc_b = _f32_accumulators(f32.conv_full, aT, bT)
+        put = {
+            "a": digits_to_limbs(np.asarray(a)), "b": digits_to_limbs(np.asarray(b)),
+            "mxu_chain": digits_to_limbs(np.asarray(x)), "f32_chain": digits_to_limbs(np.asarray(y).T),
+            "m_cols": np.asarray(m_cols).T.astype(np.int32), "mp_cols": np.asarray(mp_cols).T.astype(np.int32),
+            "accA": acc_a.T.astype(np.int32), "accB": acc_b.T.astype(np.int32),
+            "matmats": mont_matmats(theirs).astype(np.uint8),
+        }
+        assert all(np.array_equal(v, np.round(v)) for v in (acc_a, acc_b))
+        assert all(np.asarray(v).max() < 2**31 for v in (m_cols, mp_cols)) and mont_matmats(theirs).max() < 256
+        out.update({f"{ours.name}/{k}": v for k, v in put.items()})
+    np.savez_compressed(os.path.join(HERE, "mont_mma.npz"), **out)
+
+
 if __name__ == "__main__":
-    field_ops()
-    fri()
+    which = sys.argv[1:] or ["field_ops", "fri", "mont_mma"]
+    for name in which:
+        {"field_ops": field_ops, "fri": fri, "mont_mma": mont_mma}[name]()

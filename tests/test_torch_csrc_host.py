@@ -1,12 +1,14 @@
 """The CUDA kernels' own arithmetic on the CPU, against the plain versions.
 
-csrc/field.cuh, csrc/g1.cuh and csrc/ntt.cuh compile as host C++
-(tests/g1_host.cpp, tests/ntt_host.cpp): the PTX carry chains of the
+csrc/field.cuh, csrc/g1.cuh, csrc/ntt.cuh and csrc/mont_mma.cuh compile as
+host C++ (tests/g1_host.cpp, tests/ntt_host.cpp, tests/mont_mma_host.cpp):
+the PTX carry chains of the
 Montgomery product are emulated one instruction for one, the per-point code
 of the add, mixed add and double runs as each CUDA thread runs it, strided
 planes and all, the Horner combine runs its lane schedule phase by phase,
-and the NTT runs each pass block by block and each block's phases thread by
-thread.  So the carry chains, the lazy reduction bounds, the plane
+the NTT runs each pass block by block and each block's phases thread by
+thread, and the tensor-core chain runs a warp as 32 threads with its u8
+mma.sync fragments emulated by the PTX ISA's layout tables.  So the carry chains, the lazy reduction bounds, the plane
 addressing, the lane exchange and the NTT's pass and tile index math are
 held word for word against the plain PyTorch versions here, though only the
 card can run the kernels.  Inputs are arbitrary field elements (the
@@ -29,7 +31,8 @@ from zktpu_torch.curves.g1_kernel import horner_combine_plain, proj_add_plain, p
 from zktpu_torch.fields import field_kernel
 from zktpu_torch.fields.fp import field, ints_to_limbs
 from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
-from zktpu_torch.fields.mont_kernel import mont_mul_plain
+from zktpu_torch.fields.mont_kernel import mont_mul_chain_plain, mont_mul_plain
+from zktpu_torch.fields.mont_mats import kernel_mats
 from zktpu_torch.poly import ntt_kernel
 from zktpu_torch.poly.domain import get_domain
 
@@ -414,3 +417,32 @@ def test_host_sha256_field_matches_plain_and_hashlib():
         else:
             want = [host_hash.hash_elem(GOLDILOCKS, v) for v in data]
         assert got == want, mode
+
+
+# Kernels 5m and 5f (csrc/mont_mma.cuh): a simulated warp, 32 threads with
+# the m16n8k32 u8 fragments of the PTX ISA emulated, through the library's
+# entry point over host memory.
+MMA_SHIM = os.path.join(HERE, "mont_mma_host.cpp")
+
+
+@pytest.mark.parametrize("variant", ["mxu", "f32"])
+@pytest.mark.parametrize("spec", [FR, FQ], ids=lambda s: s.name)
+def test_host_mont_mma_chain_matches_plain(spec, variant):
+    """Three chained products over 35 elements (two warps, the second with
+    three live lanes) with 0, 1 and p - 1 among them, against the plain
+    chain."""
+    so = _build(MMA_SHIM, "mont_mma_host", ("-pthread",))
+    P = ctypes.c_void_p
+    so.host_mont_mma_chain.argtypes = [ctypes.c_int, P, ctypes.c_uint32, ctypes.c_int, P, P, P, P, P,
+                                       ctypes.c_int64, ctypes.c_int]
+    so.host_mont_mma_chain.restype = ctypes.c_int
+    rng = np.random.default_rng(21)
+    f = field(spec, "cpu")
+    a, b = (f.encode_ints(_elements(rng, spec, 35)) for _ in range(2))
+    qmat, pmat = (np.ascontiguousarray(m).view(np.int32) for m in kernel_mats(spec))
+    p, pinv = cuda_lib.field_consts(spec)
+    out = torch.zeros_like(a)
+    rc = so.host_mont_mma_chain(spec.num_digits // 2, p.ctypes.data, pinv, int(variant == "f32"), qmat.ctypes.data,
+                                pmat.ctypes.data, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], 3)
+    assert rc == 0
+    assert torch.equal(out, mont_mul_chain_plain(spec, a, b, 3))

@@ -95,11 +95,40 @@ def test_mont_mul_chain_kernel_matches_plain(device, spec):
     a = [0, 1, p - 1] + [rng.randrange(p) for _ in range(500)]
     b = [p - 1, 1, p - 1] + [rng.randrange(p) for _ in range(500)]
     A, B = f.encode_ints(a), f.encode_ints(b)
-    before = mont_mul_chain.launches
+    before = mont_mul_chain.launches["base"]
     got = mont_mul_chain(spec, A, B, 12)
-    assert mont_mul_chain.launches == before + 1
+    assert mont_mul_chain.launches["base"] == before + 1
     assert torch.equal(got, mont_mul_chain_plain(spec, A, B, 12))
     assert f.decode_ints(got) == [x * pow(y, 12, p) % p for x, y in zip(a, b)]
+
+
+@pytest.mark.parametrize("variant", ["mxu", "f32"])
+@pytest.mark.parametrize("spec", [FR, FQ], ids=lambda s: s.name)
+def test_mont_mma_chain_kernel_matches_plain(device, spec, variant):
+    """The tensor-core chain (kernels 5m, 5f) against its own plain version
+    and the base plain chain: 503 elements (a ragged last warp) with 0, 1
+    and p - 1, one launch each; Goldilocks raises."""
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fields.mont_kernel import (
+        mont_mul_chain, mont_mul_chain_f32_plain, mont_mul_chain_mxu_plain, mont_mul_chain_plain,
+    )
+
+    f = field(spec, device)
+    rng = random.Random(3)
+    p = spec.modulus
+    a = [0, 1, p - 1] + [rng.randrange(p) for _ in range(500)]
+    b = [p - 1, p - 1, 1] + [rng.randrange(p) for _ in range(500)]
+    A, B = f.encode_ints(a), f.encode_ints(b)
+    before = mont_mul_chain.launches[variant]
+    got = mont_mul_chain(spec, A, B, 12, variant)
+    assert mont_mul_chain.launches[variant] == before + 1
+    plain = mont_mul_chain_f32_plain if variant == "f32" else mont_mul_chain_mxu_plain
+    assert torch.equal(got, plain(spec, A, B, 12))
+    assert torch.equal(got, mont_mul_chain_plain(spec, A, B, 12))
+    assert f.decode_ints(got) == [x * pow(y, 12, p) % p for x, y in zip(a, b)]
+    g = field(GOLDILOCKS, device).encode_ints([1, 2])
+    with pytest.raises(ValueError, match="MXU_MIN_DIGITS"):
+        mont_mul_chain(GOLDILOCKS, g, g, 2, variant)
 
 
 def test_proj_madd_kernel_matches_plain(device):

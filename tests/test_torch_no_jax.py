@@ -98,8 +98,9 @@ def test_wrapper_on_a_non_cpu_tensor_launches_or_raises():
     with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
         mont_mul(FR, a, a)
     a = torch.zeros((4, 12), dtype=torch.int32, device="meta")
-    with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
-        mont_mul_chain(FQ, a, a, 12)
+    for variant in ("base", "mxu", "f32"):
+        with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
+            mont_mul_chain(FQ, a, a, 12, variant)
     with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
         proj_madd((a, a, a), (a, a))
     # kernels A and B (fields/field_kernel.py) through the field's ops
@@ -162,6 +163,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lambda: g1.scalars_to_u32([1]),
         lambda: bench.main(["--log-n", "4"]),
         lambda: prof_mulkernels.main(["16"]),
+        lambda: prof_mulkernels.main(["16", "mxu"]),
+        lambda: prof_mulkernels.main(["16", "f32"]),
         lambda: Poly.from_ints(GOLDILOCKS, [1, 2]),
         lambda: sha256_vec.hash_elems_vec(GOLDILOCKS, [1, 2]),
         lambda: MerkleTree([1, 2, 3], GOLDILOCKS, force_device=True),

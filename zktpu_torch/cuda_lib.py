@@ -25,8 +25,8 @@ from .fields.host import FieldSpec
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "zktpu_torch")
-SOURCES = ("mont_mul.cu", "g1.cu", "ntt.cu", "field_ops.cu", "sha256.cu")
-HEADERS = ("field.cuh", "g1.cuh", "ntt.cuh", "field_ops.cuh", "sha256.cuh")
+SOURCES = ("mont_mul.cu", "g1.cu", "ntt.cu", "field_ops.cu", "sha256.cu", "mont_mma.cu")
+HEADERS = ("field.cuh", "g1.cuh", "ntt.cuh", "field_ops.cuh", "sha256.cuh", "mont_mma.cuh")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -56,6 +56,11 @@ _SIGNATURES = {
     "zk_ntt_attrs": [ctypes.c_int, _P],
     # device, limbs, p (host), pinv, a, b, out, n, chain, stream
     "zk_mont_mul_chain": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _P, _I64, ctypes.c_int, _P],
+    # device, limbs, p (host), pinv, f32 (0 mxu, 1 f32), pinv matrix, p matrix, a, b, out, n, chain, stream
+    "zk_mont_mma_chain": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, ctypes.c_int, _P, _P, _P, _P, _P, _I64,
+                          ctypes.c_int, _P],
+    # limbs, f32, out {registers, local bytes, shared bytes}
+    "zk_mont_mma_attrs": [ctypes.c_int, ctypes.c_int, _P],
     # device, limbs, p (host), pinv, identity (host), op, mode, in, its row and
     # column strides, n, B, chunk, dirs, out_fwd, out_rev, their row and column
     # strides, totals, carry, stream

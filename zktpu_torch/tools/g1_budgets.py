@@ -97,15 +97,16 @@ def _has_budget() -> bool:
         return BUDGET_MACRO in f.read()
 
 
-def build_budgets(budgets, macro: str = BUDGET_MACRO) -> dict:
-    """{value: path} of g1.cu built once per value of `macro`, all nvcc at once."""
-    src = os.path.join(cuda_lib.CSRC_DIR, "g1.cu")
+def build_budgets(budgets, macro: str = BUDGET_MACRO, source: str = "g1.cu") -> dict:
+    """{value: path} of `source` (csrc/) built once per value of `macro`, all nvcc at once."""
+    src = os.path.join(cuda_lib.CSRC_DIR, source)
     h = hashlib.sha256(" ".join(cuda_lib.NVCC_FLAGS).encode())
-    for name in cuda_lib.HEADERS + ("g1.cu",):
+    for name in cuda_lib.HEADERS + (source,):
         with open(os.path.join(cuda_lib.CSRC_DIR, name), "rb") as f:
             h.update(f.read())
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
-    paths = {b: os.path.join(cuda_lib.BUILD_DIR, f"libg1_{macro}{b}-{h.hexdigest()[:16]}.so") for b in budgets}
+    stem = os.path.splitext(source)[0]
+    paths = {b: os.path.join(cuda_lib.BUILD_DIR, f"lib{stem}_{macro}{b}-{h.hexdigest()[:16]}.so") for b in budgets}
     nvcc = cuda_lib.find_nvcc()
     procs = {b: subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, f"-D{macro}={b}", "-shared", "-o", path, src],
                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -118,14 +119,14 @@ def build_budgets(budgets, macro: str = BUDGET_MACRO) -> dict:
 
 
 @contextlib.contextmanager
-def _library(path):
+def _library(path, names=("zk_proj_add", "zk_proj_madd", "zk_proj_double", "zk_g1_kernel_attrs", "zk_horner_combine")):
     """The wrappers launch the kernels of the library at `path` (None: the
-    port's own) inside this block."""
+    port's own), entry points `names`, inside this block."""
     if path is None:
         yield
         return
     lib = ctypes.CDLL(path)
-    for name in ("zk_proj_add", "zk_proj_madd", "zk_proj_double", "zk_g1_kernel_attrs", "zk_horner_combine"):
+    for name in names:
         fn = getattr(lib, name)
         fn.argtypes = cuda_lib._SIGNATURES[name]
         fn.restype = ctypes.c_int
