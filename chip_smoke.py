@@ -9,10 +9,13 @@ Phases:
      ptxas's register and spill counts go to stderr), and the registers,
      local (spill) bytes and shared memory per block of the group-law
      kernels, the Horner combine, the NTT (Fr and Goldilocks), the field
-     scans, the field add/sub, the field hash and the tensor-core chained
-     products (mxu and f32, Fr and Fq) (fails if one spills); the SASS of
-     the chained product's three bodies (IMMA, FFMA, IMAD: cuobjdump), the
-     mxu and f32 kernels must hold IMMA and the f32 ones FFMA;
+     scans, the field add/sub, the field hash, the FRI fold and the
+     tensor-core chained products (mxu and f32, Fr and Fq) (fails if one
+     spills); the SASS of the chained product's three bodies (IMMA, FFMA,
+     IMAD: cuobjdump), the mxu and f32 kernels must hold IMMA and the f32
+     ones FFMA; the Goldilocks NTT's plan at 2^fri_log_n and 2^22 and its
+     SASS per butterfly (IMAD, LDS/STS of one radix step; BAR per butterfly
+     from the plan);
   2. kernels: holds each CUDA kernel against its plain PyTorch version on
      the card, bit for bit (mont_mul for Fr, Fq and Goldilocks and
      mont_mul_chain at N = 2^16 + 3 with the edge values 0, 1, p - 1, for
@@ -34,11 +37,13 @@ Phases:
      time with the wrapper; the field scans (cumprod, cumsum both ways, sum
      on axis 0 and 1, powers, batch_inv) and the field add/sub against their
      plain versions at the shapes the paths give them, Fr and Fq (phase_field_ops);
-     the Goldilocks NTT (fft, ifft, coset_fft, coset_ifft at 2^fri_log_n x 1,
-     2^13 x 3, n = 2 and 2^8, an all-zero row and a row of p - 1) and the
-     field hash (single at 2^fri_log_n values, pairs at 2^(fri_log_n - 1),
-     digit-length edges mixed in; the first 64 of each against hashlib)
-     (phase_fri_kernels);
+     the Goldilocks NTT (fft, ifft, coset_fft, coset_ifft and coset_fft with
+     the raw-1 output factor at 2^fri_log_n x 1, 2^13 x 3, n = 2 and 2^8 x 3,
+     2^16 and 2^22, an all-zero row and a row of p - 1; its kernel-only time
+     at 2^16, 2^fri_log_n and 2^22), the field hash (single at 2^fri_log_n
+     values, pairs at 2^(fri_log_n - 1), digit-length edges mixed in; the
+     first 64 of each against hashlib) and the FRI fold at the first fold's
+     (2^(fri_log_n - 1), 2) coefficients (phase_fri_kernels);
   3. small proof: a 4-gate circuit proved with every tensor path forced,
      once on the GPU and once on the CPU; the proofs must be equal;
   4. PLONK path: synthetic_mul_chain(log_n) and its SRS on the GPU, prove,
@@ -60,8 +65,10 @@ Phases:
      its own;
   6. FRI path: generate_proof on the card for 2^(fri_log_n - 1) Goldilocks
      coefficients (blowup 2, 32 queries) and the host verify; the Goldilocks
-     NTT, the hash, mont_mul, the add/sub and the scans (the domains' power
-     tables) must have launched.  Outside the count: the verifier rejects
+     NTT, the hash, the fold and the scans (the domains' power tables) must
+     have launched, the Goldilocks mont_mul and add/sub must not have
+     (from_mont rides in the NTT, the fold is one kernel).  Outside the
+     count: the verifier rejects
      one changed evaluation and one changed root; layer 0's root equals a
      hashlib tree over its evaluations from the card, 64 of which equal
      host evaluations; a 2^12-domain proof from the card equals the CPU's;
@@ -77,9 +84,10 @@ proj_double at K = 1, mont_mul Fr at the coset division's product, ntt_fr
 at 2^17 x 7 (fft), horner_combine at c = 16, K = 1, field_scan_fr at round
 2's 2^14 cumprod, field_scan_fq at Srs.g1_affine's 2^20 batch_inv,
 field_addsub_fr at the coset quotient's (2^17, 8) add, ntt_gl at FRI layer
-0's coset_fft, sha256_field at its leaves, mont_mul_gl at its from_mont,
-field_addsub_gl at its first fold, field_scan_gl at its largest power
-table, the others at phase 2's shapes), the
+0's coset_fft, sha256_field at its leaves, mont_mul_gl at the from_mont it
+ran before the NTT took it, field_addsub_gl at the first fold's add it ran
+before the fold kernel, fri_fold at the first fold, field_scan_gl at its
+largest power table, the others at phase 2's shapes), the
 card's name and power limit, and the final {"ok": true, ...} line.  Any
 failure raises and exits non-zero.
 """
@@ -118,6 +126,11 @@ INT_OPS_PER_S = 2 * IMAD_PER_S
 def _mont_words(limbs: int) -> int:
     """Word products of one CIOS Montgomery product: a b, then m p and m."""
     return 2 * limbs * limbs + limbs
+
+
+# Word products of one Goldilocks product (field.cuh's gl_mul): the four of
+# a b; its reduction is shifts and adds.
+GL_PRODUCT_WORDS = 4
 
 
 def _smi() -> str:
@@ -231,6 +244,38 @@ def phase_chain_sass() -> None:
         assert counts[f"f32<{L}>"]["by_op"].get("FFMA", 0) > 0, f"f32<{L}>: no FFMA in its SASS"
 
 
+def phase_ntt_gl_sass(log_n: int) -> None:
+    """The Goldilocks NTT's plan at 2^log_n and 2^22 (passes, threads,
+    shared memory, radix steps) and its SASS: per butterfly of one radix
+    step (tools/ntt_tiles.py's probe: IMAD, LDS, STS), the kernel's BAR, and
+    BAR per butterfly at 2^log_n from the plan (a barrier after the load and
+    one between steps; ns 2^(K-1) butterflies a thread a pass).  The step
+    must hold at most 4 IMAD.WIDE a butterfly (gl_mul's four word products)
+    and no BAR."""
+    from zktpu_torch.poly.ntt_kernel import gl_plan
+    from zktpu_torch.tools.g1_budgets import sass_counts
+    from zktpu_torch.tools.ntt_tiles import butterfly_sass
+
+    for lg in sorted({log_n, 22}):
+        print(f"phase 1: ntt Goldilocks plan 2^{lg}: {json.dumps(gl_plan(lg))}", flush=True)
+    step = butterfly_sass()
+    kernel = sass_counts(kernels=(("ntt_gl_kernel", r"13ntt_gl_kernel"),))["ntt_gl_kernel"]
+    plan = gl_plan(log_n)
+    radix = step["radix_log"]
+    bars = sum(p["steps"] for p in plan)
+    butterflies = sum(p["ns"] << (radix - 1) for p in plan)
+    by = step["by_op"]
+    full = {k: round(v, 2) for k, v in list(step["by_full_op"].items())[:16]}
+    print(f"phase 1: SASS ntt Goldilocks, per butterfly of a radix-{1 << radix} step: {step['IMAD.WIDE']:.2f} "
+          f"IMAD.WIDE (the product's word products), {step['IMAD']:.2f} IMAD in all, "
+          f"{by.get('LDS', 0):.2f} LDS, {by.get('STS', 0):.2f} STS, {by.get('BAR', 0):.2f} BAR, "
+          f"{step['instructions']:.2f} instructions; by opcode {json.dumps(full)}; "
+          f"the kernel holds {kernel['by_op'].get('BAR', 0)} BAR, {kernel['total']} instructions; at 2^{log_n} a "
+          f"thread passes {bars} barriers over {butterflies} butterflies: {bars / butterflies:.4f} BAR a butterfly",
+          flush=True)
+    assert step["IMAD.WIDE"] <= 4.0 and by.get("BAR", 0) == 0, f"the radix step is not what its design says: {step}"
+
+
 def phase_kernels(device) -> dict:
     from zktpu_torch.curves import g1
     from zktpu_torch.curves.g1_kernel import (
@@ -253,7 +298,8 @@ def phase_kernels(device) -> dict:
         assert f.decode_ints(mont_mul(spec, A[:8], B[:8])) == [x * y % p for x, y in zip(a[:8], b[:8])]
         ms = _cuda_ms(lambda: mont_mul(spec, A, B), 50)
         plain_ms = _cuda_ms(lambda: mont_mul_plain(spec, A, B), 5)
-        _record(results, key, n, err, ms, plain_ms, 3 * n * 4 * L, n * _mont_words(L))
+        _record(results, key, n, err, ms, plain_ms, 3 * n * 4 * L,
+                n * (GL_PRODUCT_WORDS if spec is GOLDILOCKS else _mont_words(L)))
 
         # kernel 5 at the same shape: CHAIN products by b, each body (mxu and f32 need D >= 16)
         if spec is GOLDILOCKS:
@@ -434,20 +480,25 @@ def phase_small_path_shapes(device, results: dict) -> None:
 
 def _kernel_only_ms(fn, reps: int, name: str) -> tuple[float, int]:
     """Mean device time of the kernels whose name holds `name` over `reps`
-    calls of fn, from torch.profiler's trace, and their count."""
+    calls of fn, from torch.profiler's trace, and their count.  A trace that
+    holds no device event of the kernel (torch.profiler on the H100 machine
+    has returned one, after other traces in the same process had worked) is
+    taken again, at most three times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and name in e.key]
-    count = sum(e.count for e in events)
-    assert count > 0, f"the profiler saw no {name} launch"
-    return sum(e.self_device_time_total for e in events) / 1e3 / count, count
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and name in e.key]
+        count = sum(e.count for e in events)
+        if count:
+            return sum(e.self_device_time_total for e in events) / 1e3 / count, count
+    raise AssertionError(f"the profiler saw no {name} launch in three traces")
 
 
 def _ntt_products(n: int, batch: int, factors: int) -> int:
@@ -733,10 +784,11 @@ def phase_small_proof(device) -> None:
 def _wrappers():
     from zktpu_torch.curves.g1_kernel import horner_combine, proj_add, proj_double, proj_madd
     from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_chain
+    from zktpu_torch.fri.fold_kernel import fold
     from zktpu_torch.hash.sha256_kernel import hash_field
     from zktpu_torch.poly.ntt_kernel import ntt
 
-    return (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field)
+    return (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field, fold)
 
 
 def _reset_launches() -> None:
@@ -757,7 +809,7 @@ def _read_launches() -> dict:
     from zktpu_torch.fields import field_kernel
     from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
 
-    (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field) = _wrappers()
+    (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field, fold) = _wrappers()
     return {
         "mont_mul_fr": mont_mul.launches[FR.name],
         "mont_mul_fq": mont_mul.launches[FQ.name],
@@ -772,6 +824,7 @@ def _read_launches() -> dict:
         "ntt_gl": ntt.launches[GOLDILOCKS.name],
         "horner_combine": horner_combine.launches,
         "sha256_field": hash_field.launches,
+        "fri_fold": fold.launches,
         **{f"{k}_{short}": field_kernel.launches[k][spec.name]
            for k in ("field_scan", "field_addsub") for short, spec in (("fr", FR), ("fq", FQ), ("gl", GOLDILOCKS))},
     }
@@ -1015,18 +1068,28 @@ def _hash_edge_values(gen, n: int, device) -> torch.Tensor:
 
 
 def phase_fri_kernels(device, results: dict, log_n: int = 20) -> None:
-    """Kernels 1g (the Goldilocks NTT) and 6 (the field hash) against their
-    plain versions on the card, 0 mismatching words: the NTT's fft, ifft,
-    coset_fft and coset_ifft at 2^log_n x 1, 2^13 x 3, n = 2 x 3 and 2^8 x 3
-    (an all-zero row and a row of p - 1); the hash in single mode at
-    2^log_n values and in pair mode at 2^(log_n - 1) pairs, digit-length
-    edges mixed in, and its first 64 outputs against hashlib.  The hash's
-    bound counts the 32-bit integer instructions of one hash from the SASS
-    of this build (prof_fri.hash_int_ops, cuobjdump) over both integer
-    pipes.  The kernels line takes ntt_gl from FRI layer 0's coset_fft at
-    2^log_n and sha256_field from the single mode (layer 0's leaves)."""
+    """Kernels 1g (the Goldilocks NTT), 6 (the field hash) and the FRI fold
+    against their plain versions on the card, 0 mismatching words: the
+    NTT's fft, ifft, coset_fft, coset_ifft and coset_fft with the raw-1
+    output factor (FRI's fused from_mont) at 2^log_n x 1, 2^13 x 3, n = 2 x
+    3, 2^8 x 3, 2^16 and 2^22 (an all-zero row and a row of p - 1, or those
+    values at the front of a single row), its coset_fft timed with the
+    wrapper and kernel only (torch.profiler) at 2^16, 2^log_n and 2^22; the
+    hash in single mode at 2^log_n values and in pair mode at 2^(log_n - 1)
+    pairs, digit-length edges mixed in, and its first 64 outputs against
+    hashlib; the fold at the first fold's 2^(log_n - 1) coefficients.  The
+    NTT's bound: its bytes (input and output rows, the n/2 twiddles and the
+    n offset powers once), or its products' multiply-adds, four word
+    products a product (gl_mul), over the integer rate; the bound of the
+    CIOS product it replaced (ten word products) is printed beside it.  The
+    hash's bound counts the 32-bit integer instructions of one hash from
+    the SASS of this build (prof_fri.hash_int_ops, cuobjdump) over both
+    integer pipes.  The kernels line takes ntt_gl from FRI layer 0's
+    coset_fft at 2^log_n, sha256_field from the single mode (layer 0's
+    leaves) and fri_fold from the first fold."""
     from zktpu_torch.fields.fp import field
     from zktpu_torch.fields.host import GOLDILOCKS
+    from zktpu_torch.fri.fold_kernel import fold, fold_plain
     from zktpu_torch.hash import host_hash
     from zktpu_torch.hash.sha256_kernel import hash_field, hash_field_plain
     from zktpu_torch.poly.domain import Radix2Domain
@@ -1040,28 +1103,61 @@ def phase_fri_kernels(device, results: dict, log_n: int = 20) -> None:
     print(f"phase 2: sha256_field SASS: {ops['single']} integer instructions a hash (single), {ops['pairs']} (pairs); "
           f"shifts and logic {ops['single_shf_lop3']} / {ops['pairs_shf_lop3']}", flush=True)
     err = 0
-    for lg, batch in ((log_n, 1), (13, 3), (1, 3), (8, 3)):
+    for lg, batch in ((log_n, 1), (13, 3), (1, 3), (8, 3), (16, 1), (22, 1)):
         n = 1 << lg
         dom = Radix2Domain(GOLDILOCKS, n, device=device)
         x = _gl_rows(gl, gen, batch, n)
         g = GOLDILOCKS.generator
         lanes = (("fft", False, None, None), ("ifft", True, None, None),
-                 ("coset_fft", False, dom.offset_powers(g), None), ("coset_ifft", True, None, dom._coset_out(g)))
+                 ("coset_fft", False, dom.offset_powers(g), None), ("coset_ifft", True, None, dom._coset_out(g)),
+                 ("coset_fft raw-1 out", False, dom.offset_powers(g), gl._one_raw))
         for name, inverse, fin, fout in lanes:
             table = dom._inv_tw if inverse else dom._fwd_tw
             got = ntt(x, table, inverse, fin, fout, GOLDILOCKS)
             want, plain_ms = _timed_once(lambda: ntt_plain(x, table, inverse, fin, fout, GOLDILOCKS))
             err = max(err, _compare(f"ntt Goldilocks {name} 2^{lg} x {batch}", [got], [want]))
-            if lg == log_n and name == "coset_fft":  # FRI layer 0's transform
-                ms = _cuda_ms(lambda: ntt(x, table, inverse, fin, fout, GOLDILOCKS), 50)
+            if batch == 1 and lg in (16, log_n, 22) and name == "coset_fft":  # FRI's transforms
+                run = lambda: ntt(x, table, inverse, fin, fout, GOLDILOCKS)  # noqa: E731
+                ms = _cuda_ms(run, 50)
+                k_ms, count = _kernel_only_ms(run, 50, "ntt_gl_kernel")
                 products = _ntt_products(n, batch, 1)
-                _record(results, "ntt_gl", n * batch, err, ms, plain_ms, (2 * batch * n + n // 2 + n) * 8,
-                        products * _mont_words(2), phase=f"phase 2: ntt Goldilocks coset_fft (2^{lg}, 2) x {batch}:")
-        print(f"phase 2: ntt Goldilocks 2^{lg} x batch {batch}: fft, ifft, coset_fft, coset_ifft mismatches=0",
-              flush=True)
+                nbytes = (2 * batch * n + n // 2 + n) * 8
+                old = _bound(nbytes, products * _mont_words(2))
+                where = f"phase 2: ntt Goldilocks coset_fft (2^{lg}, 2) x {batch}:"
+                if lg == log_n:  # FRI layer 0's transform: its row in the kernels line
+                    _record(results, "ntt_gl", n * batch, err, ms, plain_ms, nbytes, products * GL_PRODUCT_WORDS,
+                            phase=where)
+                    results["ntt_gl"]["kernel_only_ms"] = k_ms * count / 50
+                    b = results["ntt_gl"]
+                else:
+                    b = _bound(nbytes, products * GL_PRODUCT_WORDS)
+                    print(f"{where} mismatches=0 kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                          f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']})", flush=True)
+                print(f"{where} kernel only (torch.profiler) {k_ms * count / 50:.4f} ms a transform "
+                      f"({count // 50} launches); {b['bound_ms'] / (k_ms * count / 50):.1%} of the bound "
+                      f"(the CIOS count's bound: {old['bound_ms']:.5f} ms, {old['bound_by']})", flush=True)
+        print(f"phase 2: ntt Goldilocks 2^{lg} x batch {batch}: fft, ifft, coset_fft, coset_ifft, coset_fft with "
+              f"the raw-1 output factor mismatches=0", flush=True)
         del x, dom
     results["ntt_gl"]["max_abs_err"] = err
     torch.cuda.empty_cache()
+
+    # the fold at the first fold's shape: 2^(log_n - 1) coefficients in, 2^(log_n - 2) out
+    m = 1 << (log_n - 1)
+    c = _gl_rows(gl, gen, 1, m)[0]
+    r = GOLDILOCKS.modulus - 1
+    got = fold(GOLDILOCKS, c, r)
+    want, plain_ms = _timed_once(lambda: fold_plain(GOLDILOCKS, c, r))
+    err = _compare("fri fold", [got], [want])
+    for rr in (0, 1, 12345):
+        err = max(err, _compare(f"fri fold r={rr}", [fold(GOLDILOCKS, c[:-1], rr)], [fold_plain(GOLDILOCKS, c[:-1], rr)]))
+    ms = _cuda_ms(lambda: fold(GOLDILOCKS, c, r), 50)
+    _record(results, "fri_fold", m, err, ms, plain_ms, (m + m // 2) * 8, (m // 2) * GL_PRODUCT_WORDS,
+            phase=f"phase 2: fri fold ({m}, 2) -> ({m // 2}, 2) (and {m - 1} coefficients, odd):")
+    k_ms, count = _kernel_only_ms(lambda: fold(GOLDILOCKS, c, r), 50, "fri_fold_kernel")
+    results["fri_fold"]["kernel_only_ms"] = k_ms
+    print(f"phase 2: fri fold kernel only (torch.profiler, {count} launches): {k_ms:.4f} ms", flush=True)
+    del c, got, want
 
     n = 1 << log_n
     x = _hash_edge_values(gen, n, device)
@@ -1146,8 +1242,11 @@ def phase_fri(device, log_n: int, results: dict) -> dict:
     verify(proof)
     t_verify = time.perf_counter() - t0
     launches = _read_launches()
-    path = ("ntt_gl", "sha256_field", "mont_mul_gl", "field_addsub_gl", "field_scan_gl")
+    path = ("ntt_gl", "sha256_field", "fri_fold", "field_scan_gl")
     assert all(launches[k] > 0 for k in path), f"a kernel of the FRI path never launched: {launches}"
+    assert launches["fri_fold"] == log_n - 1, f"the fold did not launch once a layer: {launches}"
+    assert launches["mont_mul_gl"] == launches["field_addsub_gl"] == 0, \
+        f"the FRI path launched the Goldilocks product or add/sub: {launches}"
     assert proof.domain_size == 1 << log_n and len(proof.layers_root) == log_n
     print(f"phase 6: FRI 2^{log_n} domain, {log_n} layers, {QUERIES} queries: first prove {t_prove:.3f} s "
           f"(domain tables built), verify {t_verify:.3f} s; the host verifier accepts", flush=True)
@@ -1186,7 +1285,8 @@ def phase_fri(device, log_n: int, results: dict) -> dict:
     assert fri_proof_to_ints(gpu) == fri_proof_to_ints(cpu), "the 2^12-domain FRI proof from the card differs from the CPU's"
     print("phase 6: 2^12-domain proof from the card == the CPU's (fri_proof_to_ints)", flush=True)
 
-    # the Goldilocks product and add/sub at the path's shapes (their rows in the kernels line)
+    # the Goldilocks product and add/sub at the shapes the path gave them before the NTT took from_mont and
+    # the fold became one kernel (their rows in the kernels line)
     gl = field(GOLDILOCKS, device)
     ev = FriLayer.from_poly(poly, GOLDILOCKS.generator, 1 << log_n, force_device=True).evaluations
     mont = gl.to_mont(ev)
@@ -1196,7 +1296,7 @@ def phase_fri(device, log_n: int, results: dict) -> dict:
     err = max(_compare("mont_mul Goldilocks from_mont", [got], [want]), results["mont_mul_gl"]["max_abs_err"])
     ms = _cuda_ms(lambda: mont_mul(GOLDILOCKS, mont, one), 50)
     n = mont.shape[0]
-    _record(results, "mont_mul_gl", n, err, ms, plain_ms, (2 * n + 1) * 8, n * _mont_words(2),
+    _record(results, "mont_mul_gl", n, err, ms, plain_ms, (2 * n + 1) * 8, n * GL_PRODUCT_WORDS,
             phase=f"phase 6: mont_mul Goldilocks at from_mont ({n}, 2) x (2,):")
     even, odd = poly.coeffs[0::2].contiguous(), poly.coeffs[1::2].contiguous()
     odd_r = gl.mont_mul(odd, gl.encode_int(12345))
@@ -1213,7 +1313,7 @@ def phase_fri(device, log_n: int, results: dict) -> dict:
     want, plain_ms = _timed_once(lambda: fk.powers_plain(gl, g, count))
     err = _compare("field_scan Goldilocks powers", [got], [want])
     ms = _cuda_ms(lambda: gl.powers(g, count), 50)
-    _record(results, "field_scan_gl", count, err, ms, plain_ms, count * 8, (count - 1) * _mont_words(2),
+    _record(results, "field_scan_gl", count, err, ms, plain_ms, count * 8, (count - 1) * GL_PRODUCT_WORDS,
             phase=f"phase 6: field_scan Goldilocks powers({count}) (the 2^{log_n} domain's twiddles):")
     del ev, mont, got, want, even, odd, odd_r, layer0
 
@@ -1232,7 +1332,8 @@ def phase_fri(device, log_n: int, results: dict) -> dict:
 _SOURCES = {
     "mont_mul_fr": ("zktpu_torch/csrc/mont_mul.cu", "zktpu/fields/pallas_mont.py:363"),
     "mont_mul_fq": ("zktpu_torch/csrc/mont_mul.cu", "zktpu/fields/pallas_mont.py:363"),
-    # FRI's from_mont and the fold's r * odd
+    # the Goldilocks product (to_mont, decode); FRI's path no longer launches it: the NTT's last store makes
+    # its from_mont and the fold kernel its r * odd
     "mont_mul_gl": ("zktpu_torch/csrc/mont_mul.cu", "zktpu/fields/pallas_mont.py:363"),
     "proj_add": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/pallas_g1.py:125"),
     "proj_double": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/pallas_g1.py:211"),
@@ -1251,7 +1352,7 @@ _SOURCES = {
     # the fused jnp add/sub (RowOps.add/sub inside the Pallas kernels).  The Fq add is built and held
     # against its plain version in phase 2, but no path adds in Fq outside the group-law kernels
     "field_addsub_fr": ("zktpu_torch/csrc/field_ops.cu", "zktpu/fields/fp.py:270"),
-    # the fold's even + r * odd
+    # the Goldilocks add; FRI's fold, which launched it, is one kernel of its own now
     "field_addsub_gl": ("zktpu_torch/csrc/field_ops.cu", "zktpu/fields/fp.py:270"),
     # the domains' twiddle and coset power tables above 2^12 points
     "field_scan_gl": ("zktpu_torch/csrc/field_ops.cu", "zktpu/fields/fp.py:324"),
@@ -1259,6 +1360,8 @@ _SOURCES = {
     "ntt_gl": ("zktpu_torch/csrc/ntt.cu", "zktpu/poly/domain.py:116"),
     # sha256_single_block (:53) with the numpy block building and the digest fold of the same file
     "sha256_field": ("zktpu_torch/csrc/sha256.cu", "zktpu/hash/sha256_vec.py:53"),
+    # the jnp fold around kernel 1 (pallas_mont.py:363): r * odd, the padding and the add
+    "fri_fold": ("zktpu_torch/csrc/fri_fold.cu", "zktpu/fri/prover.py:44"),
 }
 
 
@@ -1288,6 +1391,7 @@ def main(argv=None) -> int:
     from zktpu_torch.curves import g1_kernel
     from zktpu_torch.fields import field_kernel, mont_kernel
     from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
+    from zktpu_torch.fri import fold_kernel
     from zktpu_torch.hash import sha256_kernel
     from zktpu_torch.poly import ntt_kernel
 
@@ -1296,6 +1400,7 @@ def main(argv=None) -> int:
     attrs["ntt_gl"] = ntt_kernel.kernel_attrs(GOLDILOCKS)
     attrs.update({k: field_kernel.kernel_attrs(k) for k in ("field_scan", "field_addsub")})
     attrs["sha256_field"] = sha256_kernel.kernel_attrs()
+    attrs["fri_fold"] = fold_kernel.kernel_attrs()
     for spec in (FR, FQ):
         for variant in ("mxu", "f32"):
             attrs[f"mont_mul_chain_{variant} {spec.name}"] = mont_kernel.mont_mma_attrs(spec, variant)
@@ -1304,6 +1409,7 @@ def main(argv=None) -> int:
         for k, a in attrs.items()), flush=True)
     assert all(a["local_bytes"] == 0 for a in attrs.values()), f"a kernel spills: {attrs}"
     phase_chain_sass()
+    phase_ntt_gl_sass(args.fri_log_n)
 
     kernels = phase_kernels(device)
     phase_small_path_shapes(device, kernels)

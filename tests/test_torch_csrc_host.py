@@ -184,11 +184,13 @@ def test_host_horner_combine_matches_plain(lib, W, K, c):
         assert torch.equal(g, w)
 
 
-# Small tiles: 2^4 elements, at least 2 columns, 4 threads a block (both
-# fields), so 2^7-2^9 take 2-3 passes; and the library's own tiles (2^12
-# takes 2 passes in either field).
-SMALL_TILES = ("-DZK_NTT_LOG_TILE=4", "-DZK_NTT_LOG_MIN_COLS=1", "-DZK_NTT_LOG_TILE_L2=4",
-               "-DZK_NTT_LOG_MIN_COLS_L2=1", "-DZK_NTT_THREADS=4")
+# Small tiles.  Fr: 2^4 elements, at least 2 columns, 4 threads a block, so
+# 2^7-2^9 take 2-3 passes.  Goldilocks: radix-4 steps (2 elements... 4 a
+# thread), one pass up to 2^3, then tiles of at most 2^5 words with 2
+# columns, so 2^4-2^8 take 2 passes and 2^9-2^12 three, with partial steps.
+# And the library's own tiles (2^12 takes 2 passes in either field).
+SMALL_TILES = ("-DZK_NTT_LOG_TILE=4", "-DZK_NTT_LOG_MIN_COLS=1", "-DZK_NTT_THREADS=4", "-DZK_NTT_GL_RADIX=2",
+               "-DZK_NTT_GL_LOG_TILE=5", "-DZK_NTT_GL_LOG_COLS=1", "-DZK_NTT_GL_ONE_PASS=3")
 
 
 @pytest.fixture(scope="module")
@@ -240,13 +242,17 @@ def test_host_ntt_matches_plain(ntt_lib, log_n):
         assert passes == (2 if log_n == 12 else 1)
 
 
-@pytest.mark.parametrize("ntt_lib,log_n", [(SMALL_TILES, k) for k in (1, 2, 7, 9)] + [((), 8), ((), 12)],
-                         indirect=["ntt_lib"], ids=lambda v: ("small_tiles" if v else "library_tiles")
-                         if isinstance(v, tuple) else f"2^{v}")
+@pytest.mark.parametrize("ntt_lib,log_n", [(SMALL_TILES, k) for k in (1, 2, 3, 4, 5, 6, 7, 9, 10, 11)]
+                         + [((), 8), ((), 12)], indirect=["ntt_lib"],
+                         ids=lambda v: ("small_tiles" if v else "library_tiles") if isinstance(v, tuple) else f"2^{v}")
 def test_host_ntt_goldilocks_matches_plain(ntt_lib, log_n):
-    """The L = 2 instance (fmul_wide's products) for FRI's coset transforms:
-    fft, ifft, coset_fft and coset_ifft over a batch of 2 rows, one of them
-    all zero and one holding p - 1, down to n = 2 and 4."""
+    """The Goldilocks design (ntt_gl.cuh: gl_mul's products, radix steps in
+    registers, column twiddles in later passes) for FRI's coset transforms:
+    fft, ifft, coset_fft, coset_ifft and coset_fft with the raw 1 as the
+    output factor (FRI's fused from_mont) over a batch of 2 rows, one of
+    them all zero and one holding p - 1, down to n = 2 and 4; with small
+    tiles one pass up to 2^3, two with full and partial radix steps from 2^4
+    to 2^8 and three from 2^9."""
     flags, so = ntt_lib
     n = 1 << log_n
     rng = np.random.default_rng(100 + log_n)
@@ -260,15 +266,70 @@ def test_host_ntt_goldilocks_matches_plain(ntt_lib, log_n):
     g = GOLDILOCKS.generator
     n_inv = ntt_kernel._n_inv(GOLDILOCKS, n, x.device)
     for inverse, fin, fout in ((False, None, None), (True, None, n_inv), (False, dom.offset_powers(g), None),
-                               (True, None, dom._coset_out(g))):
+                               (True, None, dom._coset_out(g)), (False, dom.offset_powers(g), f._one_raw)):
         table = dom._inv_tw if inverse else dom._fwd_tw
         got, passes = _host_ntt(so, x, table, fin, fout, GOLDILOCKS)
         want = ntt_kernel.ntt_plain(x, table, inverse, fin, fout, GOLDILOCKS)
         assert torch.equal(got, want), (inverse, fin is not None)
-    if flags and log_n >= 7:
-        assert passes >= 2
-    if not flags:
+    if flags:
+        assert passes == (1 if log_n <= 3 else 2 if log_n <= 8 else 3)
+    else:
         assert passes == (2 if log_n == 12 else 1)
+
+
+def _gl_lib():
+    so = _build(NTT_SHIM, "ntt_host")
+    P = ctypes.c_void_p
+    so.host_gl_mul.argtypes = [P, ctypes.c_uint32, P, P, P, ctypes.c_int64, ctypes.c_int]
+    so.host_gl_mul.restype = None
+    so.host_fri_fold.argtypes = [P, ctypes.c_int64, ctypes.c_uint64, P]
+    so.host_fri_fold.restype = None
+    return so
+
+
+def test_host_gl_mul_matches_fmul_wide_and_plain():
+    """The 64-bit Goldilocks product (field.cuh's gl_mul) against the
+    two-limb CIOS product it replaced (fmul_wide) and the plain product,
+    word for word: every pair of 0, 1, p - 1, p - 2, 2^32, 2^32 - 1, 2^32 - 2
+    (2^64 - p and its neighbours), 2^63, and random words."""
+    so = _gl_lib()
+    p = GOLDILOCKS.modulus
+    rng = np.random.default_rng(17)
+    edges = [0, 1, p - 1, p - 2, 2**32, 2**32 - 1, 2**32 - 2, 2**32 + 1, 2**63, 2**64 - 2**32]
+    a = [x for x in edges for _ in edges] + [int(v) for v in rng.integers(0, p, size=4000, dtype=np.uint64)]
+    b = [y for _ in edges for y in edges] + [int(v) for v in rng.integers(0, p, size=4000, dtype=np.uint64)]
+    A, B = (np.array(v, dtype=np.uint64) for v in (a, b))
+    pl, pinv = cuda_lib.field_consts(GOLDILOCKS)
+    outs = []
+    for wide in (0, 1):
+        out = np.zeros_like(A)
+        so.host_gl_mul(pl.ctypes.data, pinv, A.ctypes.data, B.ctypes.data, out.ctypes.data, len(a), wide)
+        outs.append(out)
+    np.testing.assert_array_equal(outs[0], outs[1])
+    plain = mont_mul_plain(GOLDILOCKS, torch.from_numpy(A.view(np.int32).reshape(-1, 2)),
+                           torch.from_numpy(B.view(np.int32).reshape(-1, 2)))
+    np.testing.assert_array_equal(outs[0], plain.numpy().view(np.uint64)[:, 0])
+    rinv = pow(1 << 64, -1, p)
+    assert [int(v) for v in outs[0][:len(edges) ** 2]] == [x * y * rinv % p for x, y in zip(a, b)][:len(edges) ** 2]
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 33, 1 << 10])
+def test_host_fri_fold_matches_plain(n):
+    """The fold's per-output code (fri_fold.cuh) against the plain fold,
+    word for word, for one coefficient, two, odd lengths (a last odd term
+    of 0) and 2^10, with 0 and p - 1 among the coefficients."""
+    from zktpu_torch.fri.fold_kernel import fold_plain
+
+    so = _gl_lib()
+    rng = np.random.default_rng(400 + n)
+    f = field(GOLDILOCKS, "cpu")
+    vals = [int(v) for v in rng.integers(0, GOLDILOCKS.modulus, size=n, dtype=np.uint64)]
+    vals[: min(n, 2)] = [0, GOLDILOCKS.modulus - 1][: min(n, 2)]
+    c = f.encode_ints(vals)
+    for r in (0, 1, GOLDILOCKS.modulus - 1, int(rng.integers(0, GOLDILOCKS.modulus, dtype=np.uint64))):
+        out = np.zeros((n + 1) // 2, dtype=np.uint64)
+        so.host_fri_fold(c.data_ptr(), n, GOLDILOCKS.to_mont(r), out.ctypes.data)
+        np.testing.assert_array_equal(out, fold_plain(GOLDILOCKS, c, r).numpy().view(np.uint64)[:, 0])
 
 
 # Kernels A and B (csrc/field_ops.cuh) through the port's own wrappers: the

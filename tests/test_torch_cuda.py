@@ -364,9 +364,10 @@ def test_field_addsub_kernel_matches_plain(device, spec):
 
 @pytest.mark.parametrize("log_n", [1, 2, 8, 11, 12, 16])
 def test_ntt_goldilocks_kernel_matches_plain(device, log_n):
-    """The L = 2 instance: fft, ifft, coset_fft and coset_ifft on a batch of
-    3 (an all-zero row, a row of p - 1), one pass (n <= 2^10) and two;
-    launches counted; 0 spills."""
+    """The Goldilocks design (ntt_gl.cuh): fft, ifft, coset_fft, coset_ifft
+    and coset_fft with the raw-1 output factor (FRI's fused from_mont) on a
+    batch of 3 (an all-zero row, a row of p - 1), one pass (n <= 2^11) and
+    two; launches counted; 0 spills."""
     from zktpu_torch.fields.fp import field
     from zktpu_torch.poly import ntt_kernel
     from zktpu_torch.poly.domain import get_domain
@@ -380,11 +381,11 @@ def test_ntt_goldilocks_kernel_matches_plain(device, log_n):
     dom = get_domain(GOLDILOCKS, n, device=device)
     g = GOLDILOCKS.generator
     for inverse, fin, fout in ((False, None, None), (True, None, None), (False, dom.offset_powers(g), None),
-                               (True, None, dom._coset_out(g))):
+                               (True, None, dom._coset_out(g)), (False, dom.offset_powers(g), f._one_raw)):
         table = dom._inv_tw if inverse else dom._fwd_tw
         before = ntt_kernel.ntt.launches[GOLDILOCKS.name]
         got = ntt_kernel.ntt(x, table, inverse, fin, fout, GOLDILOCKS)
-        assert ntt_kernel.ntt.launches[GOLDILOCKS.name] == before + (1 if log_n <= 10 else 2)
+        assert ntt_kernel.ntt.launches[GOLDILOCKS.name] == before + (1 if log_n <= 11 else 2)
         want = ntt_kernel.ntt_plain(x, table, inverse, fin, fout, GOLDILOCKS)
         assert torch.equal(got, want), (inverse, fin is not None)
     assert ntt_kernel.kernel_attrs(GOLDILOCKS)["local_bytes"] == 0
@@ -418,13 +419,37 @@ def test_hash_field_kernel_matches_plain(device, pairs):
     assert kernel_attrs()["local_bytes"] == 0
 
 
+@pytest.mark.parametrize("n", [1, 2, 7, 1 << 10, (1 << 19) + 1])
+def test_fri_fold_kernel_matches_plain(device, n):
+    """The fold kernel against its plain version: one coefficient, two, odd
+    lengths (the last odd term 0; past 2^19, the first fold's size) and
+    2^10, with 0 and p - 1 among the coefficients and as r; one launch each;
+    0 spills."""
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fri import fold_kernel
+
+    f = field(GOLDILOCKS, device)
+    rng = random.Random(80 + n)
+    vals = [rng.randrange(GOLDILOCKS.modulus) for _ in range(n)]
+    vals[: min(n, 2)] = [0, GOLDILOCKS.modulus - 1][: min(n, 2)]
+    c = f.encode_ints(vals)
+    for r in (0, 1, GOLDILOCKS.modulus - 1, rng.randrange(GOLDILOCKS.modulus)):
+        before = fold_kernel.fold.launches
+        got = fold_kernel.fold(GOLDILOCKS, c, r)
+        assert fold_kernel.fold.launches == before + 1
+        assert torch.equal(got, fold_kernel.fold_plain(GOLDILOCKS, c, r))
+    assert fold_kernel.kernel_attrs()["local_bytes"] == 0
+
+
 def test_fri_proof_gpu_equals_cpu(device):
     """A 2^10-domain FRI proof made on the card (tensor NTT and vector hash
     at every layer) equals the CPU's on zktpu's tiers and verifies; the
-    Goldilocks NTT, hash, product and add/sub launched."""
+    Goldilocks NTT, hash and fold launched, the product and add/sub did not
+    (from_mont rides in the NTT, the fold is one kernel)."""
     from zktpu_torch.convert import fri_proof_to_ints
     from zktpu_torch.fields import field_kernel
     from zktpu_torch.fields.mont_kernel import mont_mul
+    from zktpu_torch.fri.fold_kernel import fold
     from zktpu_torch.fri.prover import generate_proof
     from zktpu_torch.fri.verifier import verify
     from zktpu_torch.hash.sha256_kernel import hash_field
@@ -433,11 +458,14 @@ def test_fri_proof_gpu_equals_cpu(device):
 
     rng = random.Random(71)
     coeffs = [rng.randrange(GOLDILOCKS.modulus) for _ in range(1 << 9)]
-    counts = lambda: (ntt_kernel.ntt.launches[GOLDILOCKS.name], hash_field.launches,  # noqa: E731
-                      mont_mul.launches[GOLDILOCKS.name], field_kernel.launches["field_addsub"][GOLDILOCKS.name])
-    before = counts()
-    gpu = generate_proof(Poly.from_ints(GOLDILOCKS, coeffs, device=device), 2, 8)
+    poly = Poly.from_ints(GOLDILOCKS, coeffs, device=device)
+    counts = lambda: (ntt_kernel.ntt.launches[GOLDILOCKS.name], hash_field.launches, fold.launches)  # noqa: E731
+    unused = lambda: (mont_mul.launches[GOLDILOCKS.name],  # noqa: E731
+                      field_kernel.launches["field_addsub"][GOLDILOCKS.name])
+    before, before_unused = counts(), unused()
+    gpu = generate_proof(poly, 2, 8)
     assert all(b > a for a, b in zip(before, counts())), (before, counts())
+    assert unused() == before_unused, (before_unused, unused())
     cpu = generate_proof(Poly.from_ints(GOLDILOCKS, coeffs, device="cpu"), 2, 8)
     assert fri_proof_to_ints(gpu) == fri_proof_to_ints(cpu)
     verify(gpu)

@@ -156,6 +156,42 @@ def test_fold_and_phase_invariants():
     assert (d.auth_paths[0].index + 2) % 4 == d.sym_auth_paths[0].index
 
 
+@pytest.mark.parametrize("n", [2, 5, 64])
+def test_fold_plain_matches_zktpu_fold(zk_proofs, n):
+    """The fold kernel's plain version against zktpu's fold_polynomial, word
+    for word (Montgomery limbs): an even length, an odd one (the last odd
+    term 0) and two coefficients, at lengths whose jnp graphs zk_proofs has
+    already run."""
+    from zktpu_torch.fri.fold_kernel import fold_plain
+
+    coeffs = _coeffs(n, 500 + n)
+    r = int(np.random.default_rng(n).integers(0, GL.modulus, dtype=np.uint64))
+    want = z_prover.fold_polynomial(ZPoly.from_ints(z_host.GOLDILOCKS, coeffs), r)
+    got = fold_plain(GL, _poly(coeffs).coeffs, r)
+    np.testing.assert_array_equal(got.numpy(), goldilocks_digits_to_limbs(np.asarray(want.coeffs)))
+    assert fold_polynomial(_poly(coeffs), r).to_ints() == want.to_ints()
+
+
+@pytest.mark.parametrize("n,force", [(8, True), (128, True), (128, False)])
+def test_layer_evaluations_fused_from_mont(n, force):
+    """FriLayer's evaluations, the coset NTT with the raw 1 as its output
+    factor, equal what the layer made before (the coset NTT's Montgomery
+    words, then from_mont) and the host's p(coset w^i), on the forced tensor
+    path and on zktpu's host tier."""
+    from zktpu_torch.fri.layer import FriLayer
+
+    coeffs = _coeffs(n // 2, 600 + n)
+    poly = _poly(coeffs)
+    coset = GL.generator
+    layer = FriLayer.from_poly(poly, coset, n, force_device=force)
+    dom = get_domain(GL, n, device="cpu")
+    before = poly.df.from_mont(dom.coset_fft(poly._padded(n), coset, force_device=force))
+    assert torch.equal(layer.evaluations, before)
+    w, p = dom.group_gen, GL.modulus
+    host = [sum(c * pow(coset * pow(w, i, p) % p, k, p) for k, c in enumerate(coeffs)) % p for i in range(4)]
+    assert layer.evaluations[:4].numpy().view(np.uint64)[:, 0].tolist() == host
+
+
 @pytest.mark.parametrize("n", [1, 2, 5, 7, 13, 64])
 def test_merkle_tree_matches_zktpu(n):
     """Odd lengths (a trailing singleton on several levels), one leaf, and a

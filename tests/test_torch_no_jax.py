@@ -123,6 +123,13 @@ def test_wrapper_on_a_non_cpu_tensor_launches_or_raises():
                  lambda: hash_field(g, True)):
         with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
             call()
+    # the FRI fold kernel, and the NTT with the raw-1 output factor (FRI's fused from_mont)
+    from zktpu_torch.fri.fold_kernel import fold
+
+    for call in (lambda: fold(GOLDILOCKS, g, 5), lambda: fold(GOLDILOCKS, g[:7], 0),
+                 lambda: ntt(g, g[:4], False, None, g[0], GOLDILOCKS)):
+        with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
+            call()
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -140,7 +147,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from zktpu_torch.fields.host import GOLDILOCKS
     from zktpu_torch.fri.merkle import MerkleTree
     from zktpu_torch.hash import sha256_vec
-    from zktpu_torch.tools import prof_fri, prof_mulkernels
+    from zktpu_torch.tools import ntt_tiles, prof_fri, prof_mulkernels
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     circuit = Circuit()
@@ -169,6 +176,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lambda: sha256_vec.hash_elems_vec(GOLDILOCKS, [1, 2]),
         lambda: MerkleTree([1, 2, 3], GOLDILOCKS, force_device=True),
         lambda: prof_fri.main(["--log-n", "4"]),
+        lambda: ntt_tiles.main(["--field", "goldilocks"]),
     ]
     for call in calls:
         with pytest.raises(NoCudaDeviceError, match="CUDA device"):

@@ -196,9 +196,10 @@ ZK_FN void reduce_once(uint32_t* out, const uint32_t* v, uint32_t top, const Fie
   for (int j = 0; j < L; ++j) out[j] = take ? d[j] : v[j];
 }
 
-// CIOS with an extra carry word t[L + 1], for a field with p > R/2
-// (Goldilocks): t can reach 2p > R, and the top word tells reduce_once to
-// subtract (pallas_mont.py cond_sub_p's carry_top branch).
+// CIOS with an extra carry word t[L + 1], for a field with p > R/2: t can
+// reach 2p > R, and the top word tells reduce_once to subtract
+// (pallas_mont.py cond_sub_p's carry_top branch).  Goldilocks used it
+// before gl_mul below; the host tests keep it as gl_mul's reference.
 template <int L>
 ZK_FN void fmul_wide(uint32_t* out, const uint32_t* a, const uint32_t* b, const FieldConsts<L>& f) {
   uint32_t t[L + 2];
@@ -232,13 +233,88 @@ ZK_FN void fmul_wide(uint32_t* out, const uint32_t* a, const uint32_t* b, const 
   reduce_once<L>(out, t, t[L], f);
 }
 
+// ---------------------------------------------------------------------------
+// Goldilocks, p = 2^64 - 2^32 + 1, on one 64-bit word (limb 0 its low half):
+// the port's only field of two limbs, so L = 2 means Goldilocks below.
+// ---------------------------------------------------------------------------
+constexpr uint64_t GL_P = 0xFFFFFFFF00000001ull;
+
+ZK_FN uint64_t gl_word(const uint32_t* a) { return (uint64_t)a[0] | ((uint64_t)a[1] << 32); }
+
+ZK_FN void gl_limbs(uint32_t* out, uint64_t v) {
+  out[0] = (uint32_t)v;
+  out[1] = (uint32_t)(v >> 32);
+}
+
+// The 128-bit a * b as four 32 x 32 -> 64-bit products, each taking the
+// carry of the one before as its addend (one IMAD.WIDE.U32 each on the
+// card): the product's only multiplications.  Returns the low word, the
+// high one in *hi.  No partial sum overflows: (2^32 - 1)^2 + 2 (2^32 - 1)
+// = 2^64 - 1.
+ZK_FN uint64_t gl_mul_wide(uint64_t a, uint64_t b, uint64_t* hi) {
+  const uint32_t a0 = (uint32_t)a, a1 = (uint32_t)(a >> 32), b0 = (uint32_t)b, b1 = (uint32_t)(b >> 32);
+  const uint64_t p00 = (uint64_t)a0 * b0;
+  const uint64_t p01 = (uint64_t)a0 * b1 + (p00 >> 32);
+  const uint64_t p10 = (uint64_t)a1 * b0 + (uint32_t)p01;
+  *hi = (uint64_t)a1 * b1 + (p01 >> 32) + (p10 >> 32);
+  return (p10 << 32) | (uint32_t)p00;
+}
+
+// Montgomery product a b R^{-1} mod p, R = 2^64, for canonical a, b; the
+// result is canonical.  With t = a b = t_hi R + t_lo: p^{-1} = 1 + 2^32
+// (mod R), so m = t_lo p^{-1} mod R = t_lo + (t_lo << 32), and m p =
+// m R - m 2^32 + m has the high word h = m - m_hi - [m_hi < m_lo] (m_hi,
+// m_lo the halves of m).  Then (t - m p) / R = t_hi - h, since the low
+// words cancel, and it lies in (-p, p): where it borrows, add p, i.e.
+// subtract 2^64 - p = 2^32 - 1, which is the borrow mask itself.  The
+// reduction is carry chains of 32-bit adds and subtracts (field.cuh's cc::
+// primitives: the borrow [m_hi < m_lo] rides in the flag), no compare or
+// select.
+ZK_FN uint64_t gl_mul(uint64_t a, uint64_t b) {
+  uint64_t hi;
+  const uint64_t lo = gl_mul_wide(a, b, &hi);
+  const uint32_t m0 = (uint32_t)lo, m1 = (uint32_t)(lo >> 32) + m0;
+  cc::sub_cc(m1, m0);  // the flag: [m1 < m0]
+  const uint32_t h0 = cc::subc_cc(m0, m1);
+  const uint32_t h1 = cc::subc(m1, 0);
+  const uint32_t r0 = cc::sub_cc((uint32_t)hi, h0);
+  const uint32_t r1 = cc::subc_cc((uint32_t)(hi >> 32), h1);
+  const uint32_t mask = cc::subc(0, 0);  // 0xffffffff if t_hi < h
+  const uint32_t s0 = cc::sub_cc(r0, mask);
+  return ((uint64_t)cc::subc(r1, 0) << 32) | s0;
+}
+
+// a + b mod p, canonical in and out: t = a + b + 2^32 - 1 carries past
+// 2^64 exactly when a + b >= p, and is then a + b - p; otherwise a + b is
+// t - (2^32 - 1).  Eight carry-chain instructions.
+ZK_FN uint64_t gl_add(uint64_t a, uint64_t b) {
+  const uint32_t s0 = cc::add_cc((uint32_t)a, (uint32_t)b);
+  const uint32_t s1 = cc::addc_cc((uint32_t)(a >> 32), (uint32_t)(b >> 32));
+  const uint32_t c = cc::addc(0, 0);
+  const uint32_t t0 = cc::add_cc(s0, 0xffffffffu);
+  const uint32_t t1 = cc::addc_cc(s1, 0);
+  const uint32_t keep = cc::addc(c, 0xffffffffu);  // 0 if a + b >= p, else 0xffffffff
+  const uint32_t r0 = cc::sub_cc(t0, keep);
+  return ((uint64_t)cc::subc(t1, 0) << 32) | r0;
+}
+
+// a - b mod p, canonical in and out: where a - b borrows, add p (subtract
+// the borrow mask 2^32 - 1).  Five carry-chain instructions.
+ZK_FN uint64_t gl_sub(uint64_t a, uint64_t b) {
+  const uint32_t d0 = cc::sub_cc((uint32_t)a, (uint32_t)b);
+  const uint32_t d1 = cc::subc_cc((uint32_t)(a >> 32), (uint32_t)(b >> 32));
+  const uint32_t mask = cc::subc(0, 0);  // 0xffffffff if a < b
+  const uint32_t r0 = cc::sub_cc(d0, mask);
+  return ((uint64_t)cc::subc(d1, 0) << 32) | r0;
+}
+
 // Canonical Montgomery product a * b * R^{-1} mod p of canonical inputs.
 // Fields with 2p < R (Fq, Fr) take the carry-chain product, whose output
-// < 2p needs one conditional subtraction; Goldilocks keeps fmul_wide.
+// < 2p needs one conditional subtraction; Goldilocks takes gl_mul.
 template <int L>
 ZK_FN void fmul(uint32_t* out, const uint32_t* a, const uint32_t* b, const FieldConsts<L>& f) {
   if constexpr (L == 2) {
-    fmul_wide<L>(out, a, b, f);
+    gl_limbs(out, gl_mul(gl_word(a), gl_word(b)));
   } else {
     uint32_t t[L];
     mont_mul_lazy<L>(t, a, b, f);

@@ -1,7 +1,8 @@
-// The NTT of zktpu_torch/poly/ntt_kernel.py as per-thread code for one
-// block (csrc/ntt.cu runs it on the card; tests/ntt_host.cpp runs the same
-// functions block by block, thread by thread, on the CPU).  Every function
-// is a template on the limb count L: L = 8 for Fr, L = 2 for Goldilocks.
+// The NTT of zktpu_torch/poly/ntt_kernel.py over Fr as per-thread code for
+// one block (csrc/ntt.cu runs it on the card; tests/ntt_host.cpp runs the
+// same functions block by block, thread by thread, on the CPU).  Every
+// function is a template on the limb count L; the library instantiates
+// L = 8 (Fr).  Goldilocks has a design of its own, csrc/ntt_gl.cuh.
 //
 // A transform of n = 2^log_n elements (L little-endian u32 Montgomery limbs
 // each, rows of a (B, n, L) batch) is the reference's radix-2 DIT: the
@@ -21,13 +22,11 @@
 // ns stages there and writes it back.  The first pass (s0 = 0) takes
 // contiguous runs and gathers them through the bit reversal; later passes
 // run in place on the output.  A tile holds at most 2^ZK_NTT_LOG_TILE
-// elements (Fr; ZK_NTT_LOG_TILE_L2 for Goldilocks), and later passes keep
-// at least 2^ZK_NTT_LOG_MIN_COLS columns (ZK_NTT_LOG_MIN_COLS_L2) so that
-// each row of a tile is that many consecutive elements in memory.  An Fr
-// tile is 2^9 elements (16 KB of shared memory), a Goldilocks one 2^10 (8
-// KB: at 2^20 it took 20% less time than 2^11, zktpu_torch/tools/ntt_tiles.py
-// --field goldilocks).  The library builds with the defaults below; the host
-// tests build smaller tiles with -D so that several passes run at small n.
+// elements, and later passes keep at least 2^ZK_NTT_LOG_MIN_COLS columns so
+// that each row of a tile is that many consecutive elements in memory.  An
+// Fr tile is 2^9 elements (16 KB of shared memory).  The library builds with
+// the defaults below; the host tests build smaller tiles with -D so that
+// several passes run at small n.
 #pragma once
 
 #include "field.cuh"
@@ -37,12 +36,6 @@
 #endif
 #ifndef ZK_NTT_LOG_MIN_COLS
 #define ZK_NTT_LOG_MIN_COLS 3  // 8 columns: 256 contiguous bytes per row
-#endif
-#ifndef ZK_NTT_LOG_TILE_L2
-#define ZK_NTT_LOG_TILE_L2 10  // 2^10 elements x 8 bytes: 8 KB
-#endif
-#ifndef ZK_NTT_LOG_MIN_COLS_L2
-#define ZK_NTT_LOG_MIN_COLS_L2 4  // 16 columns: 128 contiguous bytes per row
 #endif
 #ifndef ZK_NTT_THREADS
 #define ZK_NTT_THREADS 128
@@ -58,12 +51,11 @@
 constexpr uint32_t NTT_THREADS = ZK_NTT_THREADS;
 constexpr int NTT_MAX_PASSES = 32;
 
-// The tile of a field of L limbs: log2 of its elements and of the least
-// columns a later pass keeps.
+// The tile: log2 of its elements and of the least columns a later pass keeps.
 template <int L>
 struct NttTileShape {
-  static constexpr int log_tile = L == 2 ? ZK_NTT_LOG_TILE_L2 : ZK_NTT_LOG_TILE;
-  static constexpr int log_min_cols = L == 2 ? ZK_NTT_LOG_MIN_COLS_L2 : ZK_NTT_LOG_MIN_COLS;
+  static constexpr int log_tile = ZK_NTT_LOG_TILE;
+  static constexpr int log_min_cols = ZK_NTT_LOG_MIN_COLS;
 };
 
 struct NttPass {
@@ -112,36 +104,6 @@ ZK_FN uint32_t ntt_bitrev(uint32_t i, int log_n) {
 #endif
 }
 
-// One element from or to global or shared memory: 16-byte words for Fr,
-// one 8-byte word for Goldilocks (the wrapper passes 16-byte aligned rows).
-template <int L>
-ZK_FN void ntt_load(uint32_t* dst, const uint32_t* src) {
-#if defined(__CUDA_ARCH__)
-  if constexpr (L == 2) {
-    const uint2 v = *reinterpret_cast<const uint2*>(src);
-    dst[0] = v.x;
-    dst[1] = v.y;
-  } else {
-    load_elem<L>(dst, src);
-  }
-#else
-  std::memcpy(dst, src, L * sizeof(uint32_t));
-#endif
-}
-
-template <int L>
-ZK_FN void ntt_store(uint32_t* dst, const uint32_t* src) {
-#if defined(__CUDA_ARCH__)
-  if constexpr (L == 2) {
-    *reinterpret_cast<uint2*>(dst) = make_uint2(src[0], src[1]);
-  } else {
-    store_elem<L>(dst, src);
-  }
-#else
-  std::memcpy(dst, src, L * sizeof(uint32_t));
-#endif
-}
-
 // Where tile `tile` of a pass lies: position (j, c) is base + (j << s0) + c;
 // l0 is the position of column 0 inside its group of 2^s0.
 struct NttTile {
@@ -172,16 +134,16 @@ ZK_FN void ntt_load_thread(const NttArgs& a, uint32_t tile, uint32_t row, uint32
     uint32_t x[L];
     if (a.first) {
       const uint32_t src = ntt_bitrev(pos, a.log_n);
-      ntt_load<L>(x, a.in + (row_base + src) * L);
+      load_elem<L>(x, a.in + (row_base + src) * L);
       if (a.in_f) {
         uint32_t g[L];
-        ntt_load<L>(g, a.in_f + (uint64_t)src * a.in_fs * L);
+        load_elem<L>(g, a.in_f + (uint64_t)src * a.in_fs * L);
         fmul<L>(x, x, g, f);
       }
     } else {
-      ntt_load<L>(x, a.out + (row_base + pos) * L);
+      load_elem<L>(x, a.out + (row_base + pos) * L);
     }
-    ntt_store<L>(sm + e * L, x);
+    store_elem<L>(sm + e * L, x);
   }
 }
 
@@ -205,14 +167,14 @@ ZK_FN void ntt_stage_thread(const NttArgs& a, uint32_t tile, int r, uint32_t tid
     uint32_t* v = u + ((1u << (r - 1)) << p.log_cols) * L;
     const uint32_t i = (jj << p.s0) + t.l0 + c;  // position in the stage's half group
     uint32_t x[L], w[L], y[L];
-    ntt_load<L>(x, v);
-    ntt_load<L>(w, a.tw + ((uint64_t)i << tw_shift) * L);
+    load_elem<L>(x, v);
+    load_elem<L>(w, a.tw + ((uint64_t)i << tw_shift) * L);
     fmul<L>(w, x, w, f);  // w v
-    ntt_load<L>(x, u);
+    load_elem<L>(x, u);
     fadd<L>(y, x, w, f);
     fsub<L>(x, x, w, f);
-    ntt_store<L>(u, y);
-    ntt_store<L>(v, x);
+    store_elem<L>(u, y);
+    store_elem<L>(v, x);
   }
 }
 
@@ -228,12 +190,12 @@ ZK_FN void ntt_store_thread(const NttArgs& a, uint32_t tile, uint32_t row, uint3
   for (uint32_t e = tid; e < ntt_tile_elems(p); e += NTT_THREADS) {
     const uint32_t pos = t.base + ((e >> p.log_cols) << p.s0) + (e & cmask);
     uint32_t x[L];
-    ntt_load<L>(x, sm + e * L);
+    load_elem<L>(x, sm + e * L);
     if (a.last && a.out_f) {
       uint32_t g[L];
-      ntt_load<L>(g, a.out_f + (uint64_t)pos * a.out_fs * L);
+      load_elem<L>(g, a.out_f + (uint64_t)pos * a.out_fs * L);
       fmul<L>(x, x, g, f);
     }
-    ntt_store<L>(a.out + (row_base + pos) * L, x);
+    store_elem<L>(a.out + (row_base + pos) * L, x);
   }
 }

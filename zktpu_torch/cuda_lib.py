@@ -25,8 +25,9 @@ from .fields.host import FieldSpec
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "zktpu_torch")
-SOURCES = ("mont_mul.cu", "g1.cu", "ntt.cu", "field_ops.cu", "sha256.cu", "mont_mma.cu")
-HEADERS = ("field.cuh", "g1.cuh", "ntt.cuh", "field_ops.cuh", "sha256.cuh", "mont_mma.cuh")
+SOURCES = ("mont_mul.cu", "g1.cu", "ntt.cu", "field_ops.cu", "sha256.cu", "mont_mma.cu", "fri_fold.cu")
+HEADERS = ("field.cuh", "g1.cuh", "ntt.cuh", "ntt_gl.cuh", "field_ops.cuh", "sha256.cuh", "mont_mma.cuh",
+           "fri_fold.cuh")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -54,6 +55,8 @@ _SIGNATURES = {
                _P, _P],
     # limbs, out {registers, local bytes, shared bytes of the largest tile}
     "zk_ntt_attrs": [ctypes.c_int, _P],
+    # log_n, out: {s0, ns, cols, threads, shared bytes, radix steps} per Goldilocks pass
+    "zk_ntt_gl_plan": [ctypes.c_int, _P],
     # device, limbs, p (host), pinv, a, b, out, n, chain, stream
     "zk_mont_mul_chain": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _P, _I64, ctypes.c_int, _P],
     # device, limbs, p (host), pinv, f32 (0 mxu, 1 f32), pinv matrix, p matrix, a, b, out, n, chain, stream
@@ -80,6 +83,10 @@ _SIGNATURES = {
     "zk_sha256_field": [ctypes.c_int, _P, _P, _I64, ctypes.c_int, _P, _P],
     # out {registers, local bytes, shared bytes}
     "zk_sha256_attrs": [_P],
+    # device, coefficients, n, r's low and high words (Montgomery), out, stream
+    "zk_fri_fold": [ctypes.c_int, _P, _I64, ctypes.c_uint32, ctypes.c_uint32, _P, _P],
+    # out {registers, local bytes, shared bytes}
+    "zk_fri_fold_attrs": [_P],
 }
 
 

@@ -4,10 +4,10 @@ zktpu/fri/layer.py; the reference is fri/src/fri_layer.rs).
 The reference evaluates the polynomial pointwise at every domain element
 (O(n d), fri_layer.rs:40-46); zktpu and the port take one coset NTT, which
 yields the same evaluations [p(coset w^i)]_{i<n} in natural order.  In the
-port the NTT is kernel 1g (poly/ntt_kernel.py, the Goldilocks instance),
-``from_mont`` makes canonical values on the device (kernel 1), and the tree
-hashes those values where they are (fri/merkle.py): nothing goes to the
-host but the root.
+port the NTT is kernel 1g (poly/ntt_kernel.py, the Goldilocks design),
+whose last store multiplies by the raw 1 (``from_mont``) so that it yields
+canonical values, and the tree hashes those values where they are
+(fri/merkle.py): nothing goes to the host but the root.
 """
 from __future__ import annotations
 
@@ -33,14 +33,14 @@ class FriLayer:
                   timings: dict | None = None) -> "FriLayer":
         """force_device: the tensor NTT and the vector hash at every size (the
         default on a CUDA device); otherwise the domain's and the tree's size
-        tiers, as zktpu runs them.  timings: adds the seconds of the NTT and
-        from_mont ("ntt") and of the tree ("hash")."""
+        tiers, as zktpu runs them.  timings: adds the seconds of the NTT with
+        its fused from_mont ("ntt") and of the tree ("hash")."""
         force = poly.device.type == "cuda" if force_device is None else force_device
         with timed(timings, "ntt", poly.device):
             dom = get_domain(poly.spec, domain_size, poly.device)
             assert dom.size == domain_size
-            evals = dom.coset_fft(poly._padded(dom.size), coset, force_device=force)
-            vals = poly.df.from_mont(evals)
+            # the raw 1 as the output factor: x * 1 * R^-1, canonical values
+            vals = dom.coset_fft(poly._padded(dom.size), coset, force_device=force, out_factor=poly.df._one_raw)
         with timed(timings, "hash", poly.device):
             tree = MerkleTree(vals, poly.spec, force_device=force)
         return cls(vals, tree, coset, domain_size)

@@ -10,20 +10,20 @@ Protocol shape is identical to the reference:
   - queries: usize challenges mod domain, with symmetric indices and Merkle
     paths per layer (prover.rs:81-134)
 
-On the device each layer is the Goldilocks NTT (kernel 1g), ``from_mont``
-(kernel 1), one hash launch per tree level (kernel 6), one root read, and
-the fold: r * odd by kernel 1 and even + r odd by kernel B.  The query
+On the device each layer is the Goldilocks NTT with ``from_mont`` fused
+into its last store (kernel 1g), one hash launch per tree level (kernel 6),
+one root read, and the fold in one launch (fri/fold_kernel.py).  The query
 phase reads each layer's queried evaluations and paths in one copy.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-import torch
-
+from ..fields.fp import limbs_to_ints
 from ..fields.host import GOLDILOCKS, FieldSpec
 from ..poly.poly import Poly
 from ..transcript.transcripts import FriTranscript
+from .fold_kernel import fold
 from .layer import FriLayer, timed
 from .merkle import MerkleProof
 
@@ -48,18 +48,12 @@ class Proof:
 
 
 def fold_polynomial(poly: Poly, random_r: int) -> Poly:
-    """new_coeff = even_coeff + r * odd_coeff (prover.rs:34-42)."""
+    """new_coeff = even_coeff + r * odd_coeff (prover.rs:34-42): one launch of
+    the fold kernel on the card."""
     coeffs = poly.coeffs
-    even = coeffs[0::2]
-    odd = coeffs[1::2]
-    if odd.shape[0] == 0:
-        return Poly(poly.spec, even)
-    df = poly.df
-    odd_r = df.mont_mul(odd, df.encode_int(random_r))
-    if odd_r.shape[0] < even.shape[0]:
-        pad = torch.zeros((even.shape[0] - odd_r.shape[0], df.num_limbs), dtype=odd_r.dtype, device=odd_r.device)
-        odd_r = torch.cat([odd_r, pad])
-    return Poly(poly.spec, df.add(even, odd_r))
+    if coeffs.shape[0] <= 1:  # no odd half
+        return Poly(poly.spec, coeffs[0::2])
+    return Poly(poly.spec, fold(poly.spec, coeffs, random_r))
 
 
 def folding_phase(poly: Poly, coset: int, domain_size: int, number_layers: int, force_device: bool | None = None,
@@ -81,7 +75,7 @@ def folding_phase(poly: Poly, coset: int, domain_size: int, number_layers: int, 
         coset = spec.mul(coset, coset)
         domain_size //= 2
     assert len(poly) == 1, "final polynomial must be constant"
-    constant = poly.evaluate(0)
+    constant = spec.from_mont(limbs_to_ints(poly.coeffs.cpu().numpy())[0])  # one copy, no launch
     transcript.digest(constant)
     return constant, transcript, fri_layers
 

@@ -161,13 +161,16 @@ class Radix2Domain:
             self._coset_out_cache[offset] = self.df.mont_mul(self.offset_powers(self.spec.inv(offset)), n_inv)
         return self._coset_out_cache[offset]
 
-    def coset_fft(self, coeffs: torch.Tensor, offset: int, force_device: bool = False) -> torch.Tensor:
+    def coset_fft(self, coeffs: torch.Tensor, offset: int, force_device: bool = False,
+                  out_factor: torch.Tensor | None = None) -> torch.Tensor:
         """coeffs: (..., m, L) with m <= n -> evaluations on offset * <w>;
-        the tensor transform multiplies by offset^i as it loads."""
+        the tensor transform multiplies by offset^i as it loads, and by
+        out_factor ((n, L) or (L,) Montgomery limbs, if given) as it stores."""
         coeffs = self._pad(coeffs)
         if self.size == 1 or (not force_device and self._host_tier(coeffs)):
-            return self.fft(self.df.mont_mul(coeffs, self.offset_powers(offset)))
-        return self._transform(coeffs, False, in_factor=self.offset_powers(offset))
+            evals = self.fft(self.df.mont_mul(coeffs, self.offset_powers(offset)))
+            return evals if out_factor is None else self.df.mont_mul(evals, out_factor)
+        return self._transform(coeffs, False, in_factor=self.offset_powers(offset), out_factor=out_factor)
 
     def coset_ifft(self, evals: torch.Tensor, offset: int) -> torch.Tensor:
         """Evaluations on offset * <w> -> coefficients; the tensor transform

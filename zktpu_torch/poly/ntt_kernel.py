@@ -14,13 +14,14 @@ DIT being the bit-reverse gather and the log n butterfly stages
 ``inverse`` and no out_factor the output factor is n^-1 (a caller that
 merges n^-1 into its own table, as coset_ifft does, passes that table).
 
-On the H100 the transform is bound by 32-bit integer multiply-adds; the
-kernel runs the stages in 1-4 launches of shared-memory tiles, with the
-permutation and both factors fused into the loads and stores (csrc/ntt.cu
-says how).  ``ntt`` launches it for CUDA tensors and runs ``ntt_plain`` for
-CPU tensors only.  The kernel has an Fr and a Goldilocks instance
-(``KERNEL_FIELDS``); ``stage_loop`` is the stage loop over any product,
-which Fq's two-point domains use.
+On the H100 the Fr transform is bound by 32-bit integer multiply-adds and
+the Goldilocks one by its bytes.  The kernels run the stages in 1-4 launches
+of shared-memory tiles (Fr: csrc/ntt.cuh, a stage per barrier; Goldilocks:
+csrc/ntt_gl.cuh, radix-8 steps in registers, two launches from 2^12 to
+2^20 points), with the permutation and both factors fused into the loads and
+stores (csrc/ntt.cu says how).  ``ntt`` launches them for CUDA tensors and
+runs ``ntt_plain`` for CPU tensors only (``KERNEL_FIELDS``); ``stage_loop``
+is the stage loop over any product, which Fq's two-point domains use.
 """
 from __future__ import annotations
 
@@ -144,6 +145,17 @@ def ntt(values, table, inverse: bool, in_factor=None, out_factor=None, spec: Fie
 
 
 ntt.launches = {f.name: 0 for f in KERNEL_FIELDS}
+
+
+def gl_plan(log_n: int) -> list[dict]:
+    """The Goldilocks kernel's passes for a 2^log_n transform, as the library
+    plans them: s0, ns, cols, threads, shared bytes and radix steps of each."""
+    out = (ctypes.c_int * (6 * 32))()
+    np_ = cuda_lib.load().zk_ntt_gl_plan(log_n, out)
+    if np_ < 0:
+        raise ValueError(f"ntt: no Goldilocks plan for 2^{log_n}")
+    keys = ("s0", "ns", "cols", "threads", "shared_bytes", "steps")
+    return [dict(zip(keys, out[6 * k : 6 * k + 6])) for k in range(np_)]
 
 
 def kernel_attrs(spec: FieldSpec = FR) -> dict:

@@ -202,12 +202,13 @@ _KERNELS = (
 def sass_counts(library: str | None = None, kernels=_KERNELS) -> dict:
     """Per kernel function ((label, mangled-name pattern) pairs): IMAD
     (multiplies and multiply-adds, not IMAD.MOV moves), IMAD.MOV, IADD3 and
-    all instructions of its SASS, and "by_op": the count of each opcode
-    (its name up to the first dot)."""
+    all instructions of its SASS, "by_op": the count of each opcode (its
+    name up to the first dot) and "by_full_op": of each opcode with its
+    modifiers (IMAD.WIDE.U32, IADD3.X, ...)."""
     library = library or cuda_lib.build()
     tool = os.path.join(os.path.dirname(cuda_lib.find_nvcc() or "/usr/local/cuda/bin/nvcc"), "cuobjdump")
     text = subprocess.run([tool, "-sass", library], capture_output=True, text=True, check=True).stdout
-    counts, by_op, current = {}, {}, None
+    counts, by_op, by_full, current = {}, {}, {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -215,11 +216,13 @@ def sass_counts(library: str | None = None, kernels=_KERNELS) -> dict:
             if current:
                 counts[current] = Counter()
                 by_op[current] = Counter()
+                by_full[current] = Counter()
             continue
         ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if current and ins:
             op = ins.group(1)
             by_op[current][op.split(".")[0]] += 1
+            by_full[current][op] += 1
             c = counts[current]
             c["total"] += 1
             if op.startswith("IMAD.MOV"):
@@ -228,7 +231,7 @@ def sass_counts(library: str | None = None, kernels=_KERNELS) -> dict:
                 c["IMAD"] += 1
             elif op.startswith("IADD3"):
                 c["IADD3"] += 1
-    return {k: {**v, "by_op": dict(by_op[k])} for k, v in counts.items()}
+    return {k: {**v, "by_op": dict(by_op[k]), "by_full_op": dict(by_full[k])} for k, v in counts.items()}
 
 
 def main(argv=None) -> int:

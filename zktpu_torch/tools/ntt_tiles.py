@@ -1,19 +1,30 @@
 """Time the NTT kernel at other tile sizes, block sizes and occupancies.
 
-    python -m zktpu_torch.tools.ntt_tiles [--reps 30] [--field fr|goldilocks]
+    python -m zktpu_torch.tools.ntt_tiles [--reps 30] [--field fr|goldilocks] [--parent DIR] [--sass]
 
-csrc/ntt.cu hard-codes its design: the tile size, the threads of a block,
-the minimum of blocks per SM that the launch bound asks for (which caps the
-registers) and the fewest columns of a later pass's tile.  For each design
-in DESIGNS (Fr) or GL_DESIGNS (Goldilocks) this tool builds its own copy of
-ntt.cu with -DZK_NTT_LOG_TILE (or -DZK_NTT_LOG_TILE_L2), -DZK_NTT_THREADS,
--DZK_NTT_MIN_BLOCKS and -DZK_NTT_LOG_MIN_COLS (or its _L2 twin) (one nvcc
-per design, in parallel, into build/zktpu_torch/), launches it through the
-port's wrapper at the paths' shapes (Fr: the 8n coset transform at 2^14
-gates, 2^17 x batch 7, and 2^20 x 1; Goldilocks: FRI's coset transforms at
-2^20, 2^16 and 2^12), checks that it gives the library's words, and prints
-one JSON line per design and shape: registers, local bytes (spills),
-passes, ms per call with CUDA events and the share of the integer bound.
+csrc/ntt.cu hard-codes its designs.  Fr: the tile size, the threads of a
+block, the minimum of blocks per SM that the launch bound asks for (which
+caps the registers) and the fewest columns of a later pass's tile
+(-DZK_NTT_LOG_TILE, -DZK_NTT_THREADS, -DZK_NTT_MIN_BLOCKS,
+-DZK_NTT_LOG_MIN_COLS).  Goldilocks (ntt_gl.cuh): the radix of the steps a
+thread runs in registers, the largest tile, the columns of a multi-pass
+tile, the largest transform done in one pass and the minimum of blocks per
+SM (-DZK_NTT_GL_RADIX, -DZK_NTT_GL_LOG_TILE, -DZK_NTT_GL_LOG_COLS,
+-DZK_NTT_GL_ONE_PASS, -DZK_NTT_GL_MIN_BLOCKS).  For each design in DESIGNS
+(Fr) or GL_DESIGNS (Goldilocks) this tool builds its own copy of ntt.cu (one
+nvcc per design, in parallel, into build/zktpu_torch/), launches it through
+the port's wrapper at the paths' shapes (Fr: the 8n coset transform at 2^14
+gates, 2^17 x batch 7, and 2^20 x 1; Goldilocks: coset transforms at 2^16,
+2^20 and 2^22, batch 1, and 2^13 x 3), checks that it gives the library's
+words, and prints one JSON line per design and shape: registers, local
+bytes (spills), launches, ms per call with CUDA events (wrapper included),
+kernel-only ms per call (torch.profiler) and the share of the bound.
+
+--parent DIR also builds DIR/zktpu_torch/csrc/ntt.cu, another checkout's NTT
+(a `git archive` of an earlier commit unpacked under build/), and times it
+the same way (its design as that tree builds it), so that two designs are
+compared inside one run on one card.  --sass prints the SASS instructions
+per butterfly of one radix step of the Goldilocks design (butterfly_sass).
 """
 from __future__ import annotations
 
@@ -37,47 +48,85 @@ from zktpu_torch.poly.domain import Radix2Domain
 DESIGNS = ((11, 512, 2, 3), (10, 256, 4, 3), (10, 256, 4, 2), (10, 128, 7, 3), (9, 128, 8, 3), (9, 128, 8, 2),
            (9, 256, 4, 3), (8, 64, 16, 3), (8, 64, 16, 2))
 SHAPES = ((17, 7), (20, 1))  # (log n, batch)
-# Goldilocks: the library's is (10, 128, 8, 4); 8 KB of shared memory a block
-# at 2^10, 16 KB at 2^11, 32 KB at 2^12, 64 KB at 2^13
-GL_DESIGNS = ((11, 128, 8, 4), (11, 256, 4, 4), (11, 128, 8, 3), (12, 256, 4, 4), (12, 512, 2, 4),
-              (13, 512, 2, 4), (10, 128, 8, 4), (9, 128, 8, 3))
-GL_SHAPES = ((20, 1), (16, 1), (12, 1))
-# 32-bit integer multiply-adds: 64 per clock per SM x 132 SMs x 1.98 GHz
-# (NVIDIA H100 SXM); a product is 2 x (2 L^2 + L) of them.
+# Goldilocks: (log2 radix, log2 largest tile, log2 columns, largest log n in
+# one pass, minimum blocks per SM); the library's is (3, 13, 3, 11, 1).  A
+# tile of 2^12 words takes 32 KB of shared memory, 2^13 64 KB, plus the
+# twiddle table; a block has 2^(log tile - radix) <= 1024 threads.
+GL_DESIGNS = ((3, 13, 3, 11, 1), (3, 13, 2, 11, 1), (3, 13, 4, 11, 1), (3, 13, 3, 13, 1), (3, 13, 3, 11, 2),
+              (4, 13, 3, 11, 1), (2, 12, 3, 11, 1), (2, 12, 2, 11, 1))
+GL_SHAPES = ((16, 1), (20, 1), (22, 1), (13, 3))
+GL_FLAGS = ("ZK_NTT_GL_RADIX", "ZK_NTT_GL_LOG_TILE", "ZK_NTT_GL_LOG_COLS", "ZK_NTT_GL_ONE_PASS",
+            "ZK_NTT_GL_MIN_BLOCKS")
+FR_FLAGS = ("ZK_NTT_LOG_TILE", "ZK_NTT_THREADS", "ZK_NTT_MIN_BLOCKS", "ZK_NTT_LOG_MIN_COLS")
+# NVIDIA H100 SXM: 32-bit integer multiply-adds, 64 per clock per SM x 132
+# SMs x 1.98 GHz; HBM3 at 3.35 TB/s.  An Fr product is 2 x (2 L^2 + L)
+# multiply-adds; a Goldilocks one 8 (field.cuh's gl_mul: four word products).
 IMAD_PER_S = 132 * 64 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
 
 
 def _product_imads(spec) -> int:
+    if spec is GOLDILOCKS:
+        return 8
     L = spec.num_digits // 2
     return 2 * (2 * L * L + L)
 
 
-def build_designs(designs, spec=FR) -> dict:
-    """{design: path} of ntt.cu built once per design, all nvcc at once."""
-    src = os.path.join(cuda_lib.CSRC_DIR, "ntt.cu")
-    h = hashlib.sha256(" ".join(cuda_lib.NVCC_FLAGS).encode())
-    for name in ("field.cuh", "ntt.cuh", "ntt.cu"):
-        with open(os.path.join(cuda_lib.CSRC_DIR, name), "rb") as f:
-            h.update(f.read())
-    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
-    suffix = "_L2" if spec is GOLDILOCKS else ""
-    h.update(suffix.encode())
-    paths = {d: os.path.join(cuda_lib.BUILD_DIR, "libntt{}_t{}_{}_{}_{}-{}.so".format(suffix, *d, h.hexdigest()[:16]))
-             for d in designs}
+def bound_ms(spec, log_n: int, batch: int) -> dict:
+    """The least time of a transform of `batch` rows of 2^log_n (with an
+    input factor for Goldilocks, FRI's coset transform): its products'
+    multiply-adds over the integer rate, or its bytes (each input and output
+    row once, the n/2 twiddles and the factor table once) over HBM."""
+    n, gl = 1 << log_n, spec is GOLDILOCKS
+    products = batch * ((n // 2) * log_n + (n if gl else 0))
+    ops_s = products * _product_imads(spec) / IMAD_PER_S
+    nbytes = (2 * batch * n + n // 2 + (n if gl else 0)) * 4 * (spec.num_digits // 2)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3, "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
+
+
+def _nvcc_all(jobs: dict) -> None:
+    """Run nvcc for every {key: (flags, source, include dir, output)} at once."""
     nvcc = cuda_lib.find_nvcc()
+    if nvcc is None:
+        raise cuda_lib.KernelBuildError("ntt_tiles needs nvcc")
     procs = {}
-    for (tile, threads, blocks, cols), path in paths.items():
-        if not os.path.exists(path):
-            flags = [f"-DZK_NTT_LOG_TILE{suffix}={tile}", f"-DZK_NTT_THREADS={threads}",
-                     f"-DZK_NTT_MIN_BLOCKS={blocks}", f"-DZK_NTT_LOG_MIN_COLS{suffix}={cols}"]
-            procs[(tile, threads, blocks, cols)] = subprocess.Popen(
-                [nvcc, *cuda_lib.NVCC_FLAGS, *flags, "-shared", "-o", path, src],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    for d, p in procs.items():
+    for key, (flags, src, inc, out) in jobs.items():
+        if not os.path.exists(out):
+            procs[key] = subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, *flags, "-I", inc, "-shared", "-o", out, src],
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for key, p in procs.items():
         err = p.communicate()[1]
         if p.returncode != 0:
-            raise cuda_lib.KernelBuildError(f"nvcc for the NTT design {d} failed ({p.returncode}):\n{err}")
-    return paths
+            raise cuda_lib.KernelBuildError(f"nvcc for the NTT design {key} failed ({p.returncode}):\n{err}")
+
+
+def _tree_hash(csrc: str) -> str:
+    h = hashlib.sha256(" ".join(cuda_lib.NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(csrc)):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(csrc, name), "rb") as f:
+                h.update(name.encode() + f.read())
+    return h.hexdigest()[:16]
+
+
+def build_designs(designs, spec=FR, parent: str | None = None) -> dict:
+    """{design: path} of ntt.cu built once per design, all nvcc at once; with
+    `parent`, also {"parent": path} of that checkout's ntt.cu as it is."""
+    src = os.path.join(cuda_lib.CSRC_DIR, "ntt.cu")
+    gl = spec is GOLDILOCKS
+    names = GL_FLAGS if gl else FR_FLAGS
+    h = _tree_hash(cuda_lib.CSRC_DIR)
+    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+    tag = "gl" if gl else "fr"
+    jobs = {d: ([f"-D{k}={v}" for k, v in zip(names, d)], src, cuda_lib.CSRC_DIR,
+                os.path.join(cuda_lib.BUILD_DIR, f"libntt_{tag}_{'_'.join(map(str, d))}-{h}.so")) for d in designs}
+    if parent is not None:
+        csrc = os.path.join(parent, "zktpu_torch", "csrc")
+        jobs["parent"] = ([], os.path.join(csrc, "ntt.cu"), csrc,
+                          os.path.join(cuda_lib.BUILD_DIR, f"libntt_parent-{_tree_hash(csrc)}.so"))
+    _nvcc_all(jobs)
+    return {d: job[3] for d, job in jobs.items()}
 
 
 @contextlib.contextmanager
@@ -108,13 +157,31 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_designs(reps: int = 30, designs=None, device=None, spec=FR) -> list[dict]:
-    """Each design at the paths' shapes of `spec`: Fr's plain transforms, or
-    Goldilocks' coset transforms (FRI's layers)."""
+def kernel_only_ms(fn, reps: int, name: str = "ntt") -> tuple[float, float]:
+    """(device ms per call, launches per call) of the kernels whose name holds
+    `name` over `reps` calls of fn, from torch.profiler's trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and name in e.key]
+    count = sum(e.count for e in events)
+    assert count > 0, f"the profiler saw no {name} launch"
+    return sum(e.self_device_time_total for e in events) / 1e3 / reps, count / reps
+
+
+def time_designs(reps: int = 30, designs=None, device=None, spec=FR, parent: str | None = None) -> list[dict]:
+    """Each design (and the parent's NTT) at the paths' shapes of `spec`:
+    Fr's plain transforms, or Goldilocks' coset transforms (FRI's layers)."""
     device = torch.device("cuda", 0) if device is None else torch.device(device)
     gl = spec is GOLDILOCKS
     designs = designs or (GL_DESIGNS if gl else DESIGNS)
-    libs = build_designs(designs, spec)
+    libs = build_designs(designs, spec, parent)
     gen = torch.Generator(device=device)
     gen.manual_seed(20261016)
     L = spec.num_digits // 2
@@ -131,19 +198,18 @@ def time_designs(reps: int = 30, designs=None, device=None, spec=FR) -> list[dic
             return ntt_kernel.ntt(x, dom._fwd_tw, False, fin, None, spec)
 
         want = run()  # the library's design
-        bound_ms = batch * ((n // 2) * log_n + (n if gl else 0)) * _product_imads(spec) / IMAD_PER_S * 1e3
         for design, path in libs.items():
             with _library(path):
                 before = ntt_kernel.ntt.launches[spec.name]
                 got = run()
                 passes = ntt_kernel.ntt.launches[spec.name] - before
                 assert torch.equal(got, want), f"the NTT design {design} disagrees with the library's"
-                row = {"field": spec.name, "log_tile": design[0], "threads": design[1], "min_blocks": design[2],
-                       "log_min_cols": design[3], "log_n": log_n,
-                       "batch": batch, "passes": passes, **ntt_kernel.kernel_attrs(spec),
-                       "ms": _ms(run, reps)}
-            row["bound_ms"] = bound_ms
-            row["bound_share"] = bound_ms / row["ms"]
+                k_ms, _ = kernel_only_ms(run, reps)
+                row = {"field": spec.name, "design": design if design == "parent" else
+                       dict(zip(GL_FLAGS if gl else FR_FLAGS, design)), "log_n": log_n, "batch": batch,
+                       "passes": passes, **ntt_kernel.kernel_attrs(spec), "ms": _ms(run, reps), "kernel_only_ms": k_ms,
+                       **bound_ms(spec, log_n, batch)}
+            row["bound_share"] = row["bound_ms"] / row["kernel_only_ms"]
             rows.append(row)
             print(json.dumps(row), flush=True)
         del x, want, dom
@@ -151,15 +217,71 @@ def time_designs(reps: int = 30, designs=None, device=None, spec=FR) -> list[dic
     return rows
 
 
+# One middle radix-2^K step of the Goldilocks design (a later pass of 12
+# stages in a 2^24 transform: shared memory in and out, 15 twiddles from
+# shared memory), alone in a kernel so that its SASS counts what one step
+# issues.
+_PROBE = """
+#include "ntt_gl.cuh"
+__global__ void ntt_gl_step_probe() {
+  extern __shared__ uint64_t smem[];
+  GlArgs a{};
+  a.log_n = 24;
+  a.pass = GlPass{12, 12, ZK_NTT_GL_LOG_COLS};
+  uint64_t x[GL_E];
+  gl_step<GL_K, 1>(a, GlTile{0, 0, 0, 0}, 1, threadIdx.x, x, smem + gl_table_words(a.pass), smem);
+}
+"""
+
+
+def butterfly_sass() -> dict:
+    """The SASS instructions per butterfly of one full radix step of the
+    library's Goldilocks design (K 2^(K-1) butterflies: the step's shared
+    loads and stores, twiddle loads and products; cuobjdump of a probe
+    kernel built from csrc/ntt_gl.cuh), by opcode, and the product's IMAD
+    (gl_mul's four IMAD.WIDE.U32)."""
+    from zktpu_torch.tools.g1_budgets import sass_counts
+
+    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
+    h = _tree_hash(cuda_lib.CSRC_DIR)
+    src = os.path.join(cuda_lib.BUILD_DIR, f"ntt_gl_probe-{h}.cu")
+    out = os.path.join(cuda_lib.BUILD_DIR, f"ntt_gl_probe-{h}.cubin")
+    if not os.path.exists(out):
+        with open(src, "w") as f:
+            f.write(_PROBE)
+        nvcc = cuda_lib.find_nvcc()
+        if nvcc is None:
+            raise cuda_lib.KernelBuildError("butterfly_sass needs nvcc")
+        r = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-cubin",
+                            "-I", cuda_lib.CSRC_DIR, "-o", out, src], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise cuda_lib.KernelBuildError(f"nvcc for the NTT step probe failed:\n{r.stderr}")
+    c = sass_counts(out, kernels=(("step", r"ntt_gl_step_probe"),))["step"]
+    radix = int(next(ln.split()[2] for ln in open(os.path.join(cuda_lib.CSRC_DIR, "ntt_gl.cuh"))
+                     if ln.startswith("#define ZK_NTT_GL_RADIX")))
+    butterflies = radix << (radix - 1)
+    per = {op: v / butterflies for op, v in sorted(c["by_op"].items(), key=lambda kv: -kv[1])}
+    full = {op: v / butterflies for op, v in sorted(c["by_full_op"].items(), key=lambda kv: -kv[1])}
+    wide = sum(v for op, v in full.items() if op.startswith("IMAD.WIDE"))
+    return {"radix_log": radix, "butterflies": butterflies, "instructions": c["total"] / butterflies,
+            "IMAD": c.get("IMAD", 0) / butterflies, "IMAD.WIDE": wide, "by_op": per, "by_full_op": full}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--field", choices=("fr", "goldilocks"), default="fr")
+    ap.add_argument("--parent", help="another checkout whose NTT to time beside the designs")
+    ap.add_argument("--sass", action="store_true", help="also print the Goldilocks step's SASS per butterfly")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("ntt_tiles: no CUDA device")
+    from zktpu_torch.fields.fp import norm_device
+
+    device = norm_device(None)  # the current CUDA device; raises without one
     print(f"device {torch.cuda.get_device_name(0)}; library {cuda_lib.build()}", flush=True)
-    time_designs(args.reps, spec=GOLDILOCKS if args.field == "goldilocks" else FR)
+    if args.sass:
+        print(json.dumps({"butterfly_sass": butterfly_sass()}), flush=True)
+    time_designs(args.reps, device=device, spec=GOLDILOCKS if args.field == "goldilocks" else FR,
+                 parent=args.parent)
     return 0
 
 

@@ -13,7 +13,7 @@ first.  Prints JSON lines:
   host verifies (host clock around work that ends in a synchronise), and
   their medians;
 - "split": one more prove with the card synchronized around each piece
-  (fri/prover.py's timings): the coset NTTs with from_mont ("ntt"), the
+  (fri/prover.py's timings): the coset NTTs, from_mont fused ("ntt"), the
   trees ("hash"), the root reads and challenges ("root"), the folds
   ("fold") and the query phase ("query"), summed over the layers, and the
   rest of the prove's wall time ("host");
@@ -22,7 +22,7 @@ first.  Prints JSON lines:
   stderr;
 - with --sass, "sass": the SASS instructions of the field hash's two
   kernels (one hash each: straight-line code) and of the Goldilocks NTT
-  pass, by opcode (cuobjdump, tools/g1_budgets.py's counter).
+  kernel, by opcode (cuobjdump, tools/g1_budgets.py's counter).
 """
 from __future__ import annotations
 
@@ -116,7 +116,7 @@ def split(poly, blowup: int, queries: int) -> dict:
 SASS_KERNELS = (
     ("sha256_field_kernel<0>", r"19sha256_field_kernelILi0E"),
     ("sha256_field_kernel<1>", r"19sha256_field_kernelILi1E"),
-    ("ntt_pass_kernel<2>", r"15ntt_pass_kernelILi2E"),
+    ("ntt_gl_kernel", r"13ntt_gl_kernel"),
 )
 
 
