@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the zktpu_torch main paths once on one CUDA GPU and check them.
 
-    python3 chip_smoke.py [--log-n 14] [--msm-log-n 20] [--fri-log-n 20]
+    python3 chip_smoke.py [--log-n 14] [--msm-log-n 20] [--fri-log-n 20] [--nova-log-m 14] [--nova-steps 64]
 
 Phases:
   1. device: the card's name and power limit (fails without CUDA); the
@@ -74,11 +74,30 @@ Phases:
      host evaluations; a 2^12-domain proof from the card equals the CPU's;
      mont_mul, the add/sub and the powers over Goldilocks timed at the
      path's shapes; prove and verify seconds at 2^12, 2^16 and 2^fri_log_n
-     (median of 3 warm runs) beside the card's power limit.
+     (median of 3 warm runs) beside the card's power limit;
+  7. Nova path: (a) zktpu's 4-step IVC (x^3 + x + 5, SRS secret 424242)
+     on the card equals the committed golden of zktpu's run
+     (tests/goldens/nova.json) in every hash, com_T, r, instance and
+     opening; (b) a 2^7 squaring chain for 4 steps with every tensor path
+     forced, GPU == CPU; (c) the squaring chain at m = 2^nova_log_m
+     constraints (dense (m, m + 3, 8) matrices on the card,
+     zktpu_torch.tools.prof_nova) for nova_steps steps: every step
+     verifies, a changed com_T and a changed public x are rejected, the
+     first fold satisfies the relaxed R1CS, the final state equals the
+     host's; setup, per-step prove and verify medians, launches, the split
+     of one fold step, the idle share of a traced two-step run, peak
+     memory; its kernels must have launched; (d) outside the count,
+     mont_mul on 64 rows of A times z[None] (z read in place) and the
+     axis-1 sum on 256 rows of the product against their plain versions,
+     and both at the full shape, kernel only, beside their byte bounds;
+  8. parser path: a sum-of-products equation of 2^log_n gates parsed with
+     seeded witnesses, proved and verified on the card, a proof of another
+     equation rejected, CPIGenerator's eight commitments equal to the
+     prover's; its kernels must have launched.
 Launches are set to 0 just before each path (phase 4, the bench, the tool,
-the FRI prove) and read just after.  Then one JSON line with the kernels
-(launches summed over the four paths; times and bounds at the shapes the
-paths give them:
+the FRI prove, the Nova run, the parser path) and read just after.  Then one
+JSON line with the kernels (launches summed over the six paths; times and
+bounds at the shapes the paths give them:
 proj_madd at msm_affine's mixed add, proj_add at msm_proj's first scan step,
 proj_double at K = 1, mont_mul Fr at the coset division's product, ntt_fr
 at 2^17 x 7 (fft), horner_combine at c = 16, K = 1, field_scan_fr at round
@@ -97,13 +116,16 @@ import argparse
 import json
 import os
 import random
-import subprocess
+import statistics
 import sys
 import time
 
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from zktpu_torch.tools import launches as launch_counts  # noqa: E402  (the checkout's package, on the path above)
+from zktpu_torch.tools.trace import smi as _smi  # noqa: E402
 
 SEED = 20261016
 SRS_SECRET = 0x5EED5EED
@@ -131,14 +153,6 @@ def _mont_words(limbs: int) -> int:
 # Word products of one Goldilocks product (field.cuh's gl_mul): the four of
 # a b; its reduction is shifts and adds.
 GL_PRODUCT_WORDS = 4
-
-
-def _smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -781,55 +795,6 @@ def phase_small_proof(device) -> None:
     )
 
 
-def _wrappers():
-    from zktpu_torch.curves.g1_kernel import horner_combine, proj_add, proj_double, proj_madd
-    from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_chain
-    from zktpu_torch.fri.fold_kernel import fold
-    from zktpu_torch.hash.sha256_kernel import hash_field
-    from zktpu_torch.poly.ntt_kernel import ntt
-
-    return (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field, fold)
-
-
-def _reset_launches() -> None:
-    from zktpu_torch.fields import field_kernel
-
-    per_field, others = _wrappers()
-    for w in per_field:
-        for name in w.launches:
-            w.launches[name] = 0
-    for w in others:
-        w.launches = 0
-    for counts in field_kernel.launches.values():
-        for name in counts:
-            counts[name] = 0
-
-
-def _read_launches() -> dict:
-    from zktpu_torch.fields import field_kernel
-    from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
-
-    (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field, fold) = _wrappers()
-    return {
-        "mont_mul_fr": mont_mul.launches[FR.name],
-        "mont_mul_fq": mont_mul.launches[FQ.name],
-        "mont_mul_gl": mont_mul.launches[GOLDILOCKS.name],
-        "proj_add": proj_add.launches,
-        "proj_double": proj_double.launches,
-        "proj_madd": proj_madd.launches,
-        "mont_mul_chain": mont_mul_chain.launches["base"],
-        "mont_mul_chain_mxu": mont_mul_chain.launches["mxu"],
-        "mont_mul_chain_f32": mont_mul_chain.launches["f32"],
-        "ntt_fr": ntt.launches[FR.name],
-        "ntt_gl": ntt.launches[GOLDILOCKS.name],
-        "horner_combine": horner_combine.launches,
-        "sha256_field": hash_field.launches,
-        "fri_fold": fold.launches,
-        **{f"{k}_{short}": field_kernel.launches[k][spec.name]
-           for k in ("field_scan", "field_addsub") for short, spec in (("fr", FR), ("fq", FQ), ("gl", GOLDILOCKS))},
-    }
-
-
 def phase_plonk(device, log_n: int) -> dict:
     from zktpu_torch.fields.host import FR
     from zktpu_torch.kzg import Srs
@@ -840,7 +805,7 @@ def phase_plonk(device, log_n: int) -> dict:
 
     from zktpu_torch.fields.limbs import resolve
 
-    _reset_launches()
+    launch_counts.reset()
     t0 = time.perf_counter()
     circuit = synthetic_mul_chain(log_n, seed=1, device=device)
     srs = Srs.new_from_secret(SRS_SECRET, circuit.size, device=device)
@@ -855,7 +820,7 @@ def phase_plonk(device, log_n: int) -> dict:
     verify(circuit, srs, proof)
     t_verify = time.perf_counter() - t0
     plain_carries = resolve.cuda_calls
-    launches = _read_launches()
+    launches = launch_counts.read()
     path = ("mont_mul_fr", "mont_mul_fq", "proj_add", "ntt_fr", "horner_combine", "field_scan_fr", "field_addsub_fr")
     assert all(launches[k] > 0 for k in path), f"a kernel of the PLONK path never launched: {launches}"
     assert launches["proj_double"] == 0, f"the PLONK path doubled outside the Horner combine: {launches}"
@@ -907,14 +872,14 @@ def phase_msm(device, log_n: int):
     from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
     from zktpu_torch.tools import prof_mulkernels
 
-    _reset_launches()
+    launch_counts.reset()
     t0 = time.perf_counter()
     inputs = bench.make_inputs(log_n, device)
     setup = {k: round(v, 3) for k, v in inputs["seconds"].items()}
     print(f"phase 5: setup 2^{log_n} points and scalars {time.perf_counter() - t0:.3f} s {json.dumps(setup)}",
           flush=True)
     r = bench.run(log_n, iters=2, device=device, inputs=inputs)  # asserts msm_affine == msm_proj
-    launches = _read_launches()
+    launches = launch_counts.read()
     path = ("mont_mul_fq", "proj_add", "proj_madd", "horner_combine", "field_scan_fr", "field_scan_fq")
     assert all(launches[k] > 0 for k in path), f"a kernel of the MSM path never launched: {launches}"
     assert launches["proj_double"] == 0, f"the MSM path doubled outside the Horner combine: {launches}"
@@ -953,14 +918,14 @@ def phase_msm(device, log_n: int):
     )
     print(f"phase 5: launches {json.dumps(launches)}", flush=True)
 
-    _reset_launches()
+    launch_counts.reset()
     # the tool's field is Fq; Fr and Goldilocks for comparison (Goldilocks: base only, D < 16)
     for spec in (FQ, FR, GOLDILOCKS):
         variants = ("base",) if spec is GOLDILOCKS else prof_mulkernels.VARIANTS
         for row in prof_mulkernels.run(1 << 16, CHAIN, spec, variants, device=device):
             print(f"phase 5: prof_mulkernels {spec.name} {row['variant']} N={row['n']} CHAIN={row['chain']}: "
                   f"{row['ms_per_mul']:.5f} ms/mul, {row['mmul_per_s']:.2f} Mmul/s, MATCH", flush=True)
-    tool = _read_launches()
+    tool = launch_counts.read()
     chains = ("mont_mul_chain", "mont_mul_chain_mxu", "mont_mul_chain_f32")
     assert all(tool[k] > 0 for k in chains), f"the microbench never launched a body's kernel: {tool}"
     print(f"phase 5: microbench launches {json.dumps(tool)}", flush=True)
@@ -1233,7 +1198,7 @@ def phase_fri(device, log_n: int, results: dict) -> dict:
     p = GOLDILOCKS.modulus
     poly, coeffs = fri_poly(log_n - 1, SEED, device)
     torch.cuda.synchronize()
-    _reset_launches()
+    launch_counts.reset()
     t0 = time.perf_counter()
     proof = generate_proof(poly, 2, QUERIES)
     torch.cuda.synchronize()
@@ -1241,7 +1206,7 @@ def phase_fri(device, log_n: int, results: dict) -> dict:
     t0 = time.perf_counter()
     verify(proof)
     t_verify = time.perf_counter() - t0
-    launches = _read_launches()
+    launches = launch_counts.read()
     path = ("ntt_gl", "sha256_field", "fri_fold", "field_scan_gl")
     assert all(launches[k] > 0 for k in path), f"a kernel of the FRI path never launched: {launches}"
     assert launches["fri_fold"] == log_n - 1, f"the fold did not launch once a layer: {launches}"
@@ -1328,6 +1293,294 @@ def phase_fri(device, log_n: int, results: dict) -> dict:
     return launches
 
 
+def _json_ints(obj):
+    return json.loads(json.dumps(obj))
+
+
+def phase_nova_parity(device) -> None:
+    """7(a): zktpu's 4-step IVC (inputs 3, 4, 1, 2 on the x^3 + x + 5 R1CS,
+    SRS secret 424242) on the card, step by step equal to the committed
+    golden of zktpu's run (tests/goldens/nova.json): every hash, com_T, r,
+    instance and NIFS opening, and the states; and the opening of an
+    all-zero E."""
+    from zktpu_torch.kzg import KzgScheme, Srs
+    from zktpu_torch.nova.nifs import NIFS, gen_test_values
+    from zktpu_torch.nova.r1cs import FWitness
+    from zktpu_torch.tools.prof_nova import cubic_circuit, run_ivc
+    from zktpu_torch.transcript.transcripts import NovaTranscript
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens", "nova.json")) as f:
+        golden = json.load(f)
+    inputs = [3, 4, 1, 2]
+    r1cs, witnesses, xs = gen_test_values(inputs, device=device)
+    scheme = KzgScheme(Srs.new_from_secret(424242, len(witnesses[0]) + len(xs[0]) + 1, device=device))
+    run = run_ivc(scheme, r1cs, cubic_circuit(), lambda s: (witnesses[s], xs[s]), len(inputs), device)
+    assert _json_ints(run["records"]) == golden["records"], "the card's 4-step IVC differs from zktpu's golden"
+    assert run["states"] == golden["states"][: len(inputs)] + [golden["states"][len(inputs)]]
+    w0 = FWitness.new(witnesses[0], r1cs.matrix_a.shape[0], device)
+    proof = NIFS.prove(5, w0, w0.commit(scheme, xs[0]), scheme, NovaTranscript())
+    e = proof.opening_e
+    assert [proof.opening_point, [e.point.x, e.point.y, e.point.infinity, e.evaluation]] == \
+        [golden["zero_e"]["opening_point"], golden["zero_e"]["opening_e"]] == [golden["zero_e"]["opening_point"],
+                                                                              [0, 0, True, 0]]
+    print(f"phase 7: (a) zktpu's 4-step IVC on the card == its golden in every hash, com_T, r, instance and "
+          f"opening ({len(run['records']) - 2} folds); every step verified; an all-zero E opens to the identity",
+          flush=True)
+
+
+def phase_nova_gpu_cpu(device, log_m: int = 7, steps: int = 4) -> None:
+    """7(b): a 2^log_m squaring chain for `steps` steps with every tensor
+    path forced (HOST_MSM_MAX = HOST_POLY_MAX = 0), on the card and on the
+    CPU: equal in every record, state and folded word."""
+    import zktpu_torch.config as cfg
+    from zktpu_torch.kzg import KzgScheme, Srs
+    from zktpu_torch.tools import prof_nova as pn
+
+    saved = (cfg.HOST_MSM_MAX, cfg.HOST_POLY_MAX)
+    cfg.HOST_MSM_MAX = cfg.HOST_POLY_MAX = 0
+    runs, secs = {}, {}
+    try:
+        inputs = pn.chain_inputs(steps, SEED)
+        for dev in (device, torch.device("cpu")):
+            t0 = time.perf_counter()
+            r1cs = pn.chain_r1cs(log_m, dev)
+            scheme = KzgScheme(Srs.new_from_secret(SRS_SECRET, (1 << log_m) + 3, device=dev))
+            runs[dev.type] = pn.run_ivc(scheme, r1cs, pn.chain_circuit(), pn.chain_step_witness(log_m, inputs),
+                                        steps, dev)
+            secs[dev.type] = time.perf_counter() - t0
+    finally:
+        cfg.HOST_MSM_MAX, cfg.HOST_POLY_MAX = saved
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert _json_ints(gpu["records"]) == _json_ints(cpu["records"]), "the card's IVC records differ from the CPU's"
+    assert gpu["states"] == cpu["states"]
+    for a, b in zip(gpu["folded"][0].__dict__.values(), cpu["folded"][0].__dict__.values()):
+        assert torch.equal(a.cpu(), b), "the card's folded witness differs from the CPU's"
+    print(f"phase 7: (b) 2^{log_m} squaring chain, {steps} steps, tensor paths forced: GPU == CPU in every record, "
+          f"state and folded word (gpu {secs['cuda']:.2f} s, cpu {secs['cpu']:.2f} s)", flush=True)
+
+
+def phase_nova(device, log_m: int, steps: int) -> tuple[dict, dict]:
+    """7(c): the squaring chain at m = 2^log_m constraints for `steps` steps
+    (zktpu_torch.tools.prof_nova): every step's IVC.verify accepts; at step
+    2 a changed com_T and a changed public x are rejected; the first fold
+    satisfies the relaxed R1CS; the final state equals the host's
+    recomputation.  Launches counted from 0 just before the run and read
+    just after; then, outside the count, one traced two-step run."""
+    from zktpu_torch.kzg import KzgCommitment, KzgScheme, Srs
+    from zktpu_torch.curves.host_curve import G1Affine
+    from zktpu_torch.nova.ivc import ZkIVCProof
+    from zktpu_torch.nova.r1cs import FInstance, NovaError, is_r1cs_satisfied
+    from zktpu_torch.tools import prof_nova as pn
+    from zktpu_torch.transcript.transcripts import NovaTranscript
+
+    m = 1 << log_m
+    inputs = pn.chain_inputs(steps, SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts.reset()
+    t0 = time.perf_counter()
+    r1cs = pn.chain_r1cs(log_m, device)
+    scheme = KzgScheme(Srs.new_from_secret(SRS_SECRET, m + 3, device=device))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    checks = {}
+
+    def check_verify(step, ivc, zk):
+        if step != 2:
+            return
+        u = zk.u_i
+        bad_t = ZkIVCProof(u, zk.big_u_i, KzgCommitment(zk.com_t.point + G1Affine.generator()), zk.folded_u_proof)
+        bad_x = ZkIVCProof(FInstance(u.com_e, u.u, u.com_w, [(u.x[0] + 1)]), zk.big_u_i, zk.com_t, zk.folded_u_proof)
+        for what, bad in (("com_T", bad_t), ("public x", bad_x)):
+            try:
+                ivc.verify(bad, NovaTranscript())
+            except NovaError as e:
+                checks[what] = str(e)
+                continue
+            raise AssertionError(f"Nova: a step with a changed {what} was accepted")
+
+    def after_fold(step, fw, fu):
+        if step == 0:
+            is_r1cs_satisfied(r1cs, fu, fw, scheme)
+            checks["satisfied"] = True
+
+    t0 = time.perf_counter()
+    run = pn.run_ivc(scheme, r1cs, pn.chain_circuit(), pn.chain_step_witness(log_m, inputs), steps, device,
+                     check_verify=check_verify, after_fold=after_fold)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = launch_counts.read()
+    peak = torch.cuda.max_memory_allocated()
+    assert len(checks) == 3 or steps < 3, f"Nova checks missing: {checks}"
+    assert run["states"][-1] == pn.host_final_state(log_m, inputs), "the final state differs from the host's"
+    path = ("mont_mul_fr", "field_scan_fr", "field_addsub_fr", "horner_combine", "proj_add")
+    assert all(launches[k] > 0 for k in path), f"a kernel of the Nova path never launched: {launches}"
+    t = run["times"]
+    prove_med, verify_med = statistics.median(t["prove_s"]), statistics.median(t["verify_s"][1:])
+    print(f"phase 7: (c) Nova IVC, squaring chain m = 2^{log_m} ({m} constraints, n = {m + 3}), {steps} steps: "
+          f"setup {t_setup:.3f} s, run {t_run:.1f} s; per step prove median {prove_med:.4f} s, verify median "
+          f"{verify_med:.4f} s; every step verified, rejected: {checks.get('com_T')!r} (changed com_T), "
+          f"{checks.get('public x')!r} (changed x); the first fold satisfies the relaxed R1CS; final state == "
+          f"host; peak memory {peak / 1e9:.2f} GB (max_memory_allocated); {_smi()}", flush=True)
+    print(f"phase 7: prove_s {[round(v, 4) for v in t['prove_s']]}", flush=True)
+    print(f"phase 7: verify_s {[round(v, 4) for v in t['verify_s']]}", flush=True)
+    print(f"phase 7: launches {json.dumps(launches)}", flush=True)
+    del run
+    split = pn.split_step(scheme, r1cs, inputs, log_m, device)
+    print(f"phase 7: split of one fold step (s): {json.dumps({k: round(v, 4) for k, v in split.items()})}", flush=True)
+    summary, table = pn.trace_step(scheme, r1cs, inputs, log_m, device)
+    print(table, file=sys.stderr)
+    print(f"phase 7: one traced two-step run (one fold, outside the count): {summary['launch_calls']} kernel launch "
+          f"calls, {summary['device_kernels']} device kernels, wall {summary['wall_s']:.3f} s, device "
+          f"{summary['device_s']:.3f} s (idle {100 * summary['idle_share']:.1f}%); by kernel ms "
+          f"{json.dumps({k: round(v, 3) for k, v in summary['by_kernel_ms'].items()})}", flush=True)
+    return launches, {"r1cs": r1cs, "z": pn.chain_witness(inputs[0], m)}
+
+
+def phase_nova_kernels(device, nova: dict) -> None:
+    """7(d): the matrix-vector product's kernels against their plain versions
+    at the path's shapes, on slices (the plain product widens to int64
+    digits): mont_mul on the first 64 rows of A times z[None] (z read in
+    place), the axis-1 sum on 256 rows of the product at their full length;
+    then each kernel at the full (m, n, 8) shape, kernel only, beside its
+    byte bound.  Outside the counted path."""
+    from zktpu_torch.fields import field_kernel as fk
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fields.host import FR
+    from zktpu_torch.fields.mont_kernel import _broadcast_operand, mont_mul, mont_mul_plain
+
+    f = field(FR, device)
+    A = nova["r1cs"].matrix_a
+    m, n = A.shape[0], A.shape[1]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 7)
+    z = torch.cat([f.encode_ints(nova["z"]), f.encode_ints([nova["z"][-1], 1])])  # [W || x || u]
+    assert z.shape[0] == n
+    # A with random entries in its first 256 rows, so that the slices hold more than 0 and 1
+    Ar = _field_rows(f, gen, 256 * n)[:, 0].reshape(256, n, 8)
+    operand, rows = _broadcast_operand(z[None], torch.Size((m, n)))
+    assert rows == n and operand.data_ptr() == z.data_ptr(), "z[None] was not passed in place"
+    for name, mat in (("A", A[:64]), ("random rows", Ar[:64])):
+        got = mont_mul(FR, mat, z[None])
+        want, plain_ms = _timed_once(lambda: mont_mul_plain(FR, mat, z[None]))
+        _compare(f"mont_mul Fr at (64, {n}, 8) x (1, {n}, 8) ({name})", [got], [want])
+        ms = _cuda_ms(lambda: mont_mul(FR, mat, z[None]), 20)
+        print(f"phase 7: (d) mont_mul Fr at (64, {n}, 8) x z[None] of {name}: mismatches=0 kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f}", flush=True)
+    prod = mont_mul(FR, Ar, z[None])
+    got = f.sum(prod, axis=1)
+    want, plain_ms = _timed_once(lambda: fk.sum_plain(f, prod, 1))
+    _compare(f"field_scan Fr sum axis 1 of (256, {n}, 8)", [got], [want])
+    ms = _cuda_ms(lambda: f.sum(prod, axis=1), 20)
+    print(f"phase 7: (d) field_scan Fr sum axis 1 of (256, {n}, 8): mismatches=0 kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f}", flush=True)
+    del Ar, prod, got, want
+    torch.cuda.empty_cache()
+    # at the full shape a launch runs for milliseconds and the host enqueues the next ones meanwhile, so
+    # CUDA events over a few calls time the kernels alone (torch.profiler's traces of this process can
+    # come back empty after phase 7(c)'s)
+    E = 32
+    full = mont_mul(FR, A, z[None])
+    ms_mul = _cuda_ms(lambda: mont_mul(FR, A, z[None]), 5)
+    b_mul = _bound((2 * m * n + n) * E, m * n * _mont_words(8))
+    ms_sum = _cuda_ms(lambda: f.sum(full, axis=1), 5)
+    b_sum = _bound((m * n + m) * E, (n - 1) * m * 8)  # an add counts as L word operations, as in phase 2
+    ms_mv = _cuda_ms(lambda: f.sum(mont_mul(FR, A, z[None]), axis=1), 5)
+    print(f"phase 7: (d) full shape, CUDA events over 5 calls: mont_mul Fr (m, n, 8) = ({m}, {n}, 8) x (1, {n}, 8) "
+          f"{ms_mul:.4f} ms, bound {b_mul['bound_ms']:.4f} ms ({b_mul['bound_by']}); field_scan Fr sum axis 1 "
+          f"{ms_sum:.4f} ms, bound {b_sum['bound_ms']:.4f} ms ({b_sum['bound_by']}); matrix_vector_product "
+          f"{ms_mv:.4f} ms against {b_mul['bound_ms'] + b_sum['bound_ms']:.4f} ms of bound; {_smi()}", flush=True)
+    del full
+    torch.cuda.empty_cache()
+
+
+def sum_of_products(terms: int, seed: int, constant: int = 3):
+    """An equation 'constant*c^2 + a0*b0 + ... = out' in parse_string's
+    grammar with witnesses from numpy's default_rng(seed), out its value:
+    2 terms + 4 gates."""
+    import numpy as np
+
+    from zktpu_torch.fields.host import FR
+
+    words = np.random.default_rng(seed).integers(0, 1 << 32, size=(2 * terms + 1, 8), dtype=np.uint64)
+    vals = [sum(int(w) << (32 * i) for i, w in enumerate(row)) % FR.modulus for row in words]
+    wit = {"c": vals[0]}
+    out = constant * vals[0] * vals[0]
+    parts = [f"{constant}*c^2"]
+    for i in range(terms):
+        a, b = vals[1 + 2 * i], vals[2 + 2 * i]
+        wit[f"a{i}"], wit[f"b{i}"] = a, b
+        out += a * b
+        parts.append(f"a{i}*b{i}")
+    wit["out"] = out % FR.modulus
+    return " + ".join(parts) + " = out", wit
+
+
+def phase_parser(device, log_n: int) -> dict:
+    """8: a sum-of-products equation that compiles to 2^log_n gates, parsed
+    (zktpu_torch.plonk.parser) with witnesses from SEED, proved and verified
+    on the card; a proof of a different equation (another constant) is
+    rejected; CPIGenerator's eight commitments (MSMs on the card) equal the
+    prover's commitments of the same polynomials.  Launches counted from 0
+    just before the parse and read just after the CPI."""
+    from zktpu_torch.kzg import KzgScheme, Srs
+    from zktpu_torch.plonk.cpi import CPIGenerator
+    from zktpu_torch.plonk.parser import Parser
+    from zktpu_torch.plonk.prover import generate_proof
+    from zktpu_torch.plonk.verifier import PlonkVerificationError, verify
+    from zktpu_torch.transcript.chacha import StdRng
+
+    terms = ((1 << log_n) - 4) // 2
+    launch_counts.reset()
+    t0 = time.perf_counter()
+    compiled = {}
+    for const in (3, 5):
+        eq, wit = sum_of_products(terms, SEED, const)
+        p = Parser()
+        for k, v in wit.items():
+            p.add_witness(k, v)
+        circuit = p.parse(eq)
+        assert len(circuit.gates) == 2 * terms + 4
+        compiled[const] = eq, circuit.compile(device)
+    t_parse = time.perf_counter() - t0
+    eq, c3 = compiled[3]
+    assert c3.size == 1 << log_n, c3.size
+    srs = Srs.new_from_secret(SRS_SECRET, c3.size, device=device)
+    t0 = time.perf_counter()
+    proof = generate_proof(c3, srs, StdRng.from_seed_u64(SEED))
+    t_prove = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verify(c3, srs, proof)
+    t_verify = time.perf_counter() - t0
+    other = generate_proof(compiled[5][1], srs, StdRng.from_seed_u64(SEED))
+    verify(compiled[5][1], srs, other)
+    try:
+        verify(c3, srs, other)
+    except PlonkVerificationError:
+        pass
+    else:
+        raise AssertionError("a proof of another equation was accepted")
+    scheme = KzgScheme(srs)
+    t0 = time.perf_counter()
+    cpi = CPIGenerator().compute_common_preprocessed_input(eq, scheme)
+    t_cpi = time.perf_counter() - t0
+    launches = launch_counts.read()
+    gc, cc = c3.gate_constraints, c3.copy_constraints
+    polys = (gc.q_lx, gc.q_rx, gc.q_mx, gc.q_ox, gc.q_cx, cc.s_sigma_1, cc.s_sigma_2, cc.s_sigma_3)
+    names = ("com_q_lx", "com_q_rx", "com_q_mx", "com_q_ox", "com_q_cx", "com_s_sigma_1", "com_s_sigma_2",
+             "com_s_sigma_3")
+    for name, com in zip(names, scheme.commit_many(list(polys))):
+        assert getattr(cpi, name) == com, f"CPI's {name} differs from the prover's commitment"
+    assert (cpi.n, cpi.k1, cpi.k2) == (c3.size, cc.k1, cc.k2) and cpi.pi_x == gc.pi_x
+    path = ("mont_mul_fr", "proj_add", "ntt_fr", "horner_combine", "field_scan_fr", "field_addsub_fr")
+    assert all(launches[k] > 0 for k in path), f"a kernel of the parser path never launched: {launches}"
+    print(f"phase 8: parser + CPI, '{eq[:40]} ...' ({terms} products, {c3.size} gates): parse + compile of two "
+          f"equations {t_parse:.2f} s, prove {t_prove:.3f} s, verify {t_verify:.3f} s, CPI {t_cpi:.2f} s; the proof "
+          f"verifies, a proof of another equation is rejected, CPI's 8 commitments == the prover's", flush=True)
+    print(f"phase 8: launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
 # The kernels of the paths.
 _SOURCES = {
     "mont_mul_fr": ("zktpu_torch/csrc/mont_mul.cu", "zktpu/fields/pallas_mont.py:363"),
@@ -1370,6 +1623,8 @@ def main(argv=None) -> int:
     ap.add_argument("--log-n", type=int, default=14, help="log2 of the PLONK path's circuit size")
     ap.add_argument("--msm-log-n", type=int, default=20, help="log2 of the MSM path's point count")
     ap.add_argument("--fri-log-n", type=int, default=20, help="log2 of the FRI path's domain (blowup 2)")
+    ap.add_argument("--nova-log-m", type=int, default=14, help="log2 of the Nova path's R1CS constraints")
+    ap.add_argument("--nova-steps", type=int, default=64, help="IVC steps of the Nova path")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1423,13 +1678,22 @@ def main(argv=None) -> int:
     del inputs
     torch.cuda.empty_cache()
     fri = phase_fri(device, args.fri_log_n, kernels)
+    torch.cuda.empty_cache()
+    phase_nova_parity(device)
+    phase_nova_gpu_cpu(device)
+    nova_path, nova = phase_nova(device, args.nova_log_m, args.nova_steps)
+    phase_nova_kernels(device, nova)
+    del nova
+    torch.cuda.empty_cache()
+    parser = phase_parser(device, args.log_n)
 
     rows = []
     for name, (source, replaces) in _SOURCES.items():
         k = kernels[name]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": plonk[name] + msm_path[name] + tool[name] + fri[name], "max_abs_err": k["max_abs_err"],
+            "launches": plonk[name] + msm_path[name] + tool[name] + fri[name] + nova_path[name] + parser[name],
+            "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             # no PyTorch call computes a Montgomery product, a curve add, a Montgomery NTT or SHA-256
             "library_ms": None,

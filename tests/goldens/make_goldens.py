@@ -1,6 +1,7 @@
 """Write the goldens that the port's CPU tests compare against, from zktpu.
 
-    JAX_PLATFORMS=cpu python tests/goldens/make_goldens.py [field_ops] [fri] [mont_mma]
+    JAX_PLATFORMS=cpu python tests/goldens/make_goldens.py [field_ops] [fri] [fri_cases] [mont_mma] [nova] [kzg_vector] [parser]
+        [mont_mul_words] [plonk]
 
 - field_ops.npz: zktpu's DeviceField (cumprod and cumsum both ways, sum on
   axis 0 and 1, powers, batch_inv, add, sub, neg, double) on the inputs of
@@ -17,6 +18,33 @@
   times and one product's two f32 accumulators (the values its conv_full
   converts to int32), and mont_matmats; words as the port's (..., L) int32
   limbs, columns as (N, columns) int32 and the matrices as uint8.
+
+- fri_cases.json: zktpu's FRI pieces that tests/test_torch_fri.py compares
+  with: its proofs of CASES (with its NTT host tier raised to 2^8), a
+  128-point coset evaluation, folds at 2, 5 and 64 coefficients, and Merkle
+  trees (levels, root and every proof) over Goldilocks and one over Fr;
+- nova.json and nova.npz: zktpu's 4-step IVC of tests/test_nova.py (inputs
+  3, 4, 1, 2, SRS secret 424242), step by step as
+  zktpu_torch.tools.prof_nova.run_ivc records it (the hash h_(i+1), com_T,
+  r, the new and the folded instance, the NIFS openings), its states, an
+  opening of an all-zero E, the x^3 + x + 5 R1CS, the first witness and
+  instance and the first fold's pair (for the converters); and
+  matrix_vector_product, compute_t and fold_witness on an 8-squaring chain
+  with operands from numpy's default_rng;
+- kzg_vector.json: the cases of tests/test_g1_msm_kzg.py:104-125 (scalar
+  homomorphism, aggregate, batch_verify with StdRng seed 99 accepting and,
+  with one evaluation changed, rejecting, the empty commit), commit_vector
+  and open_vector, and StdRng(99)'s first gen_u128 draws;
+- parser.json: the PLONK proofs (as tests/test_torch_parser.py's
+  proof_bytes, hex) of tests/test_parser.py's equations (SRS secret 31337,
+  StdRng seeds 5, 6 and 9) and the CPI commitments of the first;
+- mont_mul_words.npz: for Fr, Fq and Goldilocks, tests/test_torch_fields.py's
+  operands as zktpu's encode_ints gives them and their _mont_mul_jnp
+  product, as zktpu's (N, D) uint32 digits;
+- plonk_pythagorean.json and .npz: tests/test_torch_plonk.py's reference,
+  zktpu's proof of the Pythagorean circuit (SRS secret SECRET, StdRng seed
+  SEED), the SRS's host points, G2 points and (X, Y, Z) digit planes, and
+  the compiled circuit's polynomial and evaluation digits, size, k1, k2.
 
 Run once; the tests need neither JAX nor zktpu for these comparisons.  Not
 collected by pytest.
@@ -187,7 +215,293 @@ def mont_mma() -> None:
     np.savez_compressed(os.path.join(HERE, "mont_mma.npz"), **out)
 
 
+def _dump(name: str, obj) -> None:
+    with open(os.path.join(HERE, name), "w") as f:
+        json.dump(obj, f, separators=(",", ":"))
+
+
+def _point(p) -> list:
+    return [int(p.x), int(p.y), bool(p.infinity)]
+
+
+def fri_cases() -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import test_torch_fri as t
+    from zktpu.fields import host as z_host
+    from zktpu.fri import merkle as z_merkle
+    from zktpu.fri import prover as z_prover
+    from zktpu.poly import domain as z_domain
+    from zktpu.poly.poly import Poly as ZPoly
+    from zktpu_torch.convert import fri_proof_to_ints, goldilocks_digits_to_limbs
+
+    GL = z_host.GOLDILOCKS
+    out = {"proofs": {}, "folds": {}, "merkle": {}}
+    saved = z_domain.HOST_NTT_MAX
+    z_domain.HOST_NTT_MAX = 1 << 8
+    try:
+        for case in t.CASES:
+            proof = z_prover.generate_proof(ZPoly.from_ints(GL, t._coeffs(case[0], case[0])), case[1], case[2])
+            out["proofs"][t.case_id(case)] = fri_proof_to_ints(proof)
+    finally:
+        z_domain.HOST_NTT_MAX = saved
+    coeffs = t._coeffs(64, 64)
+    want = z_domain.get_domain(GL, 128).coset_fft(ZPoly.from_ints(GL, coeffs)._padded(128), GL.generator)
+    out["coset_fft_128"] = goldilocks_digits_to_limbs(np.asarray(want)).tolist()
+    for n in t.FOLD_SIZES:
+        coeffs, r = t.fold_inputs(n)
+        folded = z_prover.fold_polynomial(ZPoly.from_ints(GL, coeffs), r)
+        out["folds"][str(n)] = {"limbs": goldilocks_digits_to_limbs(np.asarray(folded.coeffs)).tolist(),
+                                "ints": folded.to_ints()}
+
+    def tree(vals, spec):
+        tr = z_merkle.MerkleTree(vals, spec)
+        proofs = []
+        for i in range(len(tr.leaves)):
+            try:
+                pr = tr.generate_proof(i)
+            except IndexError:
+                proofs.append(None)
+                continue
+            proofs.append([pr.index, pr.leaf_val, list(pr.hash_proof), pr.root])
+        return {"internal_nodes": tr.internal_nodes, "root": tr.root(), "leaves": tr.leaves, "depth": tr.depth,
+                "proofs": proofs}
+
+    for n in t.MERKLE_SIZES:
+        out["merkle"][str(n)] = tree(t._coeffs(n, 100 + n), GL)
+    out["merkle_fr"] = tree(t.FR_TREE_VALUES, z_host.FR)
+    _dump("fri_cases.json", out)
+
+
+def _zk_ivc_records(scheme, r1cs, f_circuit, witnesses, xs, steps: int) -> tuple[list, list]:
+    """zktpu's IVC loop (examples/nova_example.py) with the records of
+    zktpu_torch.tools.prof_nova.run_ivc."""
+    from zktpu.nova.circuit import AugmentedCircuit, State, base_to_scalar, hash_io
+    from zktpu.nova.ivc import IVC, IVCProof, ZkIVCProof
+    from zktpu.nova.r1cs import FInstance, FWitness, create_trivial_pair
+    from zktpu.transcript.transcripts import NovaTranscript
+    from zktpu_torch.convert import finstance_to_ints
+
+    m = r1cs.matrix_a.shape[0]
+    w = [FWitness.new(wi, m) for wi in witnesses]
+    u = [wi.commit(scheme, xi) for wi, xi in zip(w, xs)]
+    trivial_witness, trivial_instance = create_trivial_pair(len(xs[0]), len(witnesses[0]), scheme)
+    z = [State(0)]
+    for index in range(1, steps + 1):
+        z.append(f_circuit.run(z[index - 1], w[index - 1]))
+    verifier_transcript = NovaTranscript()
+    augmented = AugmentedCircuit(f_circuit, trivial_instance, z[0])
+    ivc = IVC(scheme, augmented)
+    ivc_proof = IVCProof.trivial_ivc_proof(trivial_instance, trivial_witness)
+    zk = ZkIVCProof.trivial_zk_ivc_proof(trivial_instance)
+    folded_witness, folded_instance = trivial_witness, trivial_instance
+    records = [{"u0": finstance_to_ints(u[0]), "trivial": finstance_to_ints(trivial_instance)}]
+    for step in range(steps):
+        if step == 0:
+            h = augmented.run(u[step], None, w[step], None)
+        else:
+            h = augmented.run(ivc_proof.u_i, ivc_proof.big_u_i, ivc_proof.w_i, zk.com_t)
+        ivc.verify(zk, verifier_transcript)
+        rec = {"step": step, "h": int(h)}
+        if step != steps - 1:
+            augmented.next_step()
+            assert augmented.z_i.state == z[step + 1].state
+            prover_transcript = NovaTranscript()
+            verifier_transcript = NovaTranscript()
+            hash_x = hash_io(step + 1, z[0], z[step + 1], folded_instance)
+            u[step + 1] = FInstance(com_e=u[step + 1].com_e, u=u[step + 1].u, com_w=u[step + 1].com_w,
+                                    x=[base_to_scalar(hash_x)])
+            ivc_proof = IVCProof(u[step + 1], w[step + 1], folded_instance, folded_witness)
+            folded_witness, folded_instance, zk = ivc.prove(r1cs, ivc_proof, prover_transcript)
+            nifs = zk.folded_u_proof
+            rec.update({
+                "u_i": finstance_to_ints(u[step + 1]), "com_t": _point(zk.com_t.point), "r": int(nifs.r),
+                "folded": finstance_to_ints(folded_instance), "opening_point": int(nifs.opening_point),
+                "opening_e": _point(nifs.opening_e.point) + [int(nifs.opening_e.evaluation)],
+                "opening_w": _point(nifs.opening_w.point) + [int(nifs.opening_w.evaluation)],
+            })
+        records.append(rec)
+    return records, [int(s.state) for s in z]
+
+
+def nova() -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import test_torch_nova as t
+    from zktpu.fields import host as zhost
+    from zktpu.fields.fp import device_field
+    from zktpu.kzg import KzgScheme, Srs
+    from zktpu.nova import utils as zu
+    from zktpu.nova.circuit import FCircuit, State
+    from zktpu.nova.nifs import NIFS, gen_test_values
+    from zktpu.nova.r1cs import FWitness, R1CS
+    from zktpu.transcript.transcripts import NovaTranscript
+    from zktpu_torch.convert import digits_to_limbs, finstance_to_ints
+
+    FRD = device_field(zhost.FR)
+
+    class TestCircuitF(FCircuit):
+        def run(self, z_i, w_i):
+            x = FRD.decode_int(w_i.w[0])
+            res = (x**3 + x + 5) % zhost.FR.modulus
+            base_res = zhost.FQ.from_le_bytes_mod_order(res.to_bytes(32, "little"))
+            return State(state=(z_i.state + base_res) % zhost.FQ.modulus)
+
+    r1cs, witnesses, xs = gen_test_values(t.INPUTS)
+    scheme = KzgScheme(Srs.new_from_secret(t.SRS_SECRET, len(witnesses[0]) + len(xs[0]) + 1))
+    records, states = _zk_ivc_records(scheme, r1cs, TestCircuitF(), witnesses, xs, len(t.INPUTS))
+    m = r1cs.matrix_a.shape[0]
+    w0 = FWitness.new(witnesses[0], m)
+    u0 = w0.commit(scheme, xs[0])
+    w1 = FWitness.new(witnesses[1], m)
+    u1 = w1.commit(scheme, xs[1])
+    fw, fu, _, _ = NIFS.prover(r1cs, w0, w1, u0, u1, scheme, NovaTranscript())
+    zero_e = NIFS.prove(t.ZERO_E_R, w0, u0, scheme, NovaTranscript())
+    arrays = {"a": r1cs.matrix_a, "b": r1cs.matrix_b, "c": r1cs.matrix_c, "w0_e": w0.e, "w0_w": w0.w,
+              "fold_e": fw.e, "fold_w": fw.w}
+    out = {
+        "records": records, "states": states, "u0": finstance_to_ints(u0), "fold": finstance_to_ints(fu),
+        "zero_e": {"opening_point": int(zero_e.opening_point),
+                   "opening_e": _point(zero_e.opening_e.point) + [int(zero_e.opening_e.evaluation)],
+                   "opening_w": _point(zero_e.opening_w.point) + [int(zero_e.opening_w.evaluation)]},
+    }
+    # matrix_vector_product, compute_t and fold_witness on the 8-squaring chain
+    a_rows, b_rows, c_rows = t.chain_rows(t.CHAIN_LOG_M)
+    chain = R1CS(zu.to_f_matrix(a_rows), zu.to_f_matrix(b_rows), zu.to_f_matrix(c_rows), num_io=1,
+                 num_vars=(1 << t.CHAIN_LOG_M) + 1)
+    ops = t.chain_operands()
+    z1, z2 = zu.to_f_vec(ops["z1"]), zu.to_f_vec(ops["z2"])
+    tt = NIFS.compute_t(chain, ops["u1"], ops["u2"], z1, z2)
+    f1 = FWitness(e=zu.to_f_vec(ops["e1"]), w=zu.to_f_vec(ops["w1"]))
+    f2 = FWitness(e=zu.to_f_vec(ops["e2"]), w=zu.to_f_vec(ops["w2"]))
+    folded = NIFS.fold_witness(ops["r"], f1, f2, tt)
+    arrays.update({"chain_a": chain.matrix_a, "chain_az1": zu.matrix_vector_product(chain.matrix_a, z1),
+                   "chain_cz2": zu.matrix_vector_product(chain.matrix_c, z2), "chain_t": tt,
+                   "chain_fold_e": folded.e, "chain_fold_w": folded.w})
+    _dump("nova.json", out)
+    np.savez_compressed(os.path.join(HERE, "nova.npz"), **{k: digits_to_limbs(np.asarray(v)) for k, v in arrays.items()})
+
+
+def kzg_vector() -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import test_torch_kzg_vector as t
+    from zktpu.fields import host as zhost
+    from zktpu.kzg import KzgScheme, Srs
+    from zktpu.poly.poly import Poly
+    from zktpu.transcript.chacha import StdRng
+
+    scheme = KzgScheme(Srs.new_from_secret(t.SECRET, t.SRS_SIZE))
+    FR = zhost.FR
+    poly = Poly.from_ints(FR, t.HOMOMORPHISM)
+    f1, f2 = Poly.from_ints(FR, t.AGGREGATE[0]), Poly.from_ints(FR, t.AGGREGATE[1])
+    c1, c2 = scheme.commit(f1), scheme.commit(f2)
+    polys = [Poly.from_ints(FR, c) for c in t.BATCH_POLYS]
+    openings = [scheme.open(f, z) for f, z in zip(polys, t.BATCH_POINTS)]
+    commits = [scheme.commit(f) for f in polys]
+    accept = scheme.batch_verify(commits, t.BATCH_POINTS, openings, StdRng.from_seed_u64(t.RNG_SEED))
+    bad = list(openings)
+    bad[2] = type(bad[2])(bad[2].point, bad[2].evaluation + 1)
+    reject = scheme.batch_verify(commits, t.BATCH_POINTS, bad, StdRng.from_seed_u64(t.RNG_SEED))
+    rng = StdRng.from_seed_u64(t.RNG_SEED)
+    vec_open = scheme.open_vector(t.HOMOMORPHISM, t.VECTOR_POINT)
+    out = {
+        "homomorphism": {"c1": _point(scheme.commit(poly).point),
+                         "c2": _point(scheme.commit(poly.scale(t.FACTOR)).point),
+                         "c1_mul": _point(scheme.commit(poly).mul(t.FACTOR).point)},
+        "aggregate": {"c1": _point(c1.point), "c2": _point(c2.point),
+                      "batch": _point(KzgScheme.aggregate_commitments([c1, c2], t.CHALLENGE).point)},
+        "batch": {"commits": [_point(c.point) for c in commits],
+                  "openings": [_point(o.point) + [int(o.evaluation)] for o in openings],
+                  "accept": bool(accept), "reject_changed_evaluation": bool(reject)},
+        "empty": _point(scheme.commit(Poly.zero(FR)).point),
+        "vector": {"commit": _point(scheme.commit_vector(t.HOMOMORPHISM).point),
+                   "open": _point(vec_open.point) + [int(vec_open.evaluation)]},
+        "gen_u128": [int(rng.gen_u128()) for _ in range(len(t.BATCH_POINTS))],
+    }
+    assert accept and not reject
+    _dump("kzg_vector.json", out)
+
+
+def parser() -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import test_torch_parser as t
+    from zktpu.kzg import KzgScheme, Srs
+    from zktpu.plonk.cpi import CPIGenerator
+    from zktpu.plonk.parser import Parser
+    from zktpu.plonk.prover import generate_proof
+    from zktpu.transcript.chacha import StdRng
+
+    srs = Srs.new_from_secret(t.SRS_SECRET, t.SRS_SIZE)
+    proofs = {}
+    for name, (eq, wit, seed) in t.PROOFS.items():
+        p = Parser()
+        for k, v in wit.items():
+            p.add_witness(k, v)
+        proofs[name] = t.proof_bytes(generate_proof(p.parse(eq).compile(), srs, rng=StdRng.from_seed_u64(seed))).hex()
+    cpi = CPIGenerator().compute_common_preprocessed_input(t.PROOFS["e2e"][0], KzgScheme(srs))
+    out = {"proofs": proofs, "cpi": {"n": cpi.n, "k1": cpi.k1, "k2": cpi.k2,
+                                     **{k: _point(getattr(cpi, k).point) for k in t.CPI_COMMITS},
+                                     "pi_x": [int(v) for v in cpi.pi_x.to_ints()]}}
+    _dump("parser.json", out)
+
+
+def mont_mul_words() -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import test_torch_fields as t
+    from zktpu.fields.fp import device_field
+
+    out = {}
+    for spec in t.SPECS:
+        df = device_field(spec)
+        ad, bd = (df.encode_ints(v) for v in t._operands(spec))
+        out.update({f"{spec.name}/a": np.asarray(ad), f"{spec.name}/b": np.asarray(bd),
+                    f"{spec.name}/want": np.asarray(df._mont_mul_jnp(ad, bd))})
+    np.savez_compressed(os.path.join(HERE, "mont_mul_words.npz"), **out)
+
+
+def plonk() -> None:
+    import dataclasses
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import test_torch_plonk as t
+    from zktpu.plonk.circuit import Circuit as ZCircuit
+    from zktpu.plonk.prover import generate_proof
+    from zktpu.transcript.chacha import StdRng
+
+    zc = t.pythagorean(ZCircuit).compile()
+    zsrs = t.zktpu_srs(t.SECRET, zc.size)
+    proof = generate_proof(zc, zsrs, StdRng.from_seed_u64(t.SEED))
+    gc, cc = zc.gate_constraints, zc.copy_constraints
+    arrays = {f"coeffs/{n}": np.asarray(getattr(gc, n).coeffs) for n in t.GATE_POLYS}
+    arrays.update({f"coeffs/{n}": np.asarray(getattr(cc, n).coeffs) for n in t.COPY_POLYS})
+    arrays.update({f"evals/{k}": np.asarray(v) for k, v in {**gc.evals, **cc.evals}.items()})
+    arrays.update({f"g1_proj/{i}": np.asarray(a) for i, a in enumerate(zsrs.g1_proj)})
+    np.savez_compressed(os.path.join(HERE, "plonk_pythagorean.npz"), **arrays)
+
+    def g2(p):
+        return [int(p.x.c0), int(p.x.c1), int(p.y.c0), int(p.y.c1)]
+
+    _dump("plonk_pythagorean.json", {
+        "size": zc.size, "k1": cc.k1, "k2": cc.k2, "srs_size": zsrs.size,
+        "g2": g2(zsrs.g2()), "g2s": g2(zsrs.g2s()), "srs_points": [_point(p) for p in zsrs.g1_points_host()],
+        "proof": {f.name: _point(getattr(proof, f.name).point) if hasattr(getattr(proof, f.name), "point")
+                  else int(getattr(proof, f.name)) for f in dataclasses.fields(proof)},
+    })
+
+
+TARGETS = {"field_ops": field_ops, "fri": fri, "fri_cases": fri_cases, "mont_mma": mont_mma, "nova": nova,
+           "kzg_vector": kzg_vector, "parser": parser, "mont_mul_words": mont_mul_words, "plonk": plonk}
+
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["field_ops", "fri", "mont_mma"]
-    for name in which:
-        {"field_ops": field_ops, "fri": fri, "mont_mma": mont_mma}[name]()
+    for name in sys.argv[1:] or list(TARGETS):
+        TARGETS[name]()

@@ -469,3 +469,94 @@ def test_fri_proof_gpu_equals_cpu(device):
     cpu = generate_proof(Poly.from_ints(GOLDILOCKS, coeffs, device="cpu"), 2, 8)
     assert fri_proof_to_ints(gpu) == fri_proof_to_ints(cpu)
     verify(gpu)
+
+
+def test_matrix_vector_product_reads_z_in_place(device):
+    """Nova's A z: z[None] reaches the product kernel in place (modulo
+    indexing over its n rows), so the product's only (m, n, 8) temporary is
+    its output; the product and the axis-1 sum equal the plain versions."""
+    from zktpu_torch.fields import field_kernel
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fields.mont_kernel import _broadcast_operand, mont_mul_plain
+    from zktpu_torch.nova.utils import matrix_vector_product
+    from zktpu_torch.tools.prof_nova import chain_r1cs
+
+    f = field(FR, device)
+    log_m = 9
+    A = chain_r1cs(log_m, device).matrix_a
+    m, n = A.shape[:2]
+    rng = random.Random(9)
+    z = f.encode_ints([rng.randrange(FR.modulus) for _ in range(n)])
+    A[:, :, :] = f.encode_ints([rng.randrange(FR.modulus) for _ in range(m * n)]).reshape(m, n, 8)
+    operand, rows = _broadcast_operand(z[None], torch.Size((m, n)))
+    assert rows == n and operand.data_ptr() == z.data_ptr()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = matrix_vector_product(A, z)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= A.numel() * 4 + (1 << 20)  # one (m, n, 8) product
+    want = field_kernel.sum_plain(f, mont_mul_plain(FR, A, z[None]), 1)
+    assert torch.equal(got, want)
+
+
+def test_nova_chain_gpu_equals_cpu(device):
+    """A 2^5 squaring chain, 3 IVC steps with every tensor path forced
+    (HOST_MSM_MAX = HOST_POLY_MAX = 0): the card's records, states and
+    folded witness equal the CPU's; the product, sum, add/sub and MSM
+    kernels launched."""
+    import zktpu_torch.config as cfg
+    from zktpu_torch.kzg import KzgScheme, Srs
+    from zktpu_torch.tools import launches
+    from zktpu_torch.tools import prof_nova as pn
+
+    log_m, steps = 5, 3
+    inputs = pn.chain_inputs(steps, 11)
+    saved = (cfg.HOST_MSM_MAX, cfg.HOST_POLY_MAX)
+    cfg.HOST_MSM_MAX = cfg.HOST_POLY_MAX = 0
+    runs = {}
+    try:
+        for dev in (device, torch.device("cpu")):
+            launches.reset()
+            r1cs = pn.chain_r1cs(log_m, dev)
+            scheme = KzgScheme(Srs.new_from_secret(0x5EED5EED, (1 << log_m) + 3, device=dev))
+            runs[dev.type] = pn.run_ivc(scheme, r1cs, pn.chain_circuit(), pn.chain_step_witness(log_m, inputs),
+                                        steps, dev)
+            if dev.type == "cuda":
+                counts = launches.read()
+                assert all(counts[k] > 0 for k in ("mont_mul_fr", "field_scan_fr", "field_addsub_fr",
+                                                   "horner_combine", "proj_add")), counts
+    finally:
+        cfg.HOST_MSM_MAX, cfg.HOST_POLY_MAX = saved
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert gpu["records"] == cpu["records"] and gpu["states"] == cpu["states"]
+    assert torch.equal(gpu["folded"][0].e.cpu(), cpu["folded"][0].e)
+    assert torch.equal(gpu["folded"][0].w.cpu(), cpu["folded"][0].w)
+    assert gpu["states"][-1] == pn.host_final_state(log_m, inputs)
+
+
+def test_parser_proof_on_the_card_equals_cpu(device):
+    """tests/test_parser.py's equation parsed, compiled and proved on the
+    card equals the CPU's proof; CPI's commitments on the card equal the
+    CPU's."""
+    from zktpu_torch.kzg import KzgScheme, Srs
+    from zktpu_torch.plonk.cpi import CPIGenerator
+    from zktpu_torch.plonk.parser import Parser
+    from zktpu_torch.plonk.prover import generate_proof
+    from zktpu_torch.plonk.verifier import verify
+    from zktpu_torch.transcript.chacha import StdRng
+
+    eq = "x*y+3*x^2+x*y*z=11"
+    proofs, cpis = {}, {}
+    for dev in (device, torch.device("cpu")):
+        p = Parser()
+        for k, v in {"x": 1, "y": 2, "z": 3}.items():
+            p.add_witness(k, v)
+        compiled = p.parse(eq).compile(dev)
+        srs = Srs.new_from_secret(31337, 20, device=dev)
+        proofs[dev.type] = generate_proof(compiled, srs, rng=StdRng.from_seed_u64(5))
+        verify(compiled, srs, proofs[dev.type])
+        cpi = CPIGenerator().compute_common_preprocessed_input(eq, KzgScheme(srs))
+        cpis[dev.type] = [cpi.com_q_lx, cpi.com_q_mx, cpi.com_s_sigma_3, cpi.n]
+    assert proofs["cuda"] == proofs["cpu"]
+    assert cpis["cuda"] == cpis["cpu"]

@@ -1,9 +1,12 @@
 """zktpu_torch field layer vs zktpu: equal Montgomery words, equal integers.
 
 The plain Montgomery product (the CPU side of kernel 1) is held word for word
-against zktpu's jnp product, and every TorchField op against host ints, for
-Fr, Fq and Goldilocks.  All comparisons are exact.
+against zktpu's jnp product (a committed golden, tests/goldens/mont_mul_words.npz,
+written by tests/goldens/make_goldens.py mont_mul_words), and every
+TorchField op against host ints, for Fr, Fq and Goldilocks.  All comparisons
+are exact.
 """
+import os
 import random
 
 import numpy as np
@@ -11,7 +14,6 @@ import pytest
 import torch
 
 from zktpu.fields import host
-from zktpu.fields.fp import device_field
 from zktpu_torch.convert import digits_to_limbs, limbs_to_digits
 from zktpu_torch.fields.fp import field, limbs_to_ints
 from zktpu_torch.fields.limbs import resolve
@@ -20,6 +22,7 @@ from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_plain
 torch.set_num_threads(1)  # the suite runs one process per core: intra-op threads would oversubscribe it
 
 SPECS = [host.FR, host.FQ, host.GOLDILOCKS]
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens", "mont_mul_words.npz")
 
 
 def _operands(spec, n=300, seed=17):
@@ -34,16 +37,17 @@ def _operands(spec, n=300, seed=17):
 
 @pytest.mark.parametrize("spec", SPECS, ids=lambda s: s.name)
 def test_mont_mul_matches_zktpu_words(spec):
-    df = device_field(spec)
     a, b = _operands(spec)
-    ad, bd = df.encode_ints(a), df.encode_ints(b)
-    want = np.asarray(df._mont_mul_jnp(ad, bd))
-    A = torch.from_numpy(digits_to_limbs(np.asarray(ad)))
-    B = torch.from_numpy(digits_to_limbs(np.asarray(bd)))
+    with np.load(GOLDEN) as g:  # zktpu's encode_ints of a and b, and their _mont_mul_jnp
+        ad, bd, want = (g[f"{spec.name}/{k}"] for k in ("a", "b", "want"))
+    A = torch.from_numpy(digits_to_limbs(ad))
+    B = torch.from_numpy(digits_to_limbs(bd))
     got = mont_mul(spec, A, B)
     np.testing.assert_array_equal(limbs_to_digits(got.numpy()), want)
     # the port's own encoding gives the same words as zktpu's
-    np.testing.assert_array_equal(field(spec, "cpu").encode_ints(a).numpy(), A.numpy())
+    f = field(spec, "cpu")
+    np.testing.assert_array_equal(f.encode_ints(a).numpy(), A.numpy())
+    np.testing.assert_array_equal(f.encode_ints(b).numpy(), B.numpy())
 
 
 @pytest.mark.parametrize("spec", SPECS, ids=lambda s: s.name)

@@ -1,21 +1,18 @@
-"""The port's FRI (zktpu_torch/fri/) against zktpu's, exactly.
+"""The port's FRI (zktpu_torch/fri/) against zktpu's, exactly, through
+committed goldens of zktpu's outputs (tests/goldens/, written by
+tests/goldens/make_goldens.py fri fri_cases):
 
-- generate_proof against zktpu.fri.prover.generate_proof, live, through
+- generate_proof against zktpu.fri.prover.generate_proof through
   fri_proof_to_ints (roots, const_val, every evaluation and auth path), on
   zktpu's own tiers (host NTT, host hashing below 2^12 values), and the
   port's forced tensor path (force_device: the NTT and the vector hash at
-  every size, which the card takes) on the same inputs;
+  every size, which the card takes) on the same inputs (fri_cases.json,
+  zktpu run with its NTT host tier raised to 2^8);
 - at a 2^13 domain, where the first two layers take the vector hash,
-  against a committed golden of zktpu's proof (tests/goldens/fri_2e13.json,
-  written once by tests/goldens/make_goldens.py);
-- the verifier's accept and reject cases, mirroring tests/test_fri.py;
-- MerkleTree's quirks against zktpu's tree, with the forced vector path
-  below 2^12.
-
-zktpu runs here with its NTT host tier raised to 2^8 (the HOST_NTT_MAX that
-zktpu/poly/domain.py imported from its config), so its transforms stay on
-host ints and no JAX NTT graph compiles; its field products and adds still
-run through JAX on the CPU.
+  against zktpu's proof (fri_2e13.json);
+- a coset evaluation and folds word for word, and Merkle trees (every
+  level, the root and every proof) over Goldilocks and Fr;
+- the verifier's accept and reject cases, mirroring tests/test_fri.py.
 """
 import json
 import os
@@ -24,13 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from zktpu.fields import host as z_host
-from zktpu.fri import merkle as z_merkle
-from zktpu.fri import prover as z_prover
-from zktpu.poly import domain as z_domain
-from zktpu.poly.poly import Poly as ZPoly
-from zktpu_torch.convert import fri_proof_to_ints, goldilocks_digits_to_limbs
 from zktpu_torch.fields.host import FR, GOLDILOCKS
+from zktpu_torch.convert import fri_proof_to_ints
 from zktpu_torch.fri.merkle import MerkleTree, verify_merkle_proof
 from zktpu_torch.fri.prover import fold_polynomial, folding_phase, generate_proof, query_phase
 from zktpu_torch.fri.verifier import FriVerificationError, verify
@@ -42,10 +34,18 @@ torch.set_num_threads(1)  # the suite runs one process per core: intra-op thread
 GL = GOLDILOCKS
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "goldens", "fri_2e13.json")
+CASES_GOLDEN = os.path.join(HERE, "goldens", "fri_cases.json")
 # (coefficients, blowup, queries): degree 1-64, domains 2^2-2^8, odd lengths fold with padding
 CASES = [(2, 2, 2), (5, 4, 3), (64, 2, 4), (64, 4, 2)]
 # the golden proof: 2^12 coefficients from default_rng(GOLDEN_SEED), blowup 2 (a 2^13 domain)
 GOLDEN_SEED, GOLDEN_LOG_COEFFS, GOLDEN_QUERIES = 20261017, 12, 2
+FOLD_SIZES = [2, 5, 64]
+MERKLE_SIZES = [1, 2, 5, 7, 13, 64]
+FR_TREE_VALUES = [0, 1, FR.modulus - 1, 12345, 7]
+
+
+def case_id(case) -> str:
+    return f"len{case[0]}-blowup{case[1]}-q{case[2]}"
 
 
 def _coeffs(n: int, seed: int) -> list[int]:
@@ -65,38 +65,31 @@ def golden_coefficients() -> list[int]:
 
 
 @pytest.fixture(scope="module")
-def zk_proofs():
-    """zktpu's proofs of every case, with its NTT host tier raised to 2^8."""
-    saved = z_domain.HOST_NTT_MAX
-    z_domain.HOST_NTT_MAX = 1 << 8
-    try:
-        return {case: fri_proof_to_ints(z_prover.generate_proof(
-            ZPoly.from_ints(z_host.GOLDILOCKS, _coeffs(case[0], case[0])), case[1], case[2])) for case in CASES}
-    finally:
-        z_domain.HOST_NTT_MAX = saved
+def zk():
+    """zktpu's outputs for the cases below (tests/goldens/fri_cases.json)."""
+    with open(CASES_GOLDEN) as f:
+        return json.load(f)
 
 
-@pytest.mark.parametrize("case", CASES, ids=lambda c: f"len{c[0]}-blowup{c[1]}-q{c[2]}")
-def test_proof_matches_zktpu(zk_proofs, case):
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_proof_matches_zktpu(zk, case):
     n, blowup, queries = case
     proof = generate_proof(_poly(_coeffs(n, n)), blowup, queries)
-    assert fri_proof_to_ints(proof) == zk_proofs[case]
+    assert fri_proof_to_ints(proof) == zk["proofs"][case_id(case)]
     verify(proof)
     if proof.domain_size <= 32:  # the card's path: tensor NTT and vector hash at every size
         forced = generate_proof(_poly(_coeffs(n, n)), blowup, queries, force_device=True)
-        assert fri_proof_to_ints(forced) == zk_proofs[case]
+        assert fri_proof_to_ints(forced) == zk["proofs"][case_id(case)]
 
 
-def test_coset_evaluations_match_zktpu(zk_proofs):
+def test_coset_evaluations_match_zktpu(zk):
     """A layer's coset evaluations in Montgomery form, word for word: zktpu's
-    digit arrays through goldilocks_digits_to_limbs against the port's
-    Goldilocks NTT (the forced tensor transform; zktpu's host tier)."""
+    digit arrays (goldilocks_digits_to_limbs of its host tier's) against the
+    port's Goldilocks NTT (the forced tensor transform)."""
     coeffs = _coeffs(64, 64)
     n, coset = 128, GL.generator
-    want = z_domain.get_domain(z_host.GOLDILOCKS, n).coset_fft(
-        ZPoly.from_ints(z_host.GOLDILOCKS, coeffs)._padded(n), coset)
     got = get_domain(GL, n, device="cpu").coset_fft(_poly(coeffs)._padded(n), coset, force_device=True)
-    np.testing.assert_array_equal(got.numpy(), goldilocks_digits_to_limbs(np.asarray(want)))
+    np.testing.assert_array_equal(got.numpy(), np.array(zk["coset_fft_128"], dtype=np.int32))
 
 
 def test_proof_at_2e13_matches_zktpu_golden():
@@ -156,20 +149,23 @@ def test_fold_and_phase_invariants():
     assert (d.auth_paths[0].index + 2) % 4 == d.sym_auth_paths[0].index
 
 
-@pytest.mark.parametrize("n", [2, 5, 64])
-def test_fold_plain_matches_zktpu_fold(zk_proofs, n):
+def fold_inputs(n: int):
+    """(coefficients, r) of the fold case of length n."""
+    return _coeffs(n, 500 + n), int(np.random.default_rng(n).integers(0, GL.modulus, dtype=np.uint64))
+
+
+@pytest.mark.parametrize("n", FOLD_SIZES)
+def test_fold_plain_matches_zktpu_fold(zk, n):
     """The fold kernel's plain version against zktpu's fold_polynomial, word
     for word (Montgomery limbs): an even length, an odd one (the last odd
-    term 0) and two coefficients, at lengths whose jnp graphs zk_proofs has
-    already run."""
+    term 0) and two coefficients."""
     from zktpu_torch.fri.fold_kernel import fold_plain
 
-    coeffs = _coeffs(n, 500 + n)
-    r = int(np.random.default_rng(n).integers(0, GL.modulus, dtype=np.uint64))
-    want = z_prover.fold_polynomial(ZPoly.from_ints(z_host.GOLDILOCKS, coeffs), r)
+    coeffs, r = fold_inputs(n)
+    want = zk["folds"][str(n)]
     got = fold_plain(GL, _poly(coeffs).coeffs, r)
-    np.testing.assert_array_equal(got.numpy(), goldilocks_digits_to_limbs(np.asarray(want.coeffs)))
-    assert fold_polynomial(_poly(coeffs), r).to_ints() == want.to_ints()
+    np.testing.assert_array_equal(got.numpy(), np.array(want["limbs"], dtype=np.int32))
+    assert fold_polynomial(_poly(coeffs), r).to_ints() == want["ints"]
 
 
 @pytest.mark.parametrize("n,force", [(8, True), (128, True), (128, False)])
@@ -192,44 +188,41 @@ def test_layer_evaluations_fused_from_mont(n, force):
     assert layer.evaluations[:4].numpy().view(np.uint64)[:, 0].tolist() == host
 
 
-@pytest.mark.parametrize("n", [1, 2, 5, 7, 13, 64])
-def test_merkle_tree_matches_zktpu(n):
+@pytest.mark.parametrize("n", MERKLE_SIZES)
+def test_merkle_tree_matches_zktpu(zk, n):
     """Odd lengths (a trailing singleton on several levels), one leaf, and a
     power of two: every level, the padded leaves, the root and every proof,
     on the host tier and on the forced vector path; out-of-range neighbours
     raise IndexError as zktpu's do."""
     vals = _coeffs(n, 100 + n)
-    want = z_merkle.MerkleTree(vals, z_host.GOLDILOCKS)
+    want = zk["merkle"][str(n)]
     for force in (False, True):
         tree = MerkleTree(torch.from_numpy(np.array(vals, dtype=np.uint64).view(np.int32).reshape(n, 2)), GL,
                           force_device=force)
-        assert tree.internal_nodes == want.internal_nodes and tree.root() == want.root()
-        assert tree.leaves == want.leaves and tree.depth == want.depth
-        for i in range(len(want.leaves)):
-            try:
-                w = want.generate_proof(i)
-            except IndexError:
+        assert tree.internal_nodes == want["internal_nodes"] and tree.root() == want["root"]
+        assert tree.leaves == want["leaves"] and tree.depth == want["depth"]
+        for i, w in enumerate(want["proofs"]):
+            if w is None:
                 with pytest.raises(IndexError):
                     tree.generate_proof(i)
                 continue
             got = tree.generate_proof(i)
-            assert (got.index, got.leaf_val, got.hash_proof, got.root) == (w.index, w.leaf_val, w.hash_proof, w.root)
+            assert [got.index, got.leaf_val, got.hash_proof, got.root] == w
             assert verify_merkle_proof(got) == (i < n)  # a padding leaf was never hashed
     # from_levels: the same tree from its levels, as ints and as tensors
     forced = MerkleTree(vals, GL, force_device=True, device="cpu")
-    for levels in (want.internal_nodes, forced.levels):
+    for levels in (want["internal_nodes"], forced.levels):
         rebuilt = MerkleTree.from_levels(vals, levels, GL)
-        assert rebuilt.root() == want.root() and rebuilt.internal_nodes == want.internal_nodes
+        assert rebuilt.root() == want["root"] and rebuilt.internal_nodes == want["internal_nodes"]
 
 
-def test_merkle_roundtrip_and_other_fields():
+def test_merkle_roundtrip_and_other_fields(zk):
     """merkle_tree.rs:134-152, and a tree over Fr (host hashing, as zktpu)."""
     tree = MerkleTree([1, 2, 3, 4], GL)
     proof = tree.generate_proof(1)
     assert verify_merkle_proof(proof)
     proof.index = 2
     assert not verify_merkle_proof(proof)
-    vals = [0, 1, FR.modulus - 1, 12345, 7]
-    ours = MerkleTree(vals, FR, force_device=True)  # hashes on the host: no device needed
-    want = z_merkle.MerkleTree(vals, z_host.FR)
-    assert ours.internal_nodes == want.internal_nodes and ours.root() == want.root()
+    ours = MerkleTree(FR_TREE_VALUES, FR, force_device=True)  # hashes on the host: no device needed
+    want = zk["merkle_fr"]
+    assert ours.internal_nodes == want["internal_nodes"] and ours.root() == want["root"]

@@ -45,9 +45,28 @@ from zktpu_torch.fri.prover import generate_proof as fri_prove
 from zktpu_torch.fri.verifier import verify as fri_verify
 from zktpu_torch.poly.poly import Poly
 fri_verify(fri_prove(Poly.from_ints(GOLDILOCKS, [1, 2, 3, 4, 5], device="cpu"), 2, 2, force_device=True))
+from zktpu_torch.kzg import KzgScheme
+from zktpu_torch.nova.nifs import NIFS, gen_test_values
+from zktpu_torch.nova.r1cs import FWitness, is_r1cs_satisfied
+from zktpu_torch.plonk.cpi import CPIGenerator
+from zktpu_torch.plonk.parser import Parser
+from zktpu_torch.tools import prof_nova
+from zktpu_torch.transcript.transcripts import NovaTranscript
+r1cs, ws, xs = gen_test_values([3, 4], device="cpu")
+scheme = KzgScheme(Srs.new_from_secret(424242, 6, device="cpu"))
+w = [FWitness.new(wi, 4, "cpu") for wi in ws]
+u = [wi.commit(scheme, xi) for wi, xi in zip(w, xs)]
+fw, fu, _, _ = NIFS.prover(r1cs, w[0], w[1], u[0], u[1], scheme, NovaTranscript())
+is_r1cs_satisfied(r1cs, fu, fw, scheme)
+chain = prof_nova.chain_r1cs(1, "cpu")
+assert chain.matrix_a.shape == (2, 5, 8)
+parser = Parser()
+parser.add_witness("x", 3)
+parsed = parser.parse("x*x=9").compile(device="cpu")
+assert CPIGenerator().compute_common_preprocessed_input("x*x=9", KzgScheme(srs)).n == parsed.size == 4
 loaded = sorted(m for m in sys.modules if m in ("jax", "zktpu") or m.startswith(("jax.", "jaxlib", "zktpu.")))
 assert loaded == ["jax", "zktpu"] and sys.modules["jax"] is None and sys.modules["zktpu"] is None, loaded
-print("proved, verified and ran msm_affine and FRI without jax or zktpu")
+print("proved, verified and ran msm_affine, FRI, a Nova fold and the parser without jax or zktpu")
 """
 
 
@@ -58,7 +77,7 @@ def test_prove_and_verify_with_jax_blocked():
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    assert "proved, verified and ran msm_affine and FRI without jax or zktpu" in out.stdout
+    assert "proved, verified and ran msm_affine, FRI, a Nova fold and the parser without jax or zktpu" in out.stdout
 
 
 def test_no_jax_import_in_the_port():
@@ -147,7 +166,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from zktpu_torch.fields.host import GOLDILOCKS
     from zktpu_torch.fri.merkle import MerkleTree
     from zktpu_torch.hash import sha256_vec
-    from zktpu_torch.tools import ntt_tiles, prof_fri, prof_mulkernels
+    from zktpu_torch.tools import ntt_tiles, prof_fri, prof_mulkernels, prof_nova
+    from zktpu_torch.nova.nifs import gen_test_values
+    from zktpu_torch.nova.r1cs import FWitness
+    from zktpu_torch.nova.utils import to_f_matrix, to_f_vec
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     circuit = Circuit()
@@ -177,6 +199,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lambda: MerkleTree([1, 2, 3], GOLDILOCKS, force_device=True),
         lambda: prof_fri.main(["--log-n", "4"]),
         lambda: ntt_tiles.main(["--field", "goldilocks"]),
+        lambda: gen_test_values([3]),
+        lambda: FWitness.new([1, 2], 2),
+        lambda: FWitness.new_trivial_witness(2),
+        lambda: to_f_matrix([[1, 0]]),
+        lambda: to_f_vec([1]),
+        lambda: prof_nova.chain_r1cs(2),
+        lambda: prof_nova.main(["--log-m", "2", "--steps", "1"]),
     ]
     for call in calls:
         with pytest.raises(NoCudaDeviceError, match="CUDA device"):

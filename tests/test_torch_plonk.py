@@ -1,12 +1,17 @@
 """The whole slice: zktpu_torch PLONK proofs equal zktpu's, field by field.
 
 For a fixed SRS secret and a seeded StdRng the port's Proof must equal
-zktpu.plonk.prover.generate_proof's.  zktpu's SRS is built from host points
-(no fixed-base compile); the port builds its own with fixed_base_mul_u32.
-The Pythagorean circuit is also proved with every tensor path forced
-(thresholds 0, coset quotient), on both quotient paths.
+zktpu.plonk.prover.generate_proof's, read from a committed golden
+(tests/goldens/plonk_pythagorean.{json,npz}, written by
+tests/goldens/make_goldens.py plonk) with zktpu's SRS points and arrays.
+zktpu's SRS is built from host points (no fixed-base compile); the port
+builds its own with fixed_base_mul_u32.  The Pythagorean circuit is also
+proved with every tensor path forced (thresholds 0, coset quotient), on
+both quotient paths.
 """
 import dataclasses
+import json
+import os
 
 import numpy as np
 import pytest
@@ -17,19 +22,22 @@ from zktpu.curves import g1 as zg1
 from zktpu.curves.host_curve import G1Affine, G2Affine
 from zktpu.fields.host import FR
 from zktpu.kzg.srs import Srs as ZSrs
-from zktpu.plonk.circuit import Circuit as ZCircuit
-from zktpu.plonk.prover import generate_proof as zktpu_generate_proof
 from zktpu.transcript.chacha import StdRng
 from zktpu_torch.convert import circuit_from_numpy, srs_from_numpy
+from zktpu_torch.curves import host_curve as th
 from zktpu_torch.kzg import Srs
+from zktpu_torch.kzg.scheme import KzgCommitment
 from zktpu_torch.plonk.circuit import Circuit
-from zktpu_torch.plonk.prover import generate_proof
+from zktpu_torch.plonk.prover import Proof, generate_proof
 from zktpu_torch.plonk.verifier import PlonkVerificationError, verify
 
 torch.set_num_threads(1)  # the suite runs one process per core: intra-op threads would oversubscribe it
 
 SECRET = 1234567
 SEED = 42
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens", "plonk_pythagorean")
+GATE_POLYS = ("f_ax", "f_bx", "f_cx", "q_lx", "q_rx", "q_ox", "q_mx", "q_cx", "pi_x")
+COPY_POLYS = ("s_sigma_1", "s_sigma_2", "s_sigma_3")
 
 
 def pythagorean(cls, c_val=25):
@@ -59,11 +67,19 @@ def assert_same_proof(got, want):
             assert a == b, f.name
 
 
+def _g2(coords) -> th.G2Affine:
+    return th.G2Affine(th.Fq2(*coords[:2]), th.Fq2(*coords[2:]))
+
+
 @pytest.fixture(scope="module")
 def reference():
-    compiled = pythagorean(ZCircuit).compile()
-    srs = zktpu_srs(SECRET, compiled.size)
-    return compiled, srs, zktpu_generate_proof(compiled, srs, StdRng.from_seed_u64(SEED))
+    """zktpu's side from the golden: (its values, its arrays, its proof)."""
+    with open(GOLDEN + ".json") as f:
+        g = json.load(f)
+    with np.load(GOLDEN + ".npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    proof = Proof(**{k: KzgCommitment(th.G1Affine(*v)) if isinstance(v, list) else v for k, v in g["proof"].items()})
+    return g, arrays, proof
 
 
 def test_forced_tensor_paths_match_zktpu(reference, monkeypatch):
@@ -71,7 +87,7 @@ def test_forced_tensor_paths_match_zktpu(reference, monkeypatch):
         monkeypatch.setattr(cfg, name, 0)
     compiled = pythagorean(Circuit).compile(device="cpu")
     srs = Srs.new_from_secret(SECRET, compiled.size, device="cpu")
-    assert srs.g1_points_host() == reference[1].g1_points_host()
+    assert srs.g1_points_host() == [th.G1Affine(*p) for p in reference[0]["srs_points"]]
     proof = generate_proof(compiled, srs, StdRng.from_seed_u64(SEED), force="coset")
     assert_same_proof(proof, reference[2])
     verify(compiled, srs, proof)
@@ -98,16 +114,11 @@ def test_default_tiers_match_zktpu_on_each_quotient_path(reference, port_setup, 
 
 
 def test_carried_across_circuit_and_srs_match_zktpu(reference):
-    zc, zsrs, want = reference
-    gc, cc = zc.gate_constraints, zc.copy_constraints
-    coeffs = {
-        name: np.asarray(getattr(gc, name).coeffs)
-        for name in ("f_ax", "f_bx", "f_cx", "q_lx", "q_rx", "q_ox", "q_mx", "q_cx", "pi_x")
-    }
-    coeffs.update({name: np.asarray(getattr(cc, name).coeffs) for name in ("s_sigma_1", "s_sigma_2", "s_sigma_3")})
-    evals = {k: np.asarray(v) for k, v in {**gc.evals, **cc.evals}.items()}
-    compiled = circuit_from_numpy(zc.size, coeffs, evals, cc.k1, cc.k2, "cpu")
-    srs = srs_from_numpy([np.asarray(a) for a in zsrs.g1_proj], zsrs.g2(), zsrs.g2s(), zsrs.size, "cpu")
+    g, arrays, want = reference
+    coeffs = {name: arrays[f"coeffs/{name}"] for name in GATE_POLYS + COPY_POLYS}
+    evals = {k.split("/", 1)[1]: v for k, v in arrays.items() if k.startswith("evals/")}
+    compiled = circuit_from_numpy(g["size"], coeffs, evals, g["k1"], g["k2"], "cpu")
+    srs = srs_from_numpy([arrays[f"g1_proj/{i}"] for i in range(3)], _g2(g["g2"]), _g2(g["g2s"]), g["srs_size"], "cpu")
     proof = generate_proof(compiled, srs, StdRng.from_seed_u64(SEED))
     assert_same_proof(proof, want)
     verify(compiled, srs, proof)

@@ -1,5 +1,5 @@
-"""Carry state across from zktpu: digit planes -> limb tensors, and FRI
-proofs of either package -> plain ints.
+"""Carry state across from zktpu: digit planes -> limb tensors, FRI proofs
+and Nova state of either package -> plain ints, and back.
 
 zktpu stores a field element as D base-2^16 digits in u32 lanes; this package
 stores L = D/2 little-endian 32-bit limbs, limb i = d[2i] | d[2i+1] << 16,
@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .curves.host_curve import G2Affine
+from .curves.host_curve import G1Affine, G2Affine
 from .fields.host import FQ, FR, GOLDILOCKS
 from .kzg.srs import Srs
 from .plonk.constraint import CompiledCircuit, CopyConstraints, GateConstraints
@@ -111,3 +111,63 @@ def circuit_from_numpy(size: int, coeffs: dict, evals: dict, k1: int, k2: int, d
         evals={k: _tensor(evals[k], device) for k in _COPY_EVALS},
     )
     return CompiledCircuit(size=size, gate_constraints=gate, copy_constraints=copy)
+
+
+# -- Nova --
+
+
+def r1cs_from_numpy(a, b, c, num_io: int, num_vars: int, device):
+    """A zktpu_torch R1CS from zktpu's (m, n, 16) Montgomery digit matrices."""
+    from .nova.r1cs import R1CS
+
+    return R1CS(*(_tensor(x, device) for x in (a, b, c)), num_io=num_io, num_vars=num_vars)
+
+
+def r1cs_to_numpy(r1cs) -> dict:
+    """A zktpu_torch R1CS as zktpu's (m, n, 16) digit arrays and its counts."""
+    return {**{k: limbs_to_digits(getattr(r1cs, f"matrix_{k}").cpu().numpy()) for k in "abc"},
+            "num_io": int(r1cs.num_io), "num_vars": int(r1cs.num_vars)}
+
+
+def fwitness_from_numpy(e, w, device):
+    """A zktpu_torch FWitness from zktpu's (len, 16) digit arrays of E and W."""
+    from .nova.r1cs import FWitness
+
+    return FWitness(e=_tensor(e, device), w=_tensor(w, device))
+
+
+def _point_to_ints(c) -> list:
+    p = c.point
+    return [int(p.x), int(p.y), bool(p.infinity)]
+
+
+def finstance_to_ints(fi) -> dict:
+    """An FInstance of either package as plain ints: each commitment as
+    [x, y, infinity], u and x."""
+    return {"com_e": _point_to_ints(fi.com_e), "u": int(fi.u), "com_w": _point_to_ints(fi.com_w),
+            "x": [int(v) for v in fi.x]}
+
+
+def finstance_from_ints(d: dict):
+    from .kzg.scheme import KzgCommitment
+    from .nova.r1cs import FInstance
+
+    def com(v):
+        return KzgCommitment(G1Affine(int(v[0]), int(v[1]), bool(v[2])))
+
+    return FInstance(com_e=com(d["com_e"]), u=int(d["u"]), com_w=com(d["com_w"]), x=[int(v) for v in d["x"]])
+
+
+def augmented_state_to_ints(circuit) -> dict:
+    """The augmented circuit's state (i, z_0, z_i, h_i) of either package as plain ints (h_i may be None)."""
+    return {"i": int(circuit.i), "z_0": int(circuit.z_0.state), "z_i": int(circuit.z_i.state),
+            "h_i": None if circuit.h_i is None else int(circuit.h_i)}
+
+
+def augmented_state_from_ints(circuit, d: dict):
+    """Set a zktpu_torch AugmentedCircuit's (i, z_0, z_i, h_i) from plain ints; returns it."""
+    from .nova.circuit import State
+
+    circuit.i, circuit.z_0, circuit.z_i = int(d["i"]), State(int(d["z_0"])), State(int(d["z_i"]))
+    circuit.h_i = None if d["h_i"] is None else int(d["h_i"])
+    return circuit

@@ -1,9 +1,10 @@
 """KZG polynomial commitments (counterpart of zktpu/kzg/scheme.py).
 
-commit / commit_many / commit_para / open / verify.  Commitments of large
+commit / commit_many / commit_vector / commit_para / open / open_vector /
+verify / aggregate_commitments / batch_verify.  Commitments of large
 polynomials run the tensor Pippenger MSM against the SRS points on the SRS's
-device; small ones take the host tier.  Verification is the host
-pairing check.
+device; small ones take the host tier.  Verification, aggregation and the
+batch check are host curve work and pairings.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from ..curves import g1 as g1mod
 from ..curves.msm import msm_proj_many, pick_window
 from ..fields.fp import field
 from ..poly.poly import Poly
+from ..transcript.chacha import StdRng
 from .srs import Srs
 
 
@@ -107,6 +109,10 @@ class KzgScheme:
         stacked = torch.stack([p._padded(n) for p in polys])  # (K, n, 8)
         return self._msm_many(stacked, n)
 
+    def commit_vector(self, coeffs: list[int]) -> KzgCommitment:
+        """Commit to the polynomial with these coefficients (trailing zeros trimmed)."""
+        return self.commit(Poly.from_ints(FR, coeffs, self.srs.device))
+
     def commit_para(self, para: int) -> KzgCommitment:
         return KzgCommitment(self.srs.g1_generator_host().mul(para))
 
@@ -114,8 +120,35 @@ class KzgScheme:
         quotient, evaluation = polynomial.divide_by_linear(z)
         return KzgOpening(self.commit(quotient).point, evaluation)
 
+    def open_vector(self, coeffs: list[int], z: int) -> KzgOpening:
+        return self.open(Poly.from_ints(FR, coeffs, self.srs.device), z)
+
     def verify(self, commitment: KzgCommitment, opening: KzgOpening, z: int) -> bool:
         """e([Q], [s]_2 - z [1]_2) == e([P] - y [1]_1, [1]_2)."""
         a = self.srs.g2s() - self.srs.g2().mul(z)
         b = commitment.point - G1Affine.generator().mul(opening.evaluation)
         return pairing_product([(opening.point, a), (-b, self.srs.g2())]) == Fq12.one()
+
+    @staticmethod
+    def aggregate_commitments(commitments, challenge: int) -> KzgCommitment:
+        """sum_i challenge^i C_i."""
+        acc = G1Affine.identity()
+        pw = 1
+        for c in commitments:
+            acc = acc + c.point.mul(pw)
+            pw = FR.mul(pw, challenge)
+        return KzgCommitment(acc)
+
+    def batch_verify(self, commitments, points, openings, rng: StdRng) -> bool:
+        """Random-linear-combination check of several openings with two
+        pairings; one rng.gen_u128() draw per opening, as zktpu's."""
+        assert len(commitments) == len(points) == len(openings)
+        g = G1Affine.generator()
+        e1 = G1Affine.identity()
+        e2 = G1Affine.identity()
+        for cm, z, op in zip(commitments, points, openings):
+            w, s = op.point, op.evaluation
+            r_prime = rng.gen_u128() % FR.modulus
+            e1 = e1 + (cm.point - g.mul(s) + w.mul(z)).mul(r_prime)
+            e2 = e2 + w.mul(r_prime)
+        return pairing_product([(e1, self.srs.g2()), (-e2, self.srs.g2s())]) == Fq12.one()

@@ -54,30 +54,10 @@ def fri_poly(log_coeffs: int, seed: int = SEED, device=None):
 
 def trace_prove(poly, blowup: int, queries: int, rows: int = 15) -> tuple[dict, str]:
     """One FRI prove under the profiler: (summary, table by device time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from zktpu_torch.fri.prover import generate_proof
+    from zktpu_torch.tools.trace import trace_summary
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        generate_proof(poly, blowup, queries)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    device = [e for e in events if e.device_type == DeviceType.CUDA and e.self_cpu_time_total == 0]
-    dev_s = sum(e.self_device_time_total for e in device) / 1e6
-    summary = {
-        "launch_calls": sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                                 "cudaLaunchKernelExC")),
-        "device_kernels": sum(e.count for e in device if not e.key.startswith(("Memcpy", "Memset"))),
-        "wall_s": wall,
-        "device_s": dev_s,
-        "idle_share": max(0.0, 1 - dev_s / wall),
-        "by_kernel_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in sorted(
-            device, key=lambda e: -e.self_device_time_total)[:8]},
-    }
-    return summary, events.table(sort_by="self_device_time_total", row_limit=rows)
+    return trace_summary(lambda: generate_proof(poly, blowup, queries), rows)
 
 
 def timed_runs(poly, blowup: int, queries: int, repeat: int) -> dict:

@@ -6,7 +6,8 @@ by kernel, and device time against wall time (the idle share).
 The circuit is synthetic_mul_chain(log_n) (seed 1) with an SRS from a fixed
 secret, on the current CUDA device; one untraced prove warms the caches
 first.  Prints one JSON line (launch calls, device kernels, wall and device
-seconds, idle share) and the profiler's table by device time to stderr.
+seconds, idle share, the longest kernels' device ms) and the profiler's
+table by device time to stderr.
 --repeat N then times N untraced proves and verifies (host clock around
 work that ends in a synchronise) and prints them with each prove's rounds.
 Run as a file with PYTHONPATH=<another checkout> it traces that checkout's
@@ -27,31 +28,11 @@ SRS_SECRET = 0x5EED5EED
 
 def trace_prove(circuit, srs, seed: int = SEED, rows: int = 15) -> tuple[dict, str]:
     """One prove under the profiler: (summary, table by device time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from zktpu_torch.plonk.prover import generate_proof
+    from zktpu_torch.tools.trace import trace_summary
     from zktpu_torch.transcript.chacha import StdRng
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        generate_proof(circuit, srs, StdRng.from_seed_u64(seed))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    # device work only: the kernels and copies, which take no CPU time (an
-    # aten op's row repeats the device time of the kernels it launched)
-    device = [e for e in events if e.device_type == DeviceType.CUDA and e.self_cpu_time_total == 0]
-    dev_s = sum(e.self_device_time_total for e in device) / 1e6
-    summary = {
-        "launch_calls": sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                                 "cudaLaunchKernelExC")),
-        "device_kernels": sum(e.count for e in device if not e.key.startswith(("Memcpy", "Memset"))),
-        "wall_s": wall,
-        "device_s": dev_s,
-        "idle_share": max(0.0, 1 - dev_s / wall),
-    }
-    return summary, events.table(sort_by="self_device_time_total", row_limit=rows)
+    return trace_summary(lambda: generate_proof(circuit, srs, StdRng.from_seed_u64(seed)), rows)
 
 
 def main(argv=None) -> int:
