@@ -9,8 +9,8 @@ Phases:
      ptxas's register and spill counts go to stderr), and the registers,
      local (spill) bytes and shared memory per block of the group-law
      kernels, the Horner combine, the NTT (Fr and Goldilocks), the field
-     scans, the field add/sub, the field hash, the FRI fold and the
-     tensor-core chained products (mxu and f32, Fr and Fq) (fails if one
+     scans, the field add/sub, the field hash, the FRI fold, the fixed-base
+     multiply and the tensor-core chained products (mxu and f32, Fr and Fq) (fails if one
      spills); the SASS of the chained product's three bodies (IMMA, FFMA,
      IMAD: cuobjdump), the mxu and f32 kernels must hold IMMA and the f32
      ones FFMA; the Goldilocks NTT's plan at 2^fri_log_n and 2^22 and its
@@ -43,7 +43,12 @@ Phases:
      at 2^16, 2^fri_log_n and 2^22), the field hash (single at 2^fri_log_n
      values, pairs at 2^(fri_log_n - 1), digit-length edges mixed in; the
      first 64 of each against hashlib) and the FRI fold at the first fold's
-     (2^(fri_log_n - 1), 2) coefficients (phase_fri_kernels);
+     (2^(fri_log_n - 1), 2) coefficients (phase_fri_kernels); the
+     fixed-base kernel at 2^msm_log_n random scalars against its plain
+     loop (every projective word, every affine point), 64 against host
+     scalar multiplication, timed beside the loop it replaced (32
+     gathers and proj_add launches), and Srs.new_from_secret of 2^msm_log_n points with
+     the kernel, the former loop and the plain loop (phase_fixed_base);
   3. small proof: a 4-gate circuit proved with every tensor path forced,
      once on the GPU and once on the CPU; the proofs must be equal;
   4. PLONK path: synthetic_mul_chain(log_n) and its SRS on the GPU, prove,
@@ -93,10 +98,31 @@ Phases:
   8. parser path: a sum-of-products equation of 2^log_n gates parsed with
      seeded witnesses, proved and verified on the card, a proof of another
      equation rejected, CPIGenerator's eight commitments equal to the
-     prover's; its kernels must have launched.
+     prover's; its kernels must have launched;
+  9. dist path (zktpu_torch.dist): (a) at world size 1 over NCCL, a path
+     of its own: the four-step NTT at 2^22 (fft and ifft, word for word
+     against get_domain's), the sharded MSM at 2^20 (against msm_proj),
+     dist_fri_layer at a 2^20 Goldilocks domain (evaluations, levels,
+     root against FriLayer.from_poly) and ShardedWireCommitter at 2^16
+     (against interpolate-then-commit, commit_blinded against committing
+     the blinded polynomials), each timed beside its single-device
+     counterpart; (b) 4 gloo ranks sharing the card at 2^16, 2^14, 2^14
+     and 2^10: every rank's results equal the single-device ones;
+ 10. compat: phase 4's SRS and proof and phase 6's FRI proof saved and
+     loaded on the card (the SRS commits equally, the proofs verify, a
+     changed bar_a is rejected); an IVC at 2^10 constraints saved after
+     step 4 of 8, resumed in a fresh circuit, equal to the uninterrupted
+     run;
+ 11. profiling: a prove of phase 4's circuit under ZKTPU_PROFILE writes a
+     trace naming the NTT and group-law kernels; under ZKTPU_DEBUG=1
+     phase 3's proof raises nothing and an off-curve point raises;
+ 12. the five examples as subprocesses on the card, the dist example at
+     world 1 (NCCL) and as 4 gloo ranks: each exits 0 with its accepted
+     line.
 Launches are set to 0 just before each path (phase 4, the bench, the tool,
-the FRI prove, the Nova run, the parser path) and read just after.  Then one
-JSON line with the kernels (launches summed over the six paths; times and
+the FRI prove, the Nova run, the parser path, the dist functions at world
+size 1) and read just after.  Then one
+JSON line with the kernels (launches summed over the seven paths; times and
 bounds at the shapes the paths give them:
 proj_madd at msm_affine's mixed add, proj_add at msm_proj's first scan step,
 proj_double at K = 1, mont_mul Fr at the coset division's product, ntt_fr
@@ -106,18 +132,21 @@ field_addsub_fr at the coset quotient's (2^17, 8) add, ntt_gl at FRI layer
 0's coset_fft, sha256_field at its leaves, mont_mul_gl at the from_mont it
 ran before the NTT took it, field_addsub_gl at the first fold's add it ran
 before the fold kernel, fri_fold at the first fold, field_scan_gl at its
-largest power table, the others at phase 2's shapes), the
+largest power table, fixed_base_mul at 2^msm_log_n scalars (an SRS of that
+size), the others at phase 2's shapes), the
 card's name and power limit, and the final {"ok": true, ...} line.  Any
 failure raises and exits non-zero.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import random
 import statistics
 import sys
+import tempfile
 import time
 
 import torch
@@ -795,7 +824,9 @@ def phase_small_proof(device) -> None:
     )
 
 
-def phase_plonk(device, log_n: int) -> dict:
+def phase_plonk(device, log_n: int) -> tuple[dict, dict]:
+    import dataclasses
+
     from zktpu_torch.fields.host import FR
     from zktpu_torch.kzg import Srs
     from zktpu_torch.plonk.prover import generate_proof
@@ -821,12 +852,14 @@ def phase_plonk(device, log_n: int) -> dict:
     t_verify = time.perf_counter() - t0
     plain_carries = resolve.cuda_calls
     launches = launch_counts.read()
-    path = ("mont_mul_fr", "mont_mul_fq", "proj_add", "ntt_fr", "horner_combine", "field_scan_fr", "field_addsub_fr")
+    path = ("mont_mul_fr", "mont_mul_fq", "proj_add", "ntt_fr", "horner_combine", "field_scan_fr", "field_addsub_fr",
+            "fixed_base_mul")
     assert all(launches[k] > 0 for k in path), f"a kernel of the PLONK path never launched: {launches}"
     assert launches["proj_double"] == 0, f"the PLONK path doubled outside the Horner combine: {launches}"
     # no plain version runs on the card: every carry scan of limbs.resolve on a CUDA tensor is one
     assert plain_carries == 0, f"prove + verify ran {plain_carries} plain carry scans (limbs.resolve) on the card"
 
+    kept = dataclasses.replace(proof)  # phases 10 and 11 take the untampered proof
     proof.bar_a = FR.add(proof.bar_a, 1)
     try:
         verify(circuit, srs, proof)
@@ -846,7 +879,7 @@ def phase_plonk(device, log_n: int) -> dict:
     print(f"phase 4: launches {json.dumps(launches)}; limbs.resolve on CUDA tensors during prove + verify: "
           f"{plain_carries}", flush=True)
     print(f"phase 4: one traced prove (outside the count): {_traced_prove(circuit, srs)}", flush=True)
-    return launches
+    return launches, {"circuit": circuit, "srs": srs, "proof": kept}
 
 
 def _traced_prove(circuit, srs) -> str:
@@ -1169,7 +1202,7 @@ def _host_merkle_root(values: list[int]) -> int:
     return level[0]
 
 
-def phase_fri(device, log_n: int, results: dict) -> dict:
+def phase_fri(device, log_n: int, results: dict) -> tuple[dict, object]:
     """The FRI path: generate_proof on the card for 2^(log_n - 1) Goldilocks
     coefficients from SEED (blowup 2: a 2^log_n domain, log_n layers) and 32
     queries, then the host verify; launches counted from 0 just before the
@@ -1290,7 +1323,7 @@ def phase_fri(device, log_n: int, results: dict) -> dict:
               f"{[round(v, 4) for v in r['prove_s']]}, verify median {r['verify_median_s']:.4f} s "
               f"{[round(v, 4) for v in r['verify_s']]}; {_smi()}", flush=True)
     torch.cuda.empty_cache()
-    return launches
+    return launches, proof
 
 
 def _json_ints(obj):
@@ -1581,6 +1614,459 @@ def phase_parser(device, log_n: int) -> dict:
     return launches
 
 
+def _random_words(n: int, rows: int, seed: int, top_bits: int = 32):
+    """(rows, n) uint32 words from default_rng(seed), the last word cut to top_bits bits."""
+    import numpy as np
+
+    w = np.random.default_rng(seed).integers(0, 1 << 32, size=(rows, n), dtype=np.uint32)
+    w[:, -1] &= np.uint32((1 << top_bits) - 1)
+    return w
+
+
+def phase_fixed_base(device, results: dict, log_n: int = 20) -> None:
+    """Phase 2, the fixed-base kernel: [s_i] G for 2^log_n random 256-bit
+    scalars (the first four 0, 1, r - 1, 2^256 - 1) against
+    fixed_base_mul_plain, every projective word, and every point but the
+    zero scalar's identity after proj_to_affine_dev; 64 against host
+    G1Affine.mul.  Its time, the plain loop's, the former loop's (32
+    gathers and proj_add launches) and the bound; Srs.new_from_secret of
+    2^log_n points with the kernel, the former loop and the plain loop."""
+    import numpy as np
+
+    from zktpu_torch.curves import g1, g1_kernel
+    from zktpu_torch.curves.host_curve import G1Affine
+    from zktpu_torch.fields.fp import ints_to_limbs, limbs_to_ints
+    from zktpu_torch.fields.host import FR
+    from zktpu_torch.kzg import Srs
+
+    n = 1 << log_n
+    words = _random_words(8, n, SEED)
+    words[:4] = ints_to_limbs([0, 1, FR.modulus - 1, (1 << 256) - 1], 8).view(np.uint32)
+    sc = torch.from_numpy(words.view(np.int32)).to(device)
+    G = G1Affine.generator()
+    tables = g1.fixed_base_tables(G, 8, device)
+    got = g1_kernel.fixed_base_mul(tables, sc, 8)
+    want, plain_ms = _timed_once(lambda: g1_kernel.fixed_base_mul_plain(tables, sc, 8))
+    err = _compare("fixed_base_mul", got, want)
+    _compare("fixed_base_mul affine", g1.proj_to_affine_dev(tuple(t[1:] for t in got)),
+             g1.proj_to_affine_dev(tuple(t[1:] for t in want)))
+    del want
+    ints = limbs_to_ints(words[:64].view(np.int32))
+    assert g1.proj_to_affine_host(tuple(t[:64] for t in got)) == [G.mul(k) for k in ints], \
+        "fixed_base_mul differs from host scalar multiplication"
+    ms = _cuda_ms(lambda: g1_kernel.fixed_base_mul(tables, sc, 8), 10)
+    former_ms = _cuda_ms(lambda: g1_kernel.fixed_base_mul_plain(tables, sc, 8, g1_kernel.proj_add), 3)
+    table_bytes = sum(t.numel() * 4 for t in tables)
+    _record(results, "fixed_base_mul", n, err, ms, plain_ms, n * 32 + table_bytes + 3 * n * 48,
+            32 * 12 * n * _mont_words(12))
+    print(f"phase 2: fixed_base_mul n={n}: every projective word and every affine point (but the identity) == "
+          f"fixed_base_mul_plain, 64 == host G1Affine.mul; the former loop (32 gathers and proj_add "
+          f"launches) {former_ms:.4f} ms", flush=True)
+
+    loops = {"kernel": None,
+             "former loop": functools.partial(g1_kernel.fixed_base_mul_plain, add=g1_kernel.proj_add),
+             "plain loop": g1_kernel.fixed_base_mul_plain}
+    secs, planes = {}, {}
+    saved = g1.fixed_base_mul_u32
+    try:
+        for name, loop in loops.items():
+            if loop is not None:
+                g1.fixed_base_mul_u32 = lambda base, s, window=8, loop=loop: loop(
+                    g1.fixed_base_tables(base, window, s.device), s, window)
+            Srs.new_from_secret(SRS_SECRET, 1 << 12, device=device)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srs = Srs.new_from_secret(SRS_SECRET, n - 3, device=device)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            planes[name] = srs.g1_proj
+    finally:
+        g1.fixed_base_mul_u32 = saved
+    for name in ("former loop", "plain loop"):
+        _compare(f"Srs.new with the {name}", planes["kernel"], planes[name])
+    print(f"phase 2: Srs.new_from_secret({n - 3}) ({n} points) seconds: "
+          f"{json.dumps({k: round(v, 4) for k, v in secs.items()})}; the three SRSs equal word for word", flush=True)
+
+
+def _fr_rows(shape, seed: int, device) -> torch.Tensor:
+    """Canonical Fr Montgomery limbs below 2^254 from default_rng(seed): (*shape, 8)."""
+    import numpy as np
+
+    n = int(np.prod(shape))
+    return torch.from_numpy(_random_words(8, n, seed, 30).view(np.int32).reshape(*shape, 8)).to(device)
+
+
+def _dist_inputs(device, log_ntt: int, log_msm: int, log_fri: int, log_wires: int) -> dict:
+    """The dist functions' inputs from SEED: NTT values, MSM scalars and SRS
+    points, a FRI polynomial of 2^(log_fri - 1) coefficients, three wire
+    columns and an SRS of 2^log_wires + 3 points, and the blinds."""
+    from zktpu_torch.kzg import Srs
+    from zktpu_torch.tools.prof_fri import fri_poly
+
+    nw = 1 << log_wires
+    return {
+        "x": _fr_rows((1 << log_ntt,), SEED, device),
+        "sc": _fr_rows((1 << log_msm,), SEED + 1, device),
+        "points": Srs.new_from_secret(SRS_SECRET, (1 << log_msm) - 3, device=device).g1_proj,
+        "poly": fri_poly(log_fri - 1, SEED, device)[0],
+        "evals3": _fr_rows((3, nw), SEED + 2, device),
+        "wsrs": Srs.new_from_secret(SRS_SECRET + 1, nw, device=device),
+        "blinds": [(SEED + 11 * i, SEED + 13 * i + 1) for i in range(3)],
+    }
+
+
+def _dist_run(mesh, inp: dict, log_ntt: int, log_fri: int, log_wires: int) -> dict:
+    """The four dist functions on this rank: the four-step fft and ifft of
+    its rows, the sharded MSM, dist_fri_layer, the wire commitments and the
+    blinded ones; each result and its seconds (the card synchronized)."""
+    from zktpu_torch import dist as zd
+    from zktpu_torch.curves import g1
+    from zktpu_torch.curves.msm import pick_window
+    from zktpu_torch.fields.host import FR, GOLDILOCKS
+
+    out, secs = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        return r
+
+    nw = 1 << log_wires
+    fs = zd.get_four_step(FR, 1 << log_ntt, mesh)
+    x = zd.shard_leading(mesh, inp["x"])
+    out["fft"] = timed("four_step_fft", lambda: fs.fft(x))
+    out["ifft"] = timed("four_step_ifft", lambda: fs.ifft(x))
+    n_msm = inp["sc"].shape[0]
+    out["msm"] = timed("msm_jacobian_sharded", lambda: zd.msm_jacobian_sharded(
+        zd.shard_leading(mesh, inp["sc"]), *(zd.shard_leading(mesh, a) for a in inp["points"]), mesh=mesh,
+        c=pick_window(n_msm)))
+    out["fri"] = timed("dist_fri_layer", lambda: zd.dist_fri_layer(inp["poly"], GOLDILOCKS.generator, 1 << log_fri,
+                                                                    mesh))
+    committer = zd.ShardedWireCommitter(FR, nw, mesh, c=pick_window(nw))
+    evals3 = torch.stack([zd.shard_leading(mesh, e) for e in inp["evals3"]])
+    wsrs = inp["wsrs"]
+    out["wires"] = timed("wire_commits", lambda: committer(evals3, *(zd.shard_leading(mesh, a[:nw])
+                                                                     for a in wsrs.g1_proj)))
+    out["blinded"] = timed("commit_blinded", lambda: committer.commit_blinded(evals3, wsrs, inp["blinds"]))
+    out["msm"] = g1.proj_to_affine_host(tuple(a[None] for a in out["msm"]))[0]
+    out["wires"] = g1.proj_to_affine_host(tuple(torch.stack([w[k] for w in out["wires"]]) for k in range(3)))
+    out["fri"] = _fri_summary(out["fri"])
+    out["fft"], out["ifft"] = out["fft"].cpu(), out["ifft"].cpu()
+    out["secs"] = secs
+    return out
+
+
+def _fri_summary(layer) -> tuple:
+    """A FRI layer as (evaluations on the CPU, every Merkle level as ints, the root)."""
+    return layer.evaluations.cpu(), layer.merkle_tree.internal_nodes, layer.merkle_tree.root()
+
+
+def _dist_check(name: str, got: dict, want: dict, rows: slice | None = None) -> None:
+    """A dist run's results (of one rank: rows, its NTT rows) against the single-device ones."""
+    for k in ("fft", "ifft"):
+        w = want[k] if rows is None else want[k][rows]
+        assert torch.equal(got[k], w), f"{name}: the four-step {k} differs from the domain's"
+    assert got["msm"] == want["msm"], f"{name}: the sharded MSM differs from msm_proj"
+    (eg, ng, rg), (ew, nw, rw) = got["fri"], want["fri"]
+    assert torch.equal(eg, ew), f"{name}: FRI evaluations differ"
+    assert ng == nw, f"{name}: FRI Merkle levels differ"
+    assert rg == rw, f"{name}: FRI roots differ"
+    assert got["wires"] == want["wires"], f"{name}: the wire commitments differ"
+    assert got["blinded"] == want["blinded"], f"{name}: the blinded wire commitments differ"
+
+
+def _dist_reference(device, inp: dict, log_ntt: int, log_fri: int, log_wires: int) -> dict:
+    """The single-device results: get_domain's fft and ifft, msm_proj,
+    FriLayer.from_poly, interpolate-then-commit of each wire (msm_proj), and
+    KzgScheme.commit of each blinded wire polynomial."""
+    from zktpu_torch.curves import g1, msm
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fields.host import FR, GOLDILOCKS
+    from zktpu_torch.fri.layer import FriLayer
+    from zktpu_torch.kzg import KzgScheme
+    from zktpu_torch.poly.domain import get_domain
+    from zktpu_torch.poly.poly import Poly
+
+    fr = field(FR, device)
+    dom = get_domain(FR, 1 << log_ntt, device)
+    nw = 1 << log_wires
+    dw = get_domain(FR, nw, device)
+    n_msm = inp["sc"].shape[0]
+    wsrs = inp["wsrs"]
+    coeffs = [dw.ifft(e, force_device=True) for e in inp["evals3"]]
+    sc = torch.stack([fr.to_u32_limbs(c) for c in coeffs])
+    scheme = KzgScheme(wsrs)
+    return {
+        "fft": dom.fft(inp["x"], force_device=True).cpu(),
+        "ifft": dom.ifft(inp["x"], force_device=True).cpu(),
+        "msm": g1.proj_to_affine_host(tuple(a[None] for a in msm.msm_proj(
+            inp["sc"], *inp["points"], c=msm.pick_window(n_msm))))[0],
+        "fri": _fri_summary(FriLayer.from_poly(inp["poly"], GOLDILOCKS.generator, 1 << log_fri, force_device=True)),
+        "wires": g1.proj_to_affine_host(msm.msm_proj_many(sc, *(a[:nw] for a in wsrs.g1_proj),
+                                                          c=msm.pick_window(nw))),
+        "blinded": [scheme.commit(Poly(FR, c) + Poly.from_ints(FR, [b_lo, b_hi], device).mul_by_vanishing(nw)).point
+                    for c, (b_hi, b_lo) in zip(coeffs, inp["blinds"])],
+    }
+
+
+def _device_name(device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "the CPU"
+
+
+DIST_FULL = (22, 20, 20, 16)  # log2 of the NTT, MSM, FRI domain and wire sizes at world size 1
+DIST_GLOO = (16, 14, 14, 10)  # the same for 4 gloo ranks sharing the card
+DIST_GLOO_WORLD = 4
+
+
+def _dist_gloo_rank(mesh, sizes) -> dict:
+    """One of the gloo ranks that share the card: the whole inputs, its shard's results."""
+    return _dist_run(mesh, _dist_inputs(mesh.device, *sizes), sizes[0], sizes[2], sizes[3])
+
+
+def phase_dist(device) -> dict:
+    """Phase 9: zktpu_torch.dist.  (a) At world size 1 over NCCL, a path of
+    its own (launches counted from 0 just before the four functions and
+    read just after): FourStepNTT fft and ifft at a 2^22 Fr domain (R = C =
+    2^11) against get_domain(FR, 2^22), word for word; msm_jacobian_sharded
+    at 2^20 against msm_proj (the same affine point); dist_fri_layer at a
+    2^20 Goldilocks domain against FriLayer.from_poly (every evaluation,
+    level and the root); ShardedWireCommitter at n = 2^16 against
+    interpolating and committing each wire, commit_blinded against
+    KzgScheme.commit of the blinded polynomials; each timed beside its
+    single-device counterpart.  (b) 4 gloo ranks sharing the card
+    (collectives staged through the host) at 2^16 (NTT), 2^14 (MSM, FRI) and
+    2^10 (wires): every rank's results equal the single-device ones."""
+    import torch.distributed as tdist
+
+    from zktpu_torch import dist as zd
+
+    log_ntt, log_msm, log_fri, log_wires = DIST_FULL
+    inp = _dist_inputs(device, *DIST_FULL)
+    torch.cuda.synchronize()
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    mesh = zd.init(0, 1, zd.mesh.free_port(), backend=backend, device=device)
+    try:
+        launch_counts.reset()
+        got = _dist_run(mesh, inp, log_ntt, log_fri, log_wires)
+        launches = launch_counts.read()
+    finally:
+        tdist.destroy_process_group()
+    path = ("ntt_fr", "mont_mul_fr", "field_scan_fr", "proj_add", "horner_combine", "ntt_gl", "sha256_field",
+            "mont_mul_gl", "field_scan_gl")
+    assert all(launches[k] > 0 for k in path), f"a kernel of the dist path never launched: {launches}"
+    want = _dist_reference(device, inp, log_ntt, log_fri, log_wires)
+    _dist_check(f"world 1 ({backend})", got, want)
+
+    from zktpu_torch.curves import msm
+    from zktpu_torch.fields.host import FR, GOLDILOCKS
+    from zktpu_torch.fri.layer import FriLayer
+    from zktpu_torch.poly.domain import get_domain
+
+    dom = get_domain(FR, 1 << log_ntt, device)
+    single = {
+        "fft": _cuda_ms(lambda: dom.fft(inp["x"], force_device=True), 5),
+        "ifft": _cuda_ms(lambda: dom.ifft(inp["x"], force_device=True), 5),
+        "msm_proj": _cuda_ms(lambda: msm.msm_proj(inp["sc"], *inp["points"], c=msm.pick_window(1 << log_msm)), 2),
+        "FriLayer.from_poly": _cuda_ms(lambda: FriLayer.from_poly(inp["poly"], GOLDILOCKS.generator, 1 << log_fri,
+                                                                     force_device=True), 3),
+    }
+    print(f"phase 9: (a) dist at world size 1 ({backend}): four-step 2^{log_ntt} fft and ifft == get_domain's word for "
+          f"word; msm_jacobian_sharded 2^{log_msm} == msm_proj; dist_fri_layer 2^{log_fri} == FriLayer.from_poly "
+          f"(evaluations, levels, root); wire commitments 2^{log_wires} == interpolate + msm_proj, commit_blinded == "
+          f"KzgScheme.commit of the blinded polynomials", flush=True)
+    print(f"phase 9: (a) dist seconds (first call) {json.dumps({k: round(v, 4) for k, v in got['secs'].items()})}; "
+          f"single-device ms (warm, CUDA events) {json.dumps({k: round(v, 4) for k, v in single.items()})}", flush=True)
+    print(f"phase 9: (a) launches {json.dumps(launches)}", flush=True)
+    del got, want, inp
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = zd.spawn(_dist_gloo_rank, DIST_GLOO_WORLD, DIST_GLOO, backend="gloo", device=device.type)
+    t_spawn = time.perf_counter() - t0
+    log_ntt, log_msm, log_fri, log_wires = DIST_GLOO
+    inp = _dist_inputs(device, *DIST_GLOO)
+    want = _dist_reference(device, inp, log_ntt, log_fri, log_wires)
+    rows = (1 << log_ntt) // DIST_GLOO_WORLD
+    for r, res in enumerate(ranks):
+        _dist_check(f"gloo rank {r}", res, want, slice(r * rows, (r + 1) * rows))
+    print(f"phase 9: (b) world {DIST_GLOO_WORLD}, backend gloo, all ranks on {_device_name(device)}: "
+          f"four-step 2^{log_ntt}, sharded MSM 2^{log_msm}, dist_fri_layer 2^{log_fri}, wires 2^{log_wires}: every "
+          f"rank == the single-device results ({t_spawn:.1f} s with the spawn); rank seconds "
+          f"{json.dumps([{k: round(v, 4) for k, v in res['secs'].items()} for res in ranks])}", flush=True)
+    return launches
+
+
+def phase_compat(device, plonk_ctx: dict, fri_proof, tmp: str, log_m: int = 10, steps: int = 8) -> None:
+    """Phase 10: checkpoint round trips on the card.  Phase 4's SRS saved and
+    loaded (on the card) commits as the original does; phase 4's proof loads
+    and verifies, and with bar_a changed is rejected; phase 6's FRI proof
+    loads and verifies; an IVC over the squaring chain at m = 2^log_m saved
+    after step 4 of `steps`, loaded into a fresh augmented circuit and
+    finished: every later record and the final state equal the run without
+    the checkpoint."""
+    import dataclasses
+
+    from zktpu_torch import compat
+    from zktpu_torch.convert import fri_proof_to_ints
+    from zktpu_torch.fields.host import FR
+    from zktpu_torch.fri.verifier import verify as fri_verify
+    from zktpu_torch.kzg import KzgScheme, Srs
+    from zktpu_torch.plonk.verifier import PlonkVerificationError, verify
+    from zktpu_torch.poly.poly import Poly
+    from zktpu_torch.tools import prof_nova as pn
+
+    srs, circuit, proof = plonk_ctx["srs"], plonk_ctx["circuit"], plonk_ctx["proof"]
+    path = os.path.join(tmp, "srs.npz")
+    compat.save_srs(path, srs)
+    loaded = compat.load_srs(path, device)
+    assert loaded.device == srs.device and all(torch.equal(a, b) for a, b in zip(loaded.g1_proj, srs.g1_proj))
+    poly = Poly(FR, _fr_rows((srs.size - 3,), SEED + 3, device))
+    assert KzgScheme(loaded).commit(poly) == KzgScheme(srs).commit(poly), "the loaded SRS commits differently"
+    path = os.path.join(tmp, "plonk.json")
+    compat.save_plonk_proof(path, proof)
+    lp = compat.load_plonk_proof(path)
+    assert lp == proof
+    verify(circuit, loaded, lp)
+    try:
+        verify(circuit, loaded, dataclasses.replace(lp, bar_a=FR.add(lp.bar_a, 1)))
+    except PlonkVerificationError:
+        pass
+    else:
+        raise AssertionError("a loaded proof with bar_a changed was accepted")
+    path = os.path.join(tmp, "fri.json")
+    compat.save_fri_proof(path, fri_proof)
+    lf = compat.load_fri_proof(path)
+    fri_verify(lf)
+    assert fri_proof_to_ints(lf) == fri_proof_to_ints(fri_proof)
+
+    m = 1 << log_m
+    inputs = pn.chain_inputs(steps, SEED)
+    r1cs = pn.chain_r1cs(log_m, device)
+    scheme = KzgScheme(Srs.new_from_secret(SRS_SECRET, m + 3, device=device))
+    witness = pn.chain_step_witness(log_m, inputs)
+    full = pn.run_ivc(scheme, r1cs, pn.chain_circuit(), witness, steps, device)
+    path = os.path.join(tmp, "ivc.json")
+    saved_at = []
+
+    def checkpoint(step, augmented):
+        if step != 3:
+            return augmented
+        compat.save_ivc_state(path, augmented)
+        saved_at.append(augmented.i)
+        return compat.load_ivc_state(path, pn.chain_circuit())
+
+    resumed = pn.run_ivc(scheme, r1cs, pn.chain_circuit(), witness, steps, device, checkpoint=checkpoint)
+    assert saved_at == [4], saved_at
+    assert resumed["records"] == full["records"], "the resumed IVC's records differ"
+    assert resumed["states"] == full["states"], "the resumed IVC's states differ"
+    print(f"phase 10: compat on the card: phase 4's SRS ({srs.size} points) saved and loaded commits equally; "
+          f"phase 4's proof loads and verifies, with bar_a changed rejected; phase 6's FRI proof "
+          f"(2^{fri_proof.domain_size.bit_length() - 1} domain) loads and verifies; an IVC at m = 2^{log_m} saved "
+          f"after step 4 of {steps}, loaded into a fresh circuit and finished == the uninterrupted run (every record, "
+          f"the final state)", flush=True)
+
+
+def phase_profiling(device, plonk_ctx: dict, tmp: str) -> None:
+    """Phase 11: ZKTPU_PROFILE: one prove of phase 4's circuit under
+    maybe_trace writes a Chrome trace that names the NTT and group-law
+    kernels; ZKTPU_DEBUG=1: phase 3's 4-gate proof (tensor paths forced) on
+    the card raises nothing; an off-curve point through proj_to_affine_host
+    raises."""
+    import glob
+
+    import zktpu_torch.config as cfg
+    from zktpu_torch import profiling
+    from zktpu_torch.curves import g1
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fields.host import FQ
+    from zktpu_torch.kzg import Srs
+    from zktpu_torch.plonk.prover import generate_proof
+    from zktpu_torch.plonk.verifier import verify
+    from zktpu_torch.transcript.chacha import StdRng
+
+    trace_dir = os.path.join(tmp, "traces")
+    saved_env = {k: os.environ.get(k) for k in ("ZKTPU_PROFILE", "ZKTPU_DEBUG")}
+    try:
+        os.environ["ZKTPU_PROFILE"] = trace_dir
+        with profiling.maybe_trace("plonk_prove"):
+            generate_proof(plonk_ctx["circuit"], plonk_ctx["srs"], StdRng.from_seed_u64(SEED))
+        del os.environ["ZKTPU_PROFILE"]
+        (path,) = glob.glob(os.path.join(trace_dir, "plonk_prove-*.json"))
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+        assert any("ntt_pass_kernel" in k for k in names), f"the trace names no NTT kernel: {sorted(names)[:20]}"
+        assert any("proj_add_kernel" in k for k in names) and any("horner_combine_kernel" in k for k in names), \
+            f"the trace names no group-law kernel: {sorted(names)[:20]}"
+
+        os.environ["ZKTPU_DEBUG"] = "1"
+        limits = (cfg.HOST_MSM_MAX, cfg.HOST_NTT_MAX, cfg.HOST_POLY_MAX)
+        cfg.HOST_MSM_MAX = cfg.HOST_NTT_MAX = cfg.HOST_POLY_MAX = 0
+        try:
+            compiled = _pythagorean_circuit().compile(device=device)
+            srs = Srs.new_from_secret(SRS_SECRET, compiled.size, device=device)
+            verify(compiled, srs, generate_proof(compiled, srs, StdRng.from_seed_u64(SEED), force="coset"))
+        finally:
+            cfg.HOST_MSM_MAX, cfg.HOST_NTT_MAX, cfg.HOST_POLY_MAX = limits
+        one = field(FQ, device).one
+        try:
+            g1.proj_to_affine_host(tuple(one[None] for _ in range(3)))  # (1 : 1 : 1): off the curve
+        except AssertionError as e:
+            raised = str(e)
+        else:
+            raise AssertionError("ZKTPU_DEBUG: an off-curve point passed proj_to_affine_host")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"phase 11: ZKTPU_PROFILE: one prove of the {plonk_ctx['circuit'].size}-gate circuit traced to "
+          f"{os.path.basename(path)} ({len(names)} kernel names, the NTT's and the group law's among them); "
+          f"ZKTPU_DEBUG=1: the 4-gate proof with tensor paths forced proves and verifies, an off-curve point raises "
+          f"{raised!r}", flush=True)
+
+
+_EXAMPLES = (
+    (("torch_kzg_example.py",), "KZG commit/open/verify: accepted"),
+    (("torch_plonk_example.py",), "PLONK prove/verify: accepted"),
+    (("torch_nova_example.py",), "Nova 4-step IVC: accepted"),
+    (("torch_fri_example.py",), "Accepted!"),
+    (("torch_dist_plonk_example.py",), "all 3 match single-device"),
+    (("torch_dist_plonk_example.py", "--world", "4", "--backend", "gloo"), "all 3 match single-device"),
+)
+
+
+def phase_examples() -> None:
+    """Phase 12: the five examples as subprocesses on the card (all at once),
+    the dist example at world 1 (NCCL) and as 4 gloo ranks: each exits 0
+    with its accepted line."""
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [(args, want, subprocess.Popen([sys.executable, os.path.join(here, "examples", args[0]), *args[1:]],
+                                           cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             for args, want in _EXAMPLES]
+    lines = []
+    try:
+        for args, want, p in procs:
+            out, err = p.communicate(timeout=600)
+            assert p.returncode == 0, f"{' '.join(args)} exited {p.returncode}:\n{err[-4000:]}"
+            line = [ln for ln in out.splitlines() if want in ln]
+            assert line, f"{' '.join(args)} printed no accepted line:\n{out[-2000:]}"
+            lines.append(f"{' '.join(args)}: {line[-1]!r}")
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"phase 12: examples on the card ({time.perf_counter() - t0:.1f} s, all at once): " + "; ".join(lines),
+          flush=True)
+
+
 # The kernels of the paths.
 _SOURCES = {
     "mont_mul_fr": ("zktpu_torch/csrc/mont_mul.cu", "zktpu/fields/pallas_mont.py:363"),
@@ -1615,6 +2101,8 @@ _SOURCES = {
     "sha256_field": ("zktpu_torch/csrc/sha256.cu", "zktpu/hash/sha256_vec.py:53"),
     # the jnp fold around kernel 1 (pallas_mont.py:363): r * odd, the padding and the add
     "fri_fold": ("zktpu_torch/csrc/fri_fold.cu", "zktpu/fri/prover.py:44"),
+    # fixed_base_mul_u32's fori_loop of gathers and _proj_add_call (pallas_g1.py:125)
+    "fixed_base_mul": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/g1.py:300"),
 }
 
 
@@ -1656,6 +2144,7 @@ def main(argv=None) -> int:
     attrs.update({k: field_kernel.kernel_attrs(k) for k in ("field_scan", "field_addsub")})
     attrs["sha256_field"] = sha256_kernel.kernel_attrs()
     attrs["fri_fold"] = fold_kernel.kernel_attrs()
+    attrs["fixed_base_mul"] = g1_kernel.kernel_attrs("fixed_base_mul")
     for spec in (FR, FQ):
         for variant in ("mxu", "f32"):
             attrs[f"mont_mul_chain_{variant} {spec.name}"] = mont_kernel.mont_mma_attrs(spec, variant)
@@ -1671,13 +2160,15 @@ def main(argv=None) -> int:
     phase_ntt_horner(device, kernels, ntt_sizes=((args.log_n + 3, 7), (20, 1), (1, 3), (8, 3)))
     phase_field_ops(device, kernels, args.log_n, args.msm_log_n)
     phase_fri_kernels(device, kernels, args.fri_log_n)
+    phase_fixed_base(device, kernels, args.msm_log_n)
+    torch.cuda.empty_cache()
     phase_small_proof(device)
-    plonk = phase_plonk(device, args.log_n)
+    plonk, plonk_ctx = phase_plonk(device, args.log_n)
     msm_path, tool, inputs = phase_msm(device, args.msm_log_n)
     phase_path_shapes(device, inputs, kernels)
     del inputs
     torch.cuda.empty_cache()
-    fri = phase_fri(device, args.fri_log_n, kernels)
+    fri, fri_proof = phase_fri(device, args.fri_log_n, kernels)
     torch.cuda.empty_cache()
     phase_nova_parity(device)
     phase_nova_gpu_cpu(device)
@@ -1686,13 +2177,22 @@ def main(argv=None) -> int:
     del nova
     torch.cuda.empty_cache()
     parser = phase_parser(device, args.log_n)
+    torch.cuda.empty_cache()
+    dist = phase_dist(device)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_compat(device, plonk_ctx, fri_proof, tmp)
+        phase_profiling(device, plonk_ctx, tmp)
+    del plonk_ctx, fri_proof
+    torch.cuda.empty_cache()
+    phase_examples()
 
     rows = []
     for name, (source, replaces) in _SOURCES.items():
         k = kernels[name]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": plonk[name] + msm_path[name] + tool[name] + fri[name] + nova_path[name] + parser[name],
+            "launches": sum(path[name] for path in (plonk, msm_path, tool, fri, nova_path, parser, dist)),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             # no PyTorch call computes a Montgomery product, a curve add, a Montgomery NTT or SHA-256

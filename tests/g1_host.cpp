@@ -36,6 +36,21 @@ extern "C" void host_proj_double(const uint32_t* p, uint32_t pinv, const int64_t
   for (int64_t i = 0; i < n; ++i) proj_double_at(pl, (uint32_t)(i / inner), (uint32_t)(i % inner), f);
 }
 
+// ptrs = X, Y, Z of the table, the scalars, X, Y, Z of the result (zk_fixed_base_mul's).
+extern "C" void host_fixed_base_mul(const uint32_t* p, uint32_t pinv, const int64_t* ptrs, int64_t n, int window) {
+  FixedBaseArgs a;
+  for (int k = 0; k < 3; ++k) {
+    a.table[k] = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[k]));
+    a.out[k] = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(ptrs[4 + k]));
+  }
+  a.scalars = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[3]));
+  a.n = (uint32_t)n;
+  a.window = (uint32_t)window;
+  a.windows = 256u / (uint32_t)window;
+  const FqConsts f = make_consts<FQ_LIMBS>(p, pinv);
+  for (int64_t i = 0; i < n; ++i) fixed_base_at(a, (uint32_t)i, f);
+}
+
 // The canonical product (kernel 1's body, lazy = 0) or the lazy product
 // (lazy = 1), row by row.
 template <int L>

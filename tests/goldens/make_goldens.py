@@ -1,7 +1,7 @@
 """Write the goldens that the port's CPU tests compare against, from zktpu.
 
     JAX_PLATFORMS=cpu python tests/goldens/make_goldens.py [field_ops] [fri] [fri_cases] [mont_mma] [nova] [kzg_vector] [parser]
-        [mont_mul_words] [plonk]
+        [mont_mul_words] [plonk] [compat] [dist]
 
 - field_ops.npz: zktpu's DeviceField (cumprod and cumsum both ways, sum on
   axis 0 and 1, powers, batch_inv, add, sub, neg, double) on the inputs of
@@ -44,7 +44,19 @@
 - plonk_pythagorean.json and .npz: tests/test_torch_plonk.py's reference,
   zktpu's proof of the Pythagorean circuit (SRS secret SECRET, StdRng seed
   SEED), the SRS's host points, G2 points and (X, Y, Z) digit planes, and
-  the compiled circuit's polynomial and evaluation digits, size, k1, k2.
+  the compiled circuit's polynomial and evaluation digits, size, k1, k2;
+- compat_srs.npz, compat_plonk.json, compat_fri.json and compat_ivc.json:
+  files written by zktpu.compat's save functions (tests/test_torch_compat.py's
+  inputs): a 16-point SRS, the PLONK proof of tests/test_compat.py, a FRI
+  proof of 1 + 2x + ... + 6x^5, and the augmented circuit after two steps of
+  the 4-step IVC of tests/goldens/nova.json;
+- dist.json and dist.npz: zktpu.dist on its 8-device CPU mesh at the sizes
+  of tests/test_dist.py (tests/test_torch_dist.py's inputs): the four-step
+  fft and ifft at 64, 256 and 4096 points, fixed_base_mul's points [k] G
+  for k = 2 .. 129, the sharded MSM of 64 of them at c = 4, dist_fri_layer's
+  evaluations, levels and root at a 2^12 Goldilocks domain, the three wire
+  commitments at n = 2^7 (tests/test_dist.py: 2^8) and the blinded ones at
+  n = 2^6.
 
 Run once; the tests need neither JAX nor zktpu for these comparisons.  Not
 collected by pytest.
@@ -54,6 +66,10 @@ import os
 import sys
 
 import numpy as np
+
+# zktpu.dist's mesh needs 8 CPU devices, set before JAX is imported (as tests/conftest.py does)
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8").strip()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
@@ -274,9 +290,9 @@ def fri_cases() -> None:
     _dump("fri_cases.json", out)
 
 
-def _zk_ivc_records(scheme, r1cs, f_circuit, witnesses, xs, steps: int) -> tuple[list, list]:
+def _zk_ivc_records(scheme, r1cs, f_circuit, witnesses, xs, steps: int) -> tuple[list, list, object]:
     """zktpu's IVC loop (examples/nova_example.py) with the records of
-    zktpu_torch.tools.prof_nova.run_ivc."""
+    zktpu_torch.tools.prof_nova.run_ivc, and the augmented circuit at its end."""
     from zktpu.nova.circuit import AugmentedCircuit, State, base_to_scalar, hash_io
     from zktpu.nova.ivc import IVC, IVCProof, ZkIVCProof
     from zktpu.nova.r1cs import FInstance, FWitness, create_trivial_pair
@@ -322,7 +338,25 @@ def _zk_ivc_records(scheme, r1cs, f_circuit, witnesses, xs, steps: int) -> tuple
                 "opening_w": _point(nifs.opening_w.point) + [int(nifs.opening_w.evaluation)],
             })
         records.append(rec)
-    return records, [int(s.state) for s in z]
+    return records, [int(s.state) for s in z], augmented
+
+
+def _zk_cubic_circuit():
+    """The FCircuit of examples/nova_example.py (x^3 + x + 5), in zktpu."""
+    from zktpu.fields import host as zhost
+    from zktpu.fields.fp import device_field
+    from zktpu.nova.circuit import FCircuit, State
+
+    frd = device_field(zhost.FR)
+
+    class TestCircuitF(FCircuit):
+        def run(self, z_i, w_i):
+            x = frd.decode_int(w_i.w[0])
+            res = (x**3 + x + 5) % zhost.FR.modulus
+            base_res = zhost.FQ.from_le_bytes_mod_order(res.to_bytes(32, "little"))
+            return State(state=(z_i.state + base_res) % zhost.FQ.modulus)
+
+    return TestCircuitF()
 
 
 def nova() -> None:
@@ -330,28 +364,16 @@ def nova() -> None:
 
     jax.config.update("jax_platforms", "cpu")
     import test_torch_nova as t
-    from zktpu.fields import host as zhost
-    from zktpu.fields.fp import device_field
     from zktpu.kzg import KzgScheme, Srs
     from zktpu.nova import utils as zu
-    from zktpu.nova.circuit import FCircuit, State
     from zktpu.nova.nifs import NIFS, gen_test_values
     from zktpu.nova.r1cs import FWitness, R1CS
     from zktpu.transcript.transcripts import NovaTranscript
     from zktpu_torch.convert import digits_to_limbs, finstance_to_ints
 
-    FRD = device_field(zhost.FR)
-
-    class TestCircuitF(FCircuit):
-        def run(self, z_i, w_i):
-            x = FRD.decode_int(w_i.w[0])
-            res = (x**3 + x + 5) % zhost.FR.modulus
-            base_res = zhost.FQ.from_le_bytes_mod_order(res.to_bytes(32, "little"))
-            return State(state=(z_i.state + base_res) % zhost.FQ.modulus)
-
     r1cs, witnesses, xs = gen_test_values(t.INPUTS)
     scheme = KzgScheme(Srs.new_from_secret(t.SRS_SECRET, len(witnesses[0]) + len(xs[0]) + 1))
-    records, states = _zk_ivc_records(scheme, r1cs, TestCircuitF(), witnesses, xs, len(t.INPUTS))
+    records, states, _ = _zk_ivc_records(scheme, r1cs, _zk_cubic_circuit(), witnesses, xs, len(t.INPUTS))
     m = r1cs.matrix_a.shape[0]
     w0 = FWitness.new(witnesses[0], m)
     u0 = w0.commit(scheme, xs[0])
@@ -499,8 +521,93 @@ def plonk() -> None:
     })
 
 
+def compat() -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import test_torch_compat as t
+    from zktpu import compat as zc
+    from zktpu.fields import host as zhost
+    from zktpu.fri.prover import generate_proof as fri_prove
+    from zktpu.kzg import KzgScheme, Srs
+    from zktpu.nova.nifs import gen_test_values
+    from zktpu.plonk.parser import Parser
+    from zktpu.plonk.prover import generate_proof
+    from zktpu.poly.poly import Poly
+    from zktpu.transcript.chacha import StdRng
+
+    zc.save_srs(os.path.join(HERE, "compat_srs.npz"), Srs.new_from_secret(t.SRS_SECRET, t.SRS_CIRCUIT_SIZE))
+    p = Parser()
+    for k, v in t.PLONK_WITNESSES.items():
+        p.add_witness(k, v)
+    compiled = p.parse(t.PLONK_EQ).compile()
+    proof = generate_proof(compiled, Srs.new_from_secret(t.PLONK_SECRET, compiled.size),
+                           rng=StdRng.from_seed_u64(t.PLONK_SEED))
+    zc.save_plonk_proof(os.path.join(HERE, "compat_plonk.json"), proof)
+    fri = fri_prove(Poly.from_ints(zhost.GOLDILOCKS, t.FRI_COEFFS), blowup_factor=t.FRI_BLOWUP,
+                    number_of_queries=t.FRI_QUERIES)
+    zc.save_fri_proof(os.path.join(HERE, "compat_fri.json"), fri)
+    r1cs, witnesses, xs = gen_test_values(t.IVC_INPUTS)
+    scheme = KzgScheme(Srs.new_from_secret(t.IVC_SECRET, len(witnesses[0]) + len(xs[0]) + 1))
+    _, _, augmented = _zk_ivc_records(scheme, r1cs, _zk_cubic_circuit(), witnesses, xs, t.IVC_STEPS)
+    zc.save_ivc_state(os.path.join(HERE, "compat_ivc.json"), augmented)
+
+
+def dist() -> None:
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    import test_torch_dist as t
+    from zktpu.curves import g1
+    from zktpu.curves.host_curve import G1Affine
+    from zktpu.dist import ShardedWireCommitter, get_four_step, make_mesh, msm_jacobian_sharded
+    from zktpu.dist.fri import dist_fri_layer
+    from zktpu.fields import host as zhost
+    from zktpu.fields.fp import device_field
+    from zktpu.kzg.srs import Srs
+    from zktpu.poly.poly import Poly
+    from zktpu_torch.convert import digits_to_limbs
+
+    mesh = make_mesh(t.GOLDEN_DEVICES)
+    frd = device_field(zhost.FR)
+    arrays, out = {}, {"devices": t.GOLDEN_DEVICES}
+    for n in t.NTT_SIZES:
+        fs = get_four_step(zhost.FR, n, mesh)
+        x = frd.encode_ints(t.fr_values(n))
+        arrays[f"ntt/{n}/fft"] = digits_to_limbs(np.asarray(fs.fft(x)))
+        arrays[f"ntt/{n}/ifft"] = digits_to_limbs(np.asarray(fs.ifft(x)))
+        print(f"dist: four-step {n}", flush=True)
+    X, Y, Z = g1.fixed_base_mul(G1Affine.generator(), t.point_scalars(t.WIRE_N))
+    arrays.update({f"points/{k}": digits_to_limbs(np.asarray(a)) for k, a in zip("XYZ", (X, Y, Z))})
+
+    def affine(triples):
+        return [_point(p) for p in g1.proj_to_affine_host(tuple(jnp.stack([q[i] for q in triples]) for i in range(3)))]
+
+    m = t.MSM_N
+    out["msm"] = affine([msm_jacobian_sharded(g1.scalars_to_u32(t.msm_scalars()), X[:m], Y[:m], Z[:m], mesh=mesh,
+                                              c=t.MSM_C)])[0]
+    print("dist: msm", flush=True)
+    GL = zhost.GOLDILOCKS
+    layer = dist_fri_layer(Poly.from_ints(GL, t.fri_coeffs()), GL.generator, 1 << t.FRI_LOG_DOMAIN, mesh)
+    out["fri"] = {"evaluations": [int(v) for v in layer.evaluations], "levels": layer.merkle_tree.internal_nodes,
+                  "root": int(layer.merkle_tree.root())}
+    print("dist: fri", flush=True)
+    evals3 = jnp.stack([frd.encode_ints(v) for v in t.wire_evals()])
+    out["wires"] = affine(ShardedWireCommitter(zhost.FR, t.WIRE_N, mesh, c=t.WIRE_C)(evals3, X, Y, Z))
+    print("dist: wires", flush=True)
+    evals, blinds = t.blinded_inputs()
+    committer = ShardedWireCommitter(zhost.FR, t.BLIND_N, mesh, c=t.WIRE_C)
+    got = committer.commit_blinded(jnp.stack([frd.encode_ints(v) for v in evals]),
+                                   Srs.new_from_secret(t.BLIND_SECRET, t.BLIND_N), blinds)
+    out["blinded"] = [_point(p) for p in got]
+    _dump("dist.json", out)
+    np.savez_compressed(os.path.join(HERE, "dist.npz"), **arrays)
+
+
 TARGETS = {"field_ops": field_ops, "fri": fri, "fri_cases": fri_cases, "mont_mma": mont_mma, "nova": nova,
-           "kzg_vector": kzg_vector, "parser": parser, "mont_mul_words": mont_mul_words, "plonk": plonk}
+           "kzg_vector": kzg_vector, "parser": parser, "mont_mul_words": mont_mul_words, "plonk": plonk,
+           "compat": compat, "dist": dist}
 
 if __name__ == "__main__":
     for name in sys.argv[1:] or list(TARGETS):

@@ -71,6 +71,7 @@ def lib():
         getattr(so, name).argtypes = [P, ctypes.c_uint32, P, ctypes.c_int64, ctypes.c_int64]
     so.host_mont_mul.argtypes = [ctypes.c_int, P, ctypes.c_uint32, P, P, P, ctypes.c_int64, ctypes.c_int]
     so.host_horner_combine.argtypes = [P, ctypes.c_uint32, P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+    so.host_fixed_base_mul.argtypes = [P, ctypes.c_uint32, P, ctypes.c_int64, ctypes.c_int]
     return so
 
 
@@ -182,6 +183,30 @@ def test_host_horner_combine_matches_plain(lib, W, K, c):
     lib.host_horner_combine(p.ctypes.data, pinv, ptrs.ctypes.data, W, K, c)
     for g, w in zip(out, horner_combine_plain(parts, c)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("window", [4, 8])
+def test_host_fixed_base_mul_matches_plain(lib, window):
+    """The fixed-base kernel's per-thread walk (accumulator in registers, a
+    table row read per window) on G's table, against the plain loop word
+    for word and, for a few scalars, against host curve arithmetic: the
+    scalars 0, 1, r - 1 and 2^256 - 1 (every digit the table's last) among
+    random ones."""
+    from zktpu_torch.curves import g1
+    from zktpu_torch.curves.host_curve import G1Affine
+
+    rng = np.random.default_rng(20 + window)
+    G = G1Affine.generator()
+    ints = [0, 1, FR.modulus - 1, (1 << 256) - 1] + [int.from_bytes(rng.bytes(32), "little") for _ in range(12)]
+    sc = g1.scalars_to_u32(ints, device="cpu")
+    tables = g1.fixed_base_tables(G, window, torch.device("cpu"))
+    out = tuple(torch.zeros((len(ints), 12), dtype=torch.int32) for _ in range(3))
+    ptrs = np.array([t.data_ptr() for t in (*tables, sc, *out)], dtype=np.int64)
+    p, pinv = cuda_lib.field_consts(FQ)
+    lib.host_fixed_base_mul(p.ctypes.data, pinv, ptrs.ctypes.data, len(ints), window)
+    for got, want in zip(out, g1_kernel.fixed_base_mul_plain(tables, sc, window)):
+        assert torch.equal(got, want)
+    assert g1.proj_to_affine_host(tuple(t[:5] for t in out)) == [G.mul(k) for k in ints[:5]]
 
 
 # Small tiles.  Fr: 2^4 elements, at least 2 columns, 4 threads a block, so

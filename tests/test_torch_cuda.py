@@ -560,3 +560,82 @@ def test_parser_proof_on_the_card_equals_cpu(device):
         cpis[dev.type] = [cpi.com_q_lx, cpi.com_q_mx, cpi.com_s_sigma_3, cpi.n]
     assert proofs["cuda"] == proofs["cpu"]
     assert cpis["cuda"] == cpis["cpu"]
+
+
+@pytest.mark.parametrize("window", [8, 4])
+def test_fixed_base_kernel_matches_plain(device, window):
+    """One launch per call; every projective word equals the plain loop's
+    (the same adds in the same order), with the scalars 0, 1, r - 1 and
+    2^256 - 1 among random ones; a few points equal host scalar
+    multiplication; Srs.new_from_secret goes through the kernel."""
+    from zktpu_torch.curves import g1, g1_kernel
+    from zktpu_torch.kzg import Srs
+
+    rng = random.Random(window)
+    ints = [0, 1, FR.modulus - 1, (1 << 256) - 1] + [rng.getrandbits(256) for _ in range((1 << 12) + 1)]
+    sc = g1.scalars_to_u32(ints, device=device)
+    G = G1Affine.generator()
+    tables = g1.fixed_base_tables(G, window, device)
+    before = g1_kernel.fixed_base_mul.launches
+    got = g1.fixed_base_mul_u32(G, sc, window)
+    assert g1_kernel.fixed_base_mul.launches == before + 1
+    want = g1_kernel.fixed_base_mul_plain(tables, sc, window)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert g1.proj_to_affine_host(tuple(t[:6] for t in got)) == [G.mul(k) for k in ints[:6]]
+    before = g1_kernel.fixed_base_mul.launches
+    Srs.new_from_secret(5, 4, device=device)
+    assert g1_kernel.fixed_base_mul.launches == before + 1
+
+
+def test_dist_world_1_matches_single_device(device):
+    """zktpu_torch.dist on a world of one (NCCL, local_mesh): the four-step
+    NTT, the sharded MSM, the sharded FRI layer and the wire commitments
+    against their single-device counterparts."""
+    import torch.distributed as tdist
+
+    from zktpu_torch import dist as zd
+    from zktpu_torch.curves import g1, msm
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fri.layer import FriLayer
+    from zktpu_torch.kzg import KzgScheme, Srs
+    from zktpu_torch.poly.domain import get_domain
+    from zktpu_torch.poly.poly import Poly
+
+    mesh = zd.local_mesh(device)
+    try:
+        assert (mesh.size, mesh.rank, mesh.backend) == (1, 0, "nccl")
+        rng = random.Random(3)
+        fr = field(FR, device)
+        n = 1 << 10
+        x = fr.encode_ints([rng.randrange(FR.modulus) for _ in range(n)])
+        fs = zd.get_four_step(FR, n, mesh)
+        dom = get_domain(FR, n, device)
+        assert torch.equal(fs.fft(x), dom.fft(x, force_device=True))
+        assert torch.equal(fs.ifft(x), dom.ifft(x, force_device=True))
+        srs = Srs.new_from_secret(77, n, device=device)
+        X, Y, Z = (a[:n] for a in srs.g1_proj)
+        sc = g1.scalars_to_u32([rng.randrange(FR.modulus) for _ in range(n)], device=device)
+        got = zd.msm_jacobian_sharded(sc, X, Y, Z, mesh=mesh, c=8)
+        want = msm.msm_proj(sc, X, Y, Z, c=8)
+        assert g1.proj_to_affine_host(tuple(a[None] for a in got)) == g1.proj_to_affine_host(
+            tuple(a[None] for a in want))
+        poly = Poly.from_ints(GOLDILOCKS, [rng.randrange(GOLDILOCKS.modulus) for _ in range(n // 2)], device=device)
+        layer = zd.dist_fri_layer(poly, GOLDILOCKS.generator, n, mesh)
+        single = FriLayer.from_poly(poly, GOLDILOCKS.generator, n)
+        assert torch.equal(layer.evaluations, single.evaluations)
+        assert layer.merkle_tree.internal_nodes == single.merkle_tree.internal_nodes
+        nw = 1 << 8
+        evals3 = torch.stack([fr.encode_ints([rng.randrange(FR.modulus) for _ in range(nw)]) for _ in range(3)])
+        committer = zd.get_wire_committer(nw, mesh, c=4)
+        wires = committer(evals3, *(a[:nw] for a in srs.g1_proj))
+        blinds = [(rng.randrange(FR.modulus), rng.randrange(FR.modulus)) for _ in range(3)]
+        blinded = committer.commit_blinded(evals3, srs, blinds)
+        dw, scheme = get_domain(FR, nw, device), KzgScheme(srs)
+        for i, (b_hi, b_lo) in enumerate(blinds):
+            f = Poly(FR, dw.ifft(evals3[i], force_device=True))
+            assert g1.proj_to_affine_host(tuple(a[None] for a in wires[i]))[0] == scheme.commit(f).point
+            vanish = Poly.from_ints(FR, [b_lo, b_hi], device=device).mul_by_vanishing(nw)
+            assert blinded[i] == scheme.commit(f + vanish).point
+    finally:
+        tdist.destroy_process_group()

@@ -1,5 +1,7 @@
 """zktpu_torch runs without JAX and without zktpu, and never hides a missing
 device or kernel."""
+import functools
+import importlib.util
 import os
 import pathlib
 import re
@@ -64,9 +66,27 @@ parser = Parser()
 parser.add_witness("x", 3)
 parsed = parser.parse("x*x=9").compile(device="cpu")
 assert CPIGenerator().compute_common_preprocessed_input("x*x=9", KzgScheme(srs)).n == parsed.size == 4
+import os, runpy, tempfile
+import torch
+from zktpu_torch import compat, profiling
+from zktpu_torch.dist import FourStepNTT, local_mesh
+from zktpu_torch.fields.fp import field
+from zktpu_torch.poly.domain import get_domain
+with tempfile.TemporaryDirectory() as tmp:
+    compat.save_srs(os.path.join(tmp, "srs.npz"), srs)
+    assert compat.load_srs(os.path.join(tmp, "srs.npz"), device="cpu") == srs
+    with profiling.maybe_trace("noop"):
+        pass
+mesh = local_mesh("cpu")
+x = field(FR, "cpu").encode_ints(range(16))
+assert torch.equal(FourStepNTT(FR, 16, mesh).fft(x), get_domain(FR, 16, "cpu").fft(x, force_device=True))
+torch.distributed.destroy_process_group()
+sys.argv = ["torch_fri_example.py", "--device", "cpu"]
+runpy.run_path("examples/torch_fri_example.py", run_name="__main__")
 loaded = sorted(m for m in sys.modules if m in ("jax", "zktpu") or m.startswith(("jax.", "jaxlib", "zktpu.")))
 assert loaded == ["jax", "zktpu"] and sys.modules["jax"] is None and sys.modules["zktpu"] is None, loaded
-print("proved, verified and ran msm_affine, FRI, a Nova fold and the parser without jax or zktpu")
+print("proved, verified and ran msm_affine, FRI, a Nova fold, the parser, compat, dist and an example without "
+      "jax or zktpu")
 """
 
 
@@ -77,14 +97,18 @@ def test_prove_and_verify_with_jax_blocked():
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    assert "proved, verified and ran msm_affine, FRI, a Nova fold and the parser without jax or zktpu" in out.stdout
+    assert ("proved, verified and ran msm_affine, FRI, a Nova fold, the parser, compat, dist and an example without "
+            "jax or zktpu") in out.stdout
 
 
 def test_no_jax_import_in_the_port():
-    """No import of jax or of zktpu anywhere in the port or chip_smoke.py."""
+    """No import of jax or of zktpu anywhere in the port, its examples or chip_smoke.py."""
     jax_import = re.compile(r"^\s*(import|from)\s+jax\b", re.MULTILINE)
     zktpu_import = re.compile(r"^\s*(import|from)\s+zktpu(\.|\s)", re.MULTILINE)
-    files = sorted((REPO / "zktpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    examples = sorted((REPO / "examples").glob("torch_*_example.py"))
+    names = ("dist_plonk", "fri", "kzg", "nova", "plonk")
+    assert [p.name for p in examples] == [f"torch_{n}_example.py" for n in names]
+    files = sorted((REPO / "zktpu_torch").rglob("*.py")) + examples + [REPO / "chip_smoke.py"]
     assert [str(p.relative_to(REPO)) for p in files if jax_import.search(p.read_text())] == []
     via_zktpu = [str(p.relative_to(REPO)) for p in files if zktpu_import.search(p.read_text())]
     assert via_zktpu == []
@@ -149,6 +173,21 @@ def test_wrapper_on_a_non_cpu_tensor_launches_or_raises():
                  lambda: ntt(g, g[:4], False, None, g[0], GOLDILOCKS)):
         with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
             call()
+    # the fixed-base multiply
+    from zktpu_torch.curves.g1_kernel import fixed_base_mul
+
+    table = torch.zeros((32, 256, 12), dtype=torch.int32, device="meta")
+    with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
+        fixed_base_mul((table, table, table), torch.zeros((4, 8), dtype=torch.int32, device="meta"), 8)
+
+
+def _example(name: str):
+    """examples/torch_<name>_example.py as a module (its main() not run)."""
+    path = REPO / "examples" / f"torch_{name}_example.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}_example", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -170,6 +209,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from zktpu_torch.nova.nifs import gen_test_values
     from zktpu_torch.nova.r1cs import FWitness
     from zktpu_torch.nova.utils import to_f_matrix, to_f_vec
+    from zktpu_torch import compat
+    from zktpu_torch import dist as zd
+    from zktpu_torch.curves.host_curve import G1Affine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     circuit = Circuit()
@@ -206,6 +248,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lambda: to_f_vec([1]),
         lambda: prof_nova.chain_r1cs(2),
         lambda: prof_nova.main(["--log-m", "2", "--steps", "1"]),
+        lambda: g1.fixed_base_mul(G1Affine.generator(), [1, 2]),
+        lambda: compat.load_srs(str(REPO / "tests" / "goldens" / "compat_srs.npz")),
+        lambda: zd.init(0, 1, 1),
+        lambda: zd.local_mesh(),
+        lambda: zd.spawn(len, 1),
+        *(functools.partial(_example(name).main, []) for name in ("kzg", "plonk", "nova", "fri", "dist_plonk")),
     ]
     for call in calls:
         with pytest.raises(NoCudaDeviceError, match="CUDA device"):

@@ -26,8 +26,8 @@
 //   broadcasts of (B, N, 12) planes are read in place, with no copy, and the
 //   outputs can be any caller-given planes that do not overlap the inputs.
 // The double (kernel 3) keeps canonical helpers and one block per SM.
-// The Horner combine (end of file) runs the MSM's chain of doubles and adds
-// in one launch.
+// The Horner combine runs the MSM's chain of doubles and adds in one launch,
+// and the fixed-base kernel an SRS's scalar multiplications.
 #include <cuda_runtime.h>
 
 #include "g1.cuh"
@@ -108,9 +108,28 @@ horner_combine_kernel(HornerArgs a, FqConsts f) {
       a.W, a.c);
 }
 
+// The fixed-base window multiply in one launch.
+//
+// Replaces the fori_loop of zktpu/curves/g1.py:300-320 (fixed_base_mul_u32:
+// per window a gather of the table rows and one proj_add, pallas_g1.py:125),
+// which the port ran as 32 gathers and 32 proj_add launches over (N, 12)
+// planes, each add reading and writing 9 planes of device memory.  Here one
+// thread walks its scalar's windows with the accumulator in registers
+// (g1.cuh fixed_base_at) and writes its point once.  What bounds it: the
+// 32-bit multiply-adds of its 32 complete adds a point, as for the add.
+// The accumulator (36 words) stays live across each add beside the add's
+// own values, so the launch bound asks for only 2 blocks of 128 threads per
+// SM (up to 255 registers a thread).
+__global__ void __launch_bounds__(THREADS, 2)
+fixed_base_kernel(FixedBaseArgs a, FqConsts f) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  fixed_base_at(a, i, f);
+}
+
 static const void* const KERNELS[] = {
     (const void*)proj_add_kernel, (const void*)proj_madd_kernel, (const void*)proj_double_kernel,
-    (const void*)horner_combine_kernel};
+    (const void*)horner_combine_kernel, (const void*)fixed_base_kernel};
 
 template <int N>
 static int launch_kind(int kind, int device, const uint32_t* p, uint32_t pinv, const int64_t* planes,
@@ -168,11 +187,34 @@ extern "C" int zk_horner_combine(int device, const uint32_t* p, uint32_t pinv, c
   return (int)cudaGetLastError();
 }
 
+// [s_i] B for n scalars: ptrs = X, Y, Z of the (windows, 2^window, 12)
+// table, the (n, 8) scalars, then X, Y, Z of the (n, 12) result, all
+// contiguous and 16-byte aligned; window divides 32.  Returns
+// cudaGetLastError() after the launch, or -1 for a bad size.
+extern "C" int zk_fixed_base_mul(int device, const uint32_t* p, uint32_t pinv, const int64_t* ptrs, int64_t n,
+                                 int window, void* stream) {
+  if (n < 1 || n >= (int64_t(1) << 31) || window < 1 || window > 16 || 32 % window) return -1;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  FixedBaseArgs a;
+  for (int k = 0; k < 3; ++k) {
+    a.table[k] = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[k]));
+    a.out[k] = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(ptrs[4 + k]));
+  }
+  a.scalars = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[3]));
+  a.n = (uint32_t)n;
+  a.window = (uint32_t)window;
+  a.windows = 256u / (uint32_t)window;
+  FqConsts f = make_consts<FQ_LIMBS>(p, pinv);
+  fixed_base_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, f);
+  return (int)cudaGetLastError();
+}
+
 // Registers per thread, local memory (spills) and static shared memory of
-// one kernel: kind 0 add, 1 mixed add, 2 double, 3 Horner combine.
-// out = {registers, local bytes, shared bytes}.
+// one kernel: kind 0 add, 1 mixed add, 2 double, 3 Horner combine, 4 the
+// fixed-base multiply.  out = {registers, local bytes, shared bytes}.
 extern "C" int zk_g1_kernel_attrs(int kind, int* out) {
-  if (kind < 0 || kind > 3) return -1;
+  if (kind < 0 || kind > 4) return -1;
   cudaFuncAttributes a;
   const cudaError_t e = cudaFuncGetAttributes(&a, KERNELS[kind]);
   if (e != cudaSuccess) return (int)e;

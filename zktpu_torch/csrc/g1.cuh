@@ -84,6 +84,20 @@ ZK_FN void fq_mul(uint32_t* out, const uint32_t* a, const uint32_t* b, const FqC
   mont_mul_lazy<FQ_LIMBS>(out, a, b, f);
 }
 
+// Where the first operand and the result of an add live.  MemRows: rows of
+// device memory, read again at each use (the group-law kernels).  RegRows:
+// registers, the fixed-base multiply's accumulator; there the result may
+// overwrite P1, since the add reads P1 only before its first store.
+struct MemRows {
+  ZK_FN static void load(uint32_t* dst, const uint32_t* src) { load_row(dst, src); }
+  ZK_FN static void store(uint32_t* dst, const uint32_t* src) { store_row(dst, src); }
+};
+
+struct RegRows {
+  ZK_FN static void load(uint32_t* dst, const uint32_t* src) { copy_limbs<FQ_LIMBS>(dst, src); }
+  ZK_FN static void store(uint32_t* dst, const uint32_t* src) { copy_limbs<FQ_LIMBS>(dst, src); }
+};
+
 // The three outputs of both adds,
 //     X3 = t3 t1 - t4 t5,  Y3 = t1 Zc + t5 t0,  Z3 = Zc t4 + t0 t3,
 // from six values < 2p (t4 < 3p in the mixed add).  Each value is a factor
@@ -91,7 +105,8 @@ ZK_FN void fq_mul(uint32_t* out, const uint32_t* a, const uint32_t* b, const FqC
 // Zc t4, t4 t5, t5 t0, t0 t3) frees a factor after its second use, so at
 // most seven values are live.  The products overwrite their dead factors.
 // Where inf2 is set (the mixed add's affine identity) the outputs are P1,
-// read again from memory.  Every output is canonicalized from < 2p.
+// read again from where P1 lives.  Every output is canonicalized from < 2p.
+template <class Rows = MemRows>
 ZK_FN void finish_adds(uint32_t* x3, uint32_t* y3, uint32_t* z3, uint32_t* t0, uint32_t* t1,
                        uint32_t* t3, uint32_t* t4, uint32_t* t5, uint32_t* zc, bool inf2,
                        const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
@@ -104,33 +119,35 @@ ZK_FN void finish_adds(uint32_t* x3, uint32_t* y3, uint32_t* z3, uint32_t* t0, u
   fq_mul(t4, t4, t5, f);  // t4 = t4 t5
   sub_red<L>(a, a, t4, f.p2);
   cond_sub<L>(a, a, f.p);
-  if (inf2) load_row(a, x1);
-  store_row(x3, a);
+  if (inf2) Rows::load(a, x1);
+  Rows::store(x3, a);
   fq_mul(t5, t5, t0, f);  // t5 = t5 t0
   add_red<L>(b, b, t5, f.p2);
   cond_sub<L>(b, b, f.p);
-  if (inf2) load_row(b, y1);
-  store_row(y3, b);
+  if (inf2) Rows::load(b, y1);
+  Rows::store(y3, b);
   fq_mul(t0, t0, t3, f);  // t0 = t0 t3
   add_red<L>(zc, zc, t0, f.p2);
   cond_sub<L>(zc, zc, f.p);
-  if (inf2) load_row(zc, z1);
-  store_row(z3, zc);
+  if (inf2) Rows::load(zc, z1);
+  Rows::store(z3, zc);
 }
 
-// RCB Alg. 7 on rows of device memory: (x3, y3, z3) = (x1, y1, z1) + (x2, y2, z2).
-// The order (t0, t2, t5, t1, t4, t3) lets each sum of inputs be formed from
-// fresh loads and each t be finished as soon as its two products exist.
+// RCB Alg. 7: (x3, y3, z3) = (x1, y1, z1) + (x2, y2, z2), P2 in device
+// memory, P1 and the result where Rows says.  The order (t0, t2, t5, t1, t4,
+// t3) lets each sum of inputs be formed from fresh loads and each t be
+// finished as soon as its two products exist.
+template <class Rows = MemRows>
 ZK_FN void proj_add_point(uint32_t* x3, uint32_t* y3, uint32_t* z3, const uint32_t* x1,
                           const uint32_t* y1, const uint32_t* z1, const uint32_t* x2,
                           const uint32_t* y2, const uint32_t* z2, const FqConsts& f) {
   constexpr int L = FQ_LIMBS;
   const uint32_t* p2 = f.p2;
   uint32_t t0[L], t1[L], t2[L], t3[L], t4[L], t5[L], a[L], b[L], c[L];
-  load_row(a, x1);
+  Rows::load(a, x1);
   load_row(b, x2);
   fq_mul(t0, a, b, f);            // t0 = X1 X2
-  load_row(c, z1);
+  Rows::load(c, z1);
   add_nr<L>(a, a, c);             // X1 + Z1 < 2p
   load_row(t2, z2);
   add_nr<L>(b, b, t2);            // X2 + Z2 < 2p
@@ -138,7 +155,7 @@ ZK_FN void proj_add_point(uint32_t* x3, uint32_t* y3, uint32_t* z3, const uint32
   fq_mul(t5, a, b, f);
   add_red<L>(a, t0, t2, p2);      // t5 = X1 Z2 + X2 Z1
   sub_red<L>(t5, t5, a, p2);
-  load_row(a, y1);
+  Rows::load(a, y1);
   load_row(b, y2);
   fq_mul(t1, a, b, f);            // t1 = Y1 Y2
   add_nr<L>(a, a, c);             // Y1 + Z1 < 2p
@@ -147,8 +164,8 @@ ZK_FN void proj_add_point(uint32_t* x3, uint32_t* y3, uint32_t* z3, const uint32
   fq_mul(t4, a, b, f);
   add_red<L>(a, t1, t2, p2);      // t4 = Y1 Z2 + Y2 Z1
   sub_red<L>(t4, t4, a, p2);
-  load_row(a, x1);
-  load_row(c, y1);
+  Rows::load(a, x1);
+  Rows::load(c, y1);
   add_nr<L>(a, a, c);             // X1 + Y1 < 2p
   load_row(b, x2);
   load_row(c, y2);
@@ -162,7 +179,7 @@ ZK_FN void proj_add_point(uint32_t* x3, uint32_t* y3, uint32_t* z3, const uint32
   add_red<L>(c, t1, t2, p2);      // c = Zc = Y1 Y2 + 3b Z1 Z2
   sub_red<L>(t1, t1, t2, p2);     // t1 = Y1 Y2 - 3b Z1 Z2
   fq_mul12_lazy(t5, t5, f);       // t5 = 3b (X1 Z2 + X2 Z1)
-  finish_adds(x3, y3, z3, t0, t1, t3, t4, t5, c, false, x1, y1, z1, f);
+  finish_adds<Rows>(x3, y3, z3, t0, t1, t3, t4, t5, c, false, x1, y1, z1, f);
 }
 
 // RCB Alg. 8 on rows of device memory: projective P1 plus affine (x2, y2)
@@ -267,6 +284,45 @@ ZK_FN void proj_double_at(const Planes<6>& pl, uint32_t o, uint32_t j, const FqC
   store_row(row_ptr(q[3], o, j), X3);
   store_row(row_ptr(q[4], o, j), Y3);
   store_row(row_ptr(q[5], o, j), Z3);
+}
+
+// ---------------------------------------------------------------------------
+// The fixed-base window multiply: [s] B for each 256-bit scalar s over
+// `windows` windows of `window` bits (window divides 32), with the table
+// T[w][j] = j 2^(window w) B precomputed (T[w][0] = O):
+//     acc = O;  acc += T[w][digit_w(s)]  for w = 0 .. windows - 1,
+// complete adds (Alg. 7) in the order of zktpu/curves/g1.py's fori_loop, so
+// the output words are the plain loop's.  One thread per scalar: the
+// accumulator stays in registers (RegRows), the table rows are read from
+// device memory (L2: the table is 1.2 MB at window 8) and the result is
+// written once.
+// ---------------------------------------------------------------------------
+struct FixedBaseArgs {
+  const uint32_t* table[3];  // X, Y, Z of T: contiguous (windows, 2^window, 12)
+  const uint32_t* scalars;   // (n, 8) little-endian 32-bit limbs, contiguous
+  uint32_t* out[3];          // X, Y, Z of the result: contiguous (n, 12)
+  uint32_t n, window, windows;
+};
+
+ZK_FN void fixed_base_at(const FixedBaseArgs& a, uint32_t i, const FqConsts& f) {
+  uint32_t x[FQ_LIMBS], y[FQ_LIMBS], z[FQ_LIMBS];
+  load_row(x, a.table[0]);  // T[0][0] = O = (0 : 1 : 0)
+  load_row(y, a.table[1]);
+  load_row(z, a.table[2]);
+  const uint32_t* s = a.scalars + (uint64_t)i * 8;
+  const uint32_t mask = (1u << a.window) - 1, row0 = 1u << a.window;
+#pragma unroll 1
+  for (uint32_t w = 0; w < a.windows; ++w) {
+    const uint32_t bit = w * a.window;
+    // the limb is read again each window rather than indexed in registers,
+    // which would put the scalar in local memory
+    const uint32_t digit = (s[bit >> 5] >> (bit & 31)) & mask;
+    const uint64_t row = ((uint64_t)w * row0 + digit) * FQ_LIMBS;
+    proj_add_point<RegRows>(x, y, z, x, y, z, a.table[0] + row, a.table[1] + row, a.table[2] + row, f);
+  }
+  store_row(a.out[0] + (uint64_t)i * FQ_LIMBS, x);
+  store_row(a.out[1] + (uint64_t)i * FQ_LIMBS, y);
+  store_row(a.out[2] + (uint64_t)i * FQ_LIMBS, z);
 }
 
 // ---------------------------------------------------------------------------

@@ -44,9 +44,11 @@ _SIGNATURES = {
     "zk_proj_add": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _I64, _P],
     "zk_proj_double": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _I64, _P],
     "zk_proj_madd": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _I64, _P],
-    # kind (0 add, 1 mixed add, 2 double, 3 Horner combine), out {registers,
-    # local bytes, shared bytes}
+    # kind (0 add, 1 mixed add, 2 double, 3 Horner combine, 4 fixed-base
+    # multiply), out {registers, local bytes, shared bytes}
     "zk_g1_kernel_attrs": [ctypes.c_int, _P],
+    # device, p (host), pinv, ptrs (host: X, Y, Z table, scalars, X, Y, Z out), n, window, stream
+    "zk_fixed_base_mul": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, ctypes.c_int, _P],
     # device, p (host), pinv, ptrs (host: X, Y, Z parts, X, Y, Z out), W, K, c, stream
     "zk_horner_combine": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _I64, _I64, _P],
     # device, limbs, p (host), pinv, in, out, batch, log_n, twiddles, in factor,

@@ -15,7 +15,8 @@ import torch
 from .host_curve import G1Affine
 from ..fields.host import FQ
 from ..fields.fp import field, ints_to_limbs, norm_device
-from ..fields.limbs import widen
+from ..profiling import check_on_curve
+from . import g1_kernel
 from .g1_kernel import LIMBS, proj_add, proj_double, proj_madd  # noqa: F401 (re-exported)
 
 
@@ -66,6 +67,7 @@ def proj_to_affine_host(P) -> list[G1Affine]:
         else:
             zi = pow(z, -1, p)
             out.append(G1Affine(x * zi % p, y * zi % p))
+    check_on_curve(out, "proj_to_affine_host")
     return out
 
 
@@ -89,8 +91,10 @@ def proj_to_affine_dev(P):
 
 
 @functools.lru_cache(maxsize=4)
-def _fixed_base_tables(base: G1Affine, window: int, device: torch.device):
-    """tables[k][j] = j * 2^(window k) * base, as (windows, 2^window, 12) planes."""
+def fixed_base_tables(base: G1Affine, window: int, device: torch.device):
+    """tables[k][j] = j * 2^(window k) * base, as (windows, 2^window, 12)
+    projective planes on `device` (host affine adds, made once per base,
+    window and device)."""
     num_windows = -(-256 // window)
     xs, ys, infs = [], [], []
     cur = base
@@ -116,13 +120,13 @@ def scalars_to_u32(scalars, device=None) -> torch.Tensor:
 
 
 def fixed_base_mul_u32(base: G1Affine, scalars_u32: torch.Tensor, window: int = 8):
-    """[s_i] base for (N, 8) canonical u32-limb scalars -> projective batch."""
-    assert 32 % window == 0, window
-    TX, TY, TZ = _fixed_base_tables(base, window, norm_device(scalars_u32.device))
-    sc = widen(scalars_u32)
-    acc = proj_identity((sc.shape[0],), scalars_u32.device)
-    for w in range(TX.shape[0]):
-        limb, off = divmod(w * window, 32)
-        ids = (sc[:, limb] >> off) & ((1 << window) - 1)
-        acc = proj_add(acc, (TX[w][ids], TY[w][ids], TZ[w][ids]))
-    return acc
+    """[s_i] base for (N, 8) canonical u32-limb scalars -> projective batch,
+    on the scalars' device: one launch of the fixed-base kernel on the card
+    (g1_kernel.fixed_base_mul), its plain loop on the CPU."""
+    tables = fixed_base_tables(base, window, norm_device(scalars_u32.device))
+    return g1_kernel.fixed_base_mul(tables, scalars_u32, window)
+
+
+def fixed_base_mul(base: G1Affine, scalars, window: int = 8, device=None):
+    """[s_i] base for a batch of host-int scalars -> projective batch on `device`."""
+    return fixed_base_mul_u32(base, scalars_to_u32(scalars, device), window)

@@ -23,7 +23,10 @@ kernel.
 ``horner_combine`` replaces the loop of doubles and adds that combines the
 MSM's window sums (zktpu/curves/msm.py:139-148): one launch runs the whole
 serial chain, four lanes per point running each formula step's independent
-products at once (csrc/g1.cu says why).
+products at once (csrc/g1.cu says why).  ``fixed_base_mul`` replaces the
+loop of gathers and adds of zktpu/curves/g1.py:300-320 (fixed_base_mul_u32):
+one launch, one thread per scalar walking its windows with the accumulator
+in registers.
 
 The wrappers take strided operands without copying them: any broadcast of
 the batch shape whose rows are 16-byte aligned, with limbs contiguous and
@@ -48,6 +51,7 @@ from ..fields.host import FQ
 from .. import cuda_lib
 from ..fields.field_kernel import add_plain, sub_plain
 from ..fields.fp import field
+from ..fields.limbs import widen
 from ..fields.mont_kernel import mont_mul_plain
 
 LIMBS = FQ.num_digits // 2
@@ -149,6 +153,21 @@ def proj_madd_plain(P1, A2):
     return proj_madd_formula(_PlainOps(P1[0].device), P1, A2)
 
 
+def fixed_base_mul_plain(tables, scalars_u32, window: int, add=proj_add_plain):
+    """acc = O, then acc += T[w][digit_w(s)] for each window w: the gathers and
+    adds of zktpu/curves/g1.py:300-320, with the plain add or `add` (proj_add:
+    a launch a window, the loop the port ran before fixed_base_mul).  tables:
+    X, Y, Z of T, (windows, 2^window, 12) each, T[w][0] = O."""
+    TX, TY, TZ = tables
+    sc = widen(scalars_u32)
+    acc = tuple(t[0, 0].expand(sc.shape[0], LIMBS) for t in tables)  # O = (0 : 1 : 0)
+    for w in range(TX.shape[0]):
+        limb, off = divmod(w * window, 32)
+        ids = (sc[:, limb] >> off) & ((1 << window) - 1)
+        acc = add(acc, (TX[w][ids], TY[w][ids], TZ[w][ids]))
+    return acc
+
+
 def horner_combine_plain(parts, c: int):
     """The Horner combine as a loop of plain doubles and adds (module
     docstring of horner_combine)."""
@@ -161,7 +180,7 @@ def horner_combine_plain(parts, c: int):
     return acc
 
 
-_KIND = {"proj_add": 0, "proj_madd": 1, "proj_double": 2, "horner_combine": 3}
+_KIND = {"proj_add": 0, "proj_madd": 1, "proj_double": 2, "horner_combine": 3, "fixed_base_mul": 4}
 
 
 def kernel_attrs(name: str) -> dict:
@@ -334,3 +353,42 @@ def horner_combine(parts, c: int):
 
 
 horner_combine.launches = 0
+
+
+def fixed_base_mul(tables, scalars_u32, window: int):
+    """[s_i] B for (N, 8) canonical u32-limb scalars from B's window table
+    (fixed_base_mul_plain's tables; window divides 32) -> (N, 12) x 3
+    projective.  One launch of csrc/g1.cu's fixed_base_kernel for CUDA
+    tensors, the plain loop for CPU tensors."""
+    if 32 % window or window > 16 or tables[0].shape[:2] != (256 // window, 1 << window):
+        raise ValueError(f"fixed_base_mul: window {window} with tables {tuple(tables[0].shape)}: the window must "
+                         f"divide 32 and the tables be (256 / window, 2^window, 12)")
+    if all(t.device.type == "cpu" for t in (*tables, scalars_u32)):
+        return fixed_base_mul_plain(tables, scalars_u32, window)
+    if scalars_u32.ndim != 2 or scalars_u32.shape[1] != 8 or scalars_u32.dtype != torch.int32:
+        raise ValueError(f"fixed_base_mul: scalars must be (N, 8) int32 limbs, got {scalars_u32.dtype} "
+                         f"{tuple(scalars_u32.shape)}")
+    sc = scalars_u32.contiguous()
+    ins = [t.contiguous() for t in tables]
+    cuda_lib.check_cuda_operands("fixed_base_mul", ins, LIMBS)
+    if sc.device != ins[0].device:
+        raise ValueError(f"fixed_base_mul: scalars on {sc.device}, tables on {ins[0].device}")
+    n = sc.shape[0]
+    out = tuple(torch.empty((n, LIMBS), dtype=torch.int32, device=sc.device) for _ in range(3))
+    if n == 0:
+        return out
+    if sc.data_ptr() % 16:
+        sc = sc.clone()
+    if any(t.data_ptr() % 16 for t in (*ins, *out)):
+        raise ValueError("fixed_base_mul: planes must be 16-byte aligned")
+    lib = cuda_lib.load()
+    p, pinv = cuda_lib.field_consts(FQ)
+    ptrs = np.array([t.data_ptr() for t in (*ins, sc, *out)], dtype=np.int64)
+    rc = lib.zk_fixed_base_mul(sc.device.index, p.ctypes.data, pinv, ptrs.ctypes.data, n, int(window),
+                               cuda_lib.stream_of(out[0]))
+    cuda_lib.check(rc, "fixed_base_mul")
+    fixed_base_mul.launches += 1
+    return out
+
+
+fixed_base_mul.launches = 0

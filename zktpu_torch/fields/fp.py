@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from . import field_kernel as _fk
+from ..profiling import debug_enabled
 from .host import FieldSpec
 from .limbs import widen
 from .mont_kernel import mont_mul as _mont_mul
@@ -138,8 +139,23 @@ class TorchField:
         """Montgomery limbs -> canonical Python ints (from_mont on the device)."""
         if arr.numel() == 0:
             return []
-        raw = self.from_mont(arr.reshape(-1, self.num_limbs))
-        return limbs_to_ints(raw.cpu().numpy())
+        words = arr.reshape(-1, self.num_limbs)
+        if debug_enabled():
+            self._check_words(words)
+        return limbs_to_ints(self.from_mont(words).cpu().numpy())
+
+    def _check_words(self, words: torch.Tensor) -> None:
+        """ZKTPU_DEBUG's sanitizer: kernels must hand back 32-bit limbs of
+        fully reduced (< p) Montgomery values (one host pass)."""
+        host = words.cpu().numpy().astype(np.int64)
+        if words.dtype != torch.int32:  # int32 limbs are 32-bit by their type
+            lo, hi = int(host.min()), int(host.max())
+            assert lo >= 0 and hi < 1 << 32, (
+                f"ZKTPU_DEBUG: limb overflow in decode_ints (min={lo:#x}, max={hi:#x}, limbs are 32-bit)"
+            )
+        p = self.spec.modulus
+        for i, v in enumerate(limbs_to_ints(host.astype(np.uint32).view(np.int32))):
+            assert 0 <= v < p, f"ZKTPU_DEBUG: unreduced Montgomery value at [{i}]: {v:#x}"
 
     def decode_int(self, arr: torch.Tensor) -> int:
         return self.decode_ints(arr.reshape(1, -1))[0]

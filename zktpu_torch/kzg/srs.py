@@ -78,3 +78,13 @@ class Srs:
 
     def g2s(self) -> G2Affine:
         return self._g2s
+
+    def __eq__(self, other) -> bool:
+        """The same size, G2 points and G1 points (compared on the host)."""
+        return (
+            isinstance(other, Srs)
+            and self.size == other.size
+            and self.g2() == other.g2()
+            and self.g2s() == other.g2s()
+            and self.g1_points_host() == other.g1_points_host()
+        )

@@ -8,13 +8,14 @@ from __future__ import annotations
 
 
 def _wrappers():
-    from zktpu_torch.curves.g1_kernel import horner_combine, proj_add, proj_double, proj_madd
+    from zktpu_torch.curves.g1_kernel import fixed_base_mul, horner_combine, proj_add, proj_double, proj_madd
     from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_chain
     from zktpu_torch.fri.fold_kernel import fold
     from zktpu_torch.hash.sha256_kernel import hash_field
     from zktpu_torch.poly.ntt_kernel import ntt
 
-    return (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field, fold)
+    return (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field, fold,
+                                             fixed_base_mul)
 
 
 def reset() -> None:
@@ -36,7 +37,8 @@ def read() -> dict:
     from zktpu_torch.fields import field_kernel
     from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
 
-    (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field, fold) = _wrappers()
+    (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field, fold,
+                                      fixed_base_mul) = _wrappers()
     return {
         "mont_mul_fr": mont_mul.launches[FR.name],
         "mont_mul_fq": mont_mul.launches[FQ.name],
@@ -52,6 +54,7 @@ def read() -> dict:
         "horner_combine": horner_combine.launches,
         "sha256_field": hash_field.launches,
         "fri_fold": fold.launches,
+        "fixed_base_mul": fixed_base_mul.launches,
         **{f"{k}_{short}": field_kernel.launches[k][spec.name]
            for k in ("field_scan", "field_addsub") for short, spec in (("fr", FR), ("fq", FQ), ("gl", GOLDILOCKS))},
     }

@@ -135,14 +135,16 @@ def _point(p) -> list:
 
 
 def run_ivc(scheme, r1cs, f_circuit, witness, steps: int, device=None, check_verify=None, after_fold=None,
-            step_times=None, before_prove=None) -> dict:
+            step_times=None, before_prove=None, checkpoint=None) -> dict:
     """The IVC loop of examples/nova_example.py over `steps` steps.
 
     witness(step) -> (W as ints, x as ints): the step's witness and public
     input, committed when the step needs it.  check_verify(step, ivc,
     zk_proof) runs before each step's IVC.verify from step 1; before_prove(step)
     before each step's prove; after_fold(step, folded_witness,
-    folded_instance) after each fold.  Returns the step
+    folded_instance) after each fold; checkpoint(step, augmented) after
+    each step but the last returns the augmented circuit the loop goes on
+    with (a resumed one: compat.load_ivc_state), under a new IVC.  Returns the step
     records (the augmented circuit's hash h_(i+1), and for each fold com_T,
     r, the folded instance and the NIFS openings, as plain ints), the
     states z_0 ... z_steps (the last from the last step's run), the final
@@ -220,6 +222,9 @@ def run_ivc(scheme, r1cs, f_circuit, witness, steps: int, device=None, check_ver
                 "opening_w": _point(nifs.opening_w.point) + [nifs.opening_w.evaluation],
             })
             w_cur = w_next
+            if checkpoint is not None:
+                augmented = checkpoint(step, augmented)
+                ivc = IVC(scheme, augmented)
         records.append(rec)
     return {"records": records, "states": [s.state for s in z] + [augmented.z_i1.state], "augmented": augmented,
             "folded": (folded_witness, folded_instance), "times": times}
