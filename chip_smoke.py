@@ -10,8 +10,9 @@ Phases:
      local (spill) bytes and shared memory per block of the group-law
      kernels, the Horner combine, the NTT (Fr and Goldilocks), the field
      scans, the field add/sub, the field hash, the FRI fold, the fixed-base
-     multiply and the tensor-core chained products (mxu and f32, Fr and Fq) (fails if one
-     spills); the SASS of the chained product's three bodies (IMMA, FFMA,
+     multiply, Nova's matrix-vector product (and its rows and threads a
+     block) and the tensor-core chained products (mxu and f32, Fr and Fq)
+     (fails if one spills); the SASS of the chained product's three bodies (IMMA, FFMA,
      IMAD: cuobjdump), the mxu and f32 kernels must hold IMMA and the f32
      ones FFMA; the Goldilocks NTT's plan at 2^fri_log_n and 2^22 and its
      SASS per butterfly (IMAD, LDS/STS of one radix step; BAR per butterfly
@@ -91,10 +92,13 @@ Phases:
      first fold satisfies the relaxed R1CS, the final state equals the
      host's; setup, per-step prove and verify medians, launches, the split
      of one fold step, the idle share of a traced two-step run, peak
-     memory; its kernels must have launched; (d) outside the count,
-     mont_mul on 64 rows of A times z[None] (z read in place) and the
-     axis-1 sum on 256 rows of the product against their plain versions,
-     and both at the full shape, kernel only, beside their byte bounds;
+     memory; its kernels must have launched, matvec_fr once a
+     matrix-vector product (6 a fold, 3 in the first fold's satisfaction
+     check); (d) outside the count, matvec_fr against its plain version on
+     A's first 64 rows, 64 random rows and 16 rows of p - 1 words at the
+     full n, then at the full shape in turns with the former pair (the
+     product against z[None], then the axis-1 sum), same words, beside the
+     bounds;
   8. parser path: a sum-of-products equation of 2^log_n gates parsed with
      seeded witnesses, proved and verified on the card, a proof of another
      equation rejected, CPIGenerator's eight commitments equal to the
@@ -133,7 +137,9 @@ field_addsub_fr at the coset quotient's (2^17, 8) add, ntt_gl at FRI layer
 ran before the NTT took it, field_addsub_gl at the first fold's add it ran
 before the fold kernel, fri_fold at the first fold, field_scan_gl at its
 largest power table, fixed_base_mul at 2^msm_log_n scalars (an SRS of that
-size), the others at phase 2's shapes), the
+size), matvec_fr at Nova's full (2^nova_log_m, 2^nova_log_m + 3, 8) shape
+with its plain_ms on A's first 64 rows (its "plain_shape"), the others at
+phase 2's shapes), the
 card's name and power limit, and the final {"ok": true, ...} line.  Any
 failure raises and exits non-zero.
 """
@@ -1446,8 +1452,11 @@ def phase_nova(device, log_m: int, steps: int) -> tuple[dict, dict]:
     peak = torch.cuda.max_memory_allocated()
     assert len(checks) == 3 or steps < 3, f"Nova checks missing: {checks}"
     assert run["states"][-1] == pn.host_final_state(log_m, inputs), "the final state differs from the host's"
-    path = ("mont_mul_fr", "field_scan_fr", "field_addsub_fr", "horner_combine", "proj_add")
+    path = ("mont_mul_fr", "field_scan_fr", "field_addsub_fr", "horner_combine", "proj_add", "matvec_fr")
     assert all(launches[k] > 0 for k in path), f"a kernel of the Nova path never launched: {launches}"
+    # six products a fold (compute_t) over steps - 1 folds, and three in the first fold's satisfaction check
+    products = 6 * (steps - 1) + 3 * (steps > 1)
+    assert launches["matvec_fr"] == products, f"matvec_fr launched {launches['matvec_fr']} times, not {products}"
     t = run["times"]
     prove_med, verify_med = statistics.median(t["prove_s"]), statistics.median(t["verify_s"][1:])
     print(f"phase 7: (c) Nova IVC, squaring chain m = 2^{log_m} ({m} constraints, n = {m + 3}), {steps} steps: "
@@ -1470,17 +1479,18 @@ def phase_nova(device, log_m: int, steps: int) -> tuple[dict, dict]:
     return launches, {"r1cs": r1cs, "z": pn.chain_witness(inputs[0], m)}
 
 
-def phase_nova_kernels(device, nova: dict) -> None:
-    """7(d): the matrix-vector product's kernels against their plain versions
-    at the path's shapes, on slices (the plain product widens to int64
-    digits): mont_mul on the first 64 rows of A times z[None] (z read in
-    place), the axis-1 sum on 256 rows of the product at their full length;
-    then each kernel at the full (m, n, 8) shape, kernel only, beside its
-    byte bound.  Outside the counted path."""
-    from zktpu_torch.fields import field_kernel as fk
-    from zktpu_torch.fields.fp import field
+def phase_nova_kernels(device, nova: dict, results: dict) -> None:
+    """7(d), outside the counted path: the matvec kernel (matvec_fr) against
+    its plain version (the plain product against z[None], then the plain
+    axis-1 sum) on A's first 64 rows, on 64 random rows and on 16 rows whose
+    every word is p - 1 (z too), each at the full n; then at the full
+    (m, n, 8) shape with CUDA events, in turns with the former pair (kernel
+    1's product, kernel A's axis-1 sum over its (m, n, 8) output), which must
+    give the same words, beside the bounds."""
+    from zktpu_torch.fields.fp import field, ints_to_limbs
     from zktpu_torch.fields.host import FR
-    from zktpu_torch.fields.mont_kernel import _broadcast_operand, mont_mul, mont_mul_plain
+    from zktpu_torch.fields.mont_kernel import mont_mul
+    from zktpu_torch.nova.matvec_kernel import kernel_attrs, matvec, matvec_plain
 
     f = field(FR, device)
     A = nova["r1cs"].matrix_a
@@ -1489,42 +1499,51 @@ def phase_nova_kernels(device, nova: dict) -> None:
     gen.manual_seed(SEED + 7)
     z = torch.cat([f.encode_ints(nova["z"]), f.encode_ints([nova["z"][-1], 1])])  # [W || x || u]
     assert z.shape[0] == n
-    # A with random entries in its first 256 rows, so that the slices hold more than 0 and 1
-    Ar = _field_rows(f, gen, 256 * n)[:, 0].reshape(256, n, 8)
-    operand, rows = _broadcast_operand(z[None], torch.Size((m, n)))
-    assert rows == n and operand.data_ptr() == z.data_ptr(), "z[None] was not passed in place"
-    for name, mat in (("A", A[:64]), ("random rows", Ar[:64])):
-        got = mont_mul(FR, mat, z[None])
-        want, plain_ms = _timed_once(lambda: mont_mul_plain(FR, mat, z[None]))
-        _compare(f"mont_mul Fr at (64, {n}, 8) x (1, {n}, 8) ({name})", [got], [want])
-        ms = _cuda_ms(lambda: mont_mul(FR, mat, z[None]), 20)
-        print(f"phase 7: (d) mont_mul Fr at (64, {n}, 8) x z[None] of {name}: mismatches=0 kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f}", flush=True)
-    prod = mont_mul(FR, Ar, z[None])
-    got = f.sum(prod, axis=1)
-    want, plain_ms = _timed_once(lambda: fk.sum_plain(f, prod, 1))
-    _compare(f"field_scan Fr sum axis 1 of (256, {n}, 8)", [got], [want])
-    ms = _cuda_ms(lambda: f.sum(prod, axis=1), 20)
-    print(f"phase 7: (d) field_scan Fr sum axis 1 of (256, {n}, 8): mismatches=0 kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f}", flush=True)
-    del Ar, prod, got, want
+    top = torch.from_numpy(ints_to_limbs([FR.modulus - 1], 8))[0].to(device)
+    slices = (("A's first 64 rows", A[:64], z),
+              ("64 random rows", _field_rows(f, gen, 64 * n)[:, 0].reshape(64, n, 8), z),
+              ("16 rows of p - 1 words, z of p - 1 words", top.expand(16, n, 8).contiguous(),
+               top.expand(n, 8).contiguous()))
+    err, plain = 0, {}
+    for name, mat, vec in slices:
+        got = matvec(mat, vec)
+        want, plain[name] = _timed_once(lambda: matvec_plain(f, mat, vec))
+        err = max(err, _compare(f"matvec_fr on {name}", [got], [want]))
+        ms = _cuda_ms(lambda: matvec(mat, vec), 20)
+        print(f"phase 7: (d) matvec_fr on {name} ({mat.shape[0]}, {n}, 8): mismatches=0 kernel_ms={ms:.4f} "
+              f"plain_ms={plain[name]:.4f}", flush=True)
+    del slices, got, want
     torch.cuda.empty_cache()
     # at the full shape a launch runs for milliseconds and the host enqueues the next ones meanwhile, so
-    # CUDA events over a few calls time the kernels alone (torch.profiler's traces of this process can
-    # come back empty after phase 7(c)'s)
+    # CUDA events over a few calls time the kernels alone; kernel, pair, pair, kernel
     E = 32
+    pair = lambda: f.sum(mont_mul(FR, A, z[None]), axis=1)  # noqa: E731
+    assert torch.equal(matvec(A, z), pair()), "matvec_fr differs from the former pair at the full shape"
+    ms = [_cuda_ms(lambda: matvec(A, z), 5)]
+    ms_pair = [_cuda_ms(pair, 5), _cuda_ms(pair, 5)]
+    ms.append(_cuda_ms(lambda: matvec(A, z), 5))
     full = mont_mul(FR, A, z[None])
     ms_mul = _cuda_ms(lambda: mont_mul(FR, A, z[None]), 5)
-    b_mul = _bound((2 * m * n + n) * E, m * n * _mont_words(8))
     ms_sum = _cuda_ms(lambda: f.sum(full, axis=1), 5)
-    b_sum = _bound((m * n + m) * E, (n - 1) * m * 8)  # an add counts as L word operations, as in phase 2
-    ms_mv = _cuda_ms(lambda: f.sum(mont_mul(FR, A, z[None]), axis=1), 5)
-    print(f"phase 7: (d) full shape, CUDA events over 5 calls: mont_mul Fr (m, n, 8) = ({m}, {n}, 8) x (1, {n}, 8) "
-          f"{ms_mul:.4f} ms, bound {b_mul['bound_ms']:.4f} ms ({b_mul['bound_by']}); field_scan Fr sum axis 1 "
-          f"{ms_sum:.4f} ms, bound {b_sum['bound_ms']:.4f} ms ({b_sum['bound_by']}); matrix_vector_product "
-          f"{ms_mv:.4f} ms against {b_mul['bound_ms'] + b_sum['bound_ms']:.4f} ms of bound; {_smi()}", flush=True)
     del full
     torch.cuda.empty_cache()
+    nbytes = (m * n + n + m) * E
+    b = _bound(nbytes, m * n * 64)  # the schoolbook a z: 64 word products an element
+    b_cios = _bound(nbytes, m * n * _mont_words(8))  # a CIOS product an element, for comparison
+    b_pair = _bound((2 * m * n + n) * E, m * n * _mont_words(8))["bound_ms"] + \
+        _bound((m * n + m) * E, (n - 1) * m * 8)["bound_ms"]
+    mean = statistics.mean(ms)
+    attrs = kernel_attrs()
+    results["matvec_fr"] = {"max_abs_err": err, "ms": mean, "plain_ms": plain["A's first 64 rows"], "n": m * n,
+                            "plain_shape": f"(64, {n}, 8), A's first 64 rows", **b}
+    print(f"phase 7: (d) full shape (m, n, 8) = ({m}, {n}, 8) x ({n}, 8), CUDA events over 5 calls, in turns: "
+          f"matvec_fr {ms[0]:.4f} / {ms[1]:.4f} ms; the former pair (mont_mul Fr, then field_scan Fr's axis-1 sum) "
+          f"{ms_pair[0]:.4f} / {ms_pair[1]:.4f} ms (mont_mul alone {ms_mul:.4f} ms, the sum alone {ms_sum:.4f} ms), "
+          f"same words; bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {100 * b['bound_ms'] / mean:.1f}% reached), "
+          f"the CIOS count {b_cios['bound_ms']:.4f} ms, the schoolbook count "
+          f"{2 * m * n * 64 / IMAD_PER_S * 1e3:.4f} ms, the former pair's bound {b_pair:.4f} ms; "
+          f"{attrs['rows']} rows and {attrs['threads']} threads a block, {attrs['registers']} registers; {_smi()}",
+          flush=True)
 
 
 def sum_of_products(terms: int, seed: int, constant: int = 3):
@@ -2103,6 +2122,8 @@ _SOURCES = {
     "fri_fold": ("zktpu_torch/csrc/fri_fold.cu", "zktpu/fri/prover.py:44"),
     # fixed_base_mul_u32's fori_loop of gathers and _proj_add_call (pallas_g1.py:125)
     "fixed_base_mul": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/g1.py:300"),
+    # Nova's matrix_vector_product (zktpu/nova/utils.py:28): kernel 1 against z[None], then the axis-1 sum
+    "matvec_fr": ("zktpu_torch/csrc/matvec.cu", "zktpu/fields/pallas_mont.py:363"),
 }
 
 
@@ -2136,6 +2157,7 @@ def main(argv=None) -> int:
     from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
     from zktpu_torch.fri import fold_kernel
     from zktpu_torch.hash import sha256_kernel
+    from zktpu_torch.nova import matvec_kernel
     from zktpu_torch.poly import ntt_kernel
 
     attrs = {k: g1_kernel.kernel_attrs(k) for k in ("proj_add", "proj_madd", "proj_double", "horner_combine")}
@@ -2145,6 +2167,7 @@ def main(argv=None) -> int:
     attrs["sha256_field"] = sha256_kernel.kernel_attrs()
     attrs["fri_fold"] = fold_kernel.kernel_attrs()
     attrs["fixed_base_mul"] = g1_kernel.kernel_attrs("fixed_base_mul")
+    attrs["matvec_fr"] = matvec_kernel.kernel_attrs()
     for spec in (FR, FQ):
         for variant in ("mxu", "f32"):
             attrs[f"mont_mul_chain_{variant} {spec.name}"] = mont_kernel.mont_mma_attrs(spec, variant)
@@ -2152,6 +2175,8 @@ def main(argv=None) -> int:
         f"{k}: {a['registers']} registers, {a['local_bytes']} local bytes, {a['shared_bytes']} shared bytes per block"
         for k, a in attrs.items()), flush=True)
     assert all(a["local_bytes"] == 0 for a in attrs.values()), f"a kernel spills: {attrs}"
+    print(f"phase 1: matvec_fr design: {attrs['matvec_fr']['rows']} rows and {attrs['matvec_fr']['threads']} "
+          f"threads a block", flush=True)
     phase_chain_sass()
     phase_ntt_gl_sass(args.fri_log_n)
 
@@ -2173,7 +2198,7 @@ def main(argv=None) -> int:
     phase_nova_parity(device)
     phase_nova_gpu_cpu(device)
     nova_path, nova = phase_nova(device, args.nova_log_m, args.nova_steps)
-    phase_nova_kernels(device, nova)
+    phase_nova_kernels(device, nova, kernels)
     del nova
     torch.cuda.empty_cache()
     parser = phase_parser(device, args.log_n)
@@ -2197,6 +2222,7 @@ def main(argv=None) -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             # no PyTorch call computes a Montgomery product, a curve add, a Montgomery NTT or SHA-256
             "library_ms": None,
+            **({"plain_shape": k["plain_shape"]} if "plain_shape" in k else {}),
         })
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,7 @@
 """Write the goldens that the port's CPU tests compare against, from zktpu.
 
-    JAX_PLATFORMS=cpu python tests/goldens/make_goldens.py [field_ops] [fri] [fri_cases] [mont_mma] [nova] [kzg_vector] [parser]
-        [mont_mul_words] [plonk] [compat] [dist]
+    JAX_PLATFORMS=cpu python tests/goldens/make_goldens.py [field_ops] [fri] [fri_cases] [mont_mma] [nova] [matvec]
+        [kzg_vector] [parser] [mont_mul_words] [plonk] [compat] [dist]
 
 - field_ops.npz: zktpu's DeviceField (cumprod and cumsum both ways, sum on
   axis 0 and 1, powers, batch_inv, add, sub, neg, double) on the inputs of
@@ -31,6 +31,9 @@
   instance and the first fold's pair (for the converters); and
   matrix_vector_product, compute_t and fold_witness on an 8-squaring chain
   with operands from numpy's default_rng;
+- nova_matvec.npz: zktpu.nova.utils.matrix_vector_product of
+  tests/test_torch_nova.py's matvec_operands (a (16, 67) matrix and z of
+  random canonical entries), with its encoded inputs;
 - kzg_vector.json: the cases of tests/test_g1_msm_kzg.py:104-125 (scalar
   homomorphism, aggregate, batch_verify with StdRng seed 99 accepting and,
   with one evaluation changed, rejecting, the empty commit), commit_vector
@@ -406,6 +409,21 @@ def nova() -> None:
     np.savez_compressed(os.path.join(HERE, "nova.npz"), **{k: digits_to_limbs(np.asarray(v)) for k, v in arrays.items()})
 
 
+def matvec() -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import test_torch_nova as t
+    from zktpu.nova import utils as zu
+    from zktpu_torch.convert import digits_to_limbs
+
+    rows, zs = t.matvec_operands()
+    a, z = zu.to_f_matrix(rows), zu.to_f_vec(zs)
+    arrays = {"a": a, "z": z, "az": zu.matrix_vector_product(a, z)}
+    np.savez_compressed(os.path.join(HERE, "nova_matvec.npz"),
+                        **{k: digits_to_limbs(np.asarray(v)) for k, v in arrays.items()})
+
+
 def kzg_vector() -> None:
     import jax
 
@@ -606,8 +624,8 @@ def dist() -> None:
 
 
 TARGETS = {"field_ops": field_ops, "fri": fri, "fri_cases": fri_cases, "mont_mma": mont_mma, "nova": nova,
-           "kzg_vector": kzg_vector, "parser": parser, "mont_mul_words": mont_mul_words, "plonk": plonk,
-           "compat": compat, "dist": dist}
+           "matvec": matvec, "kzg_vector": kzg_vector, "parser": parser, "mont_mul_words": mont_mul_words,
+           "plonk": plonk, "compat": compat, "dist": dist}
 
 if __name__ == "__main__":
     for name in sys.argv[1:] or list(TARGETS):

@@ -1,13 +1,15 @@
 """The CUDA kernels' own arithmetic on the CPU, against the plain versions.
 
-csrc/field.cuh, csrc/g1.cuh, csrc/ntt.cuh and csrc/mont_mma.cuh compile as
-host C++ (tests/g1_host.cpp, tests/ntt_host.cpp, tests/mont_mma_host.cpp):
+csrc/field.cuh, csrc/g1.cuh, csrc/ntt.cuh, csrc/matvec.cuh and
+csrc/mont_mma.cuh compile as host C++ (tests/g1_host.cpp, tests/ntt_host.cpp,
+tests/matvec_host.cpp, tests/mont_mma_host.cpp):
 the PTX carry chains of the
 Montgomery product are emulated one instruction for one, the per-point code
 of the add, mixed add and double runs as each CUDA thread runs it, strided
 planes and all, the Horner combine runs its lane schedule phase by phase,
 the NTT runs each pass block by block and each block's phases thread by
-thread, and the tensor-core chain runs a warp as 32 threads with its u8
+thread, the matrix-vector product runs every block and thread with its warp
+shuffles emulated, and the tensor-core chain runs a warp as 32 threads with its u8
 mma.sync fragments emulated by the PTX ISA's layout tables.  So the carry chains, the lazy reduction bounds, the plane
 addressing, the lane exchange and the NTT's pass and tile index math are
 held word for word against the plain PyTorch versions here, though only the
@@ -532,3 +534,80 @@ def test_host_mont_mma_chain_matches_plain(spec, variant):
                                 pmat.ctypes.data, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], 3)
     assert rc == 0
     assert torch.equal(out, mont_mul_chain_plain(spec, a, b, 3))
+
+
+# Nova's matrix-vector product (csrc/matvec.cuh): every block and thread on
+# the CPU, through the port's own wrapper (nova/matvec_kernel.py's run),
+# with one warp and four rows a block, two warps and three rows, and the
+# library's design.
+MATVEC_SHIM = os.path.join(HERE, "matvec_host.cpp")
+MATVEC_DESIGNS = {
+    "one_warp_four_rows": ("-DZK_MATVEC_THREADS=32", "-DZK_MATVEC_ROWS=4"),
+    "two_warps_three_rows": ("-DZK_MATVEC_THREADS=64", "-DZK_MATVEC_ROWS=3"),
+    "library": (),
+}
+
+
+def matvec_host_lib(design: str = "one_warp_four_rows") -> ctypes.CDLL:
+    """The host build of the matvec kernel in one of MATVEC_DESIGNS."""
+    so = _build(MATVEC_SHIM, "matvec_host", MATVEC_DESIGNS[design])
+    for name in ("zk_matvec", "zk_matvec_attrs"):
+        fn = getattr(so, name)
+        fn.argtypes = cuda_lib._SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return so
+
+
+@pytest.fixture(scope="module", params=sorted(MATVEC_DESIGNS))
+def matvec_lib(request):
+    return request.param, matvec_host_lib(request.param)
+
+
+def _fr_words(rng, shape) -> torch.Tensor:
+    """Canonical Fr words of `shape` + (8,), the words 0, 1, p - 2 and p - 1 among them."""
+    count = int(np.prod(shape))
+    return torch.from_numpy(ints_to_limbs(_elements(rng, FR, count), 8)).reshape(*shape, 8)
+
+
+@pytest.mark.parametrize("m, n", [(1, 1), (3, 2), (5, 33), (9, (1 << 10) + 3)])
+def test_host_matvec_matches_plain(matvec_lib, m, n):
+    """Random canonical entries with the edge words: m below, at and past a
+    block's rows, n below one warp, past it, and 2^10 + 3 (a tail of the
+    column loop in every design)."""
+    from zktpu_torch.nova import matvec_kernel
+
+    design, so = matvec_lib
+    rng = np.random.default_rng(1000 * m + n)
+    A, z = _fr_words(rng, (m, n)), _fr_words(rng, (n,))
+    got = matvec_kernel.run(so, A, z)
+    assert torch.equal(got, matvec_kernel.matvec_plain(field(FR, "cpu"), A, z)), (design, m, n)
+    attrs = (ctypes.c_int * 5)()
+    assert so.zk_matvec_attrs(attrs) == 0
+    assert (attrs[3], attrs[4]) == {"one_warp_four_rows": (4, 32), "two_warps_three_rows": (3, 64),
+                                    "library": (1, 128)}[design]
+
+
+def test_host_matvec_all_p_minus_one(matvec_lib):
+    """Every word of A and z p - 1, n = 2^10 + 3: one warp's threads sum 33
+    products of (p - 1)^2 each (more than 16 words hold), so the sum needs
+    the accumulator's 17th word."""
+    from zktpu_torch.nova import matvec_kernel
+
+    _, so = matvec_lib
+    m, n = 6, (1 << 10) + 3
+    top = torch.from_numpy(ints_to_limbs([FR.modulus - 1], 8))[0]
+    A, z = top.expand(m, n, 8).contiguous(), top.expand(n, 8).contiguous()
+    got = matvec_kernel.run(so, A, z)
+    assert torch.equal(got, matvec_kernel.matvec_plain(field(FR, "cpu"), A, z))
+    want = (FR.modulus - 1) ** 2 * n * pow(FR.mont_r, -1, FR.modulus) % FR.modulus
+    assert [int.from_bytes(r.numpy().astype("<u4").tobytes(), "little") for r in got] == [want] * m
+
+
+def test_host_matvec_refuses_bad_operands():
+    from zktpu_torch.nova import matvec_kernel
+
+    so = matvec_host_lib()
+    A, z = torch.zeros((2, 3, 8), dtype=torch.int32), torch.zeros((3, 8), dtype=torch.int32)
+    for a, b in ((A, z[:2]), (A[:, :, :4], z), (A.to(torch.int64), z), (A[:, ::2], z[:2]), (A[:0], z)):
+        with pytest.raises(ValueError):
+            matvec_kernel.run(so, a, b)

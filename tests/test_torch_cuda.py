@@ -472,12 +472,13 @@ def test_fri_proof_gpu_equals_cpu(device):
 
 
 def test_matrix_vector_product_reads_z_in_place(device):
-    """Nova's A z: z[None] reaches the product kernel in place (modulo
-    indexing over its n rows), so the product's only (m, n, 8) temporary is
-    its output; the product and the axis-1 sum equal the plain versions."""
+    """Nova's A z is one launch of the matvec kernel, which reads A and z in
+    place: its only allocation is the (m, 8) output, with no (m, n, 8)
+    temporary; it equals the plain product and axis-1 sum."""
     from zktpu_torch.fields import field_kernel
     from zktpu_torch.fields.fp import field
-    from zktpu_torch.fields.mont_kernel import _broadcast_operand, mont_mul_plain
+    from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_plain
+    from zktpu_torch.nova.matvec_kernel import matvec
     from zktpu_torch.nova.utils import matrix_vector_product
     from zktpu_torch.tools.prof_nova import chain_r1cs
 
@@ -488,16 +489,59 @@ def test_matrix_vector_product_reads_z_in_place(device):
     rng = random.Random(9)
     z = f.encode_ints([rng.randrange(FR.modulus) for _ in range(n)])
     A[:, :, :] = f.encode_ints([rng.randrange(FR.modulus) for _ in range(m * n)]).reshape(m, n, 8)
-    operand, rows = _broadcast_operand(z[None], torch.Size((m, n)))
-    assert rows == n and operand.data_ptr() == z.data_ptr()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    launched, products = matvec.launches, mont_mul.launches[FR.name]
     got = matrix_vector_product(A, z)
     torch.cuda.synchronize()
-    assert torch.cuda.max_memory_allocated() - base <= A.numel() * 4 + (1 << 20)  # one (m, n, 8) product
+    assert (matvec.launches, mont_mul.launches[FR.name]) == (launched + 1, products)
+    assert torch.cuda.max_memory_allocated() - base <= m * 8 * 4 + (1 << 20)  # the (m, 8) output
     want = field_kernel.sum_plain(f, mont_mul_plain(FR, A, z[None]), 1)
     assert torch.equal(got, want)
+
+
+def _fr_words(rng, count: int, device) -> torch.Tensor:
+    """(count, 8) canonical Fr words, the words 0, 1 and p - 1 first."""
+    from zktpu_torch.fields.fp import ints_to_limbs
+
+    p = FR.modulus
+    vals = ([0, 1, p - 1] + [rng.randrange(p) for _ in range(count)])[:count]
+    return torch.from_numpy(ints_to_limbs(vals, 8)).to(device)
+
+
+@pytest.mark.parametrize("m, n", [(1, 1), (3, 2), (5, 33), (9, (1 << 10) + 3)])
+def test_matvec_kernel_matches_plain(device, m, n):
+    """The matvec kernel against its plain version at the host test's shapes:
+    m below and past a block's rows, n below a warp, past it, with a tail."""
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.nova.matvec_kernel import matvec, matvec_plain
+
+    rng = random.Random(1000 * m + n)
+    A, z = _fr_words(rng, m * n, device).reshape(m, n, 8), _fr_words(rng, n, device)
+    before = matvec.launches
+    got = matvec(A, z)
+    assert matvec.launches == before + 1
+    assert torch.equal(got, matvec_plain(field(FR, device), A, z))
+    with pytest.raises(ValueError):
+        matvec(A.cpu(), z.cpu())
+    with pytest.raises(ValueError):
+        matvec(A, z[:-1])
+
+
+def test_matvec_kernel_all_p_minus_one(device):
+    """Every word p - 1 at n = 4,099: each thread sums more products of
+    (p - 1)^2 than 16 words hold, so the accumulator's 17th word carries."""
+    from zktpu_torch.fields.fp import field, ints_to_limbs
+    from zktpu_torch.nova.matvec_kernel import matvec, matvec_plain
+
+    m, n = 6, 4099
+    top = torch.from_numpy(ints_to_limbs([FR.modulus - 1], 8))[0].to(device)
+    A, z = top.expand(m, n, 8).contiguous(), top.expand(n, 8).contiguous()
+    got = matvec(A, z)
+    assert torch.equal(got, matvec_plain(field(FR, device), A, z))
+    want = (FR.modulus - 1) ** 2 * n * pow(FR.mont_r, -1, FR.modulus) % FR.modulus
+    assert [int.from_bytes(r.astype("<u4").tobytes(), "little") for r in got.cpu().numpy()] == [want] * m
 
 
 def test_nova_chain_gpu_equals_cpu(device):

@@ -62,6 +62,12 @@ fw, fu, _, _ = NIFS.prover(r1cs, w[0], w[1], u[0], u[1], scheme, NovaTranscript(
 is_r1cs_satisfied(r1cs, fu, fw, scheme)
 chain = prof_nova.chain_r1cs(1, "cpu")
 assert chain.matrix_a.shape == (2, 5, 8)
+import torch
+from zktpu_torch.fields.fp import field
+from zktpu_torch.nova.matvec_kernel import matvec_plain
+from zktpu_torch.nova.utils import matrix_vector_product
+z = field(FR, "cpu").encode_ints([2, 3, 5, 7, 1])
+assert torch.equal(matrix_vector_product(chain.matrix_a, z), matvec_plain(field(FR, "cpu"), chain.matrix_a, z))
 parser = Parser()
 parser.add_witness("x", 3)
 parsed = parser.parse("x*x=9").compile(device="cpu")
@@ -179,6 +185,17 @@ def test_wrapper_on_a_non_cpu_tensor_launches_or_raises():
     table = torch.zeros((32, 256, 12), dtype=torch.int32, device="meta")
     with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
         fixed_base_mul((table, table, table), torch.zeros((4, 8), dtype=torch.int32, device="meta"), 8)
+    # Nova's matrix-vector product: the kernel on a non-CPU tensor, and
+    # matrix_vector_product, whose CPU branch is taken only for CPU tensors
+    from zktpu_torch.nova.matvec_kernel import matvec
+    from zktpu_torch.nova.utils import matrix_vector_product
+
+    A = torch.zeros((2, 4, 8), dtype=torch.int32, device="meta")
+    for call in (lambda: matvec(A, a), lambda: matrix_vector_product(A, a)):
+        with pytest.raises((ValueError, cuda_lib.KernelBuildError)):
+            call()
+    with pytest.raises(ValueError):
+        matvec(torch.zeros((2, 4, 8), dtype=torch.int32), torch.zeros((4, 8), dtype=torch.int32))
 
 
 def _example(name: str):

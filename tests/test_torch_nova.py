@@ -9,6 +9,10 @@ tests/goldens/make_goldens.py nova):
 - matrix_vector_product, compute_t and fold_witness on an 8-squaring chain
   (zktpu_torch.tools.prof_nova's R1CS) with operands from numpy's
   default_rng, word for word;
+- matrix_vector_product on a (16, 67) matrix of random entries
+  (tests/goldens/nova_matvec.npz, make_goldens.py matvec), which the chain's
+  0/1 matrices cannot exercise: the port's on the CPU and the host build of
+  the matvec kernel (tests/matvec_host.cpp);
 - the cases of tests/test_nova.py: satisfaction, a tampered witness
   rejected, folding keeps satisfaction, a one-fold round trip with a
   tampered r rejected, wrong IO rejected;
@@ -39,6 +43,8 @@ SRS_SECRET = 424242
 ZERO_E_R = 5  # NIFS.prove's r over a fresh witness, whose E is all zero
 CHAIN_LOG_M = 3
 CHAIN_SEED = 20261017
+MATVEC_SHAPE = (16, 67)
+MATVEC_SEED = 20261018
 CPU = "cpu"
 
 
@@ -65,6 +71,21 @@ def chain_operands() -> dict:
     out.update({k: vec(m + 1) for k in ("w1", "w2")})
     out.update(zip(("u1", "u2", "r"), vec(3)))
     return out
+
+
+def matvec_operands() -> tuple[list[list[int]], list[int]]:
+    """The matvec golden's matrix rows and z: canonical ints from
+    default_rng(MATVEC_SEED), with 0, 1 and p - 1 at the front of each."""
+    m, n = MATVEC_SHAPE
+    rng = np.random.default_rng(MATVEC_SEED)
+    p = FR.modulus
+
+    def vals(count):
+        words = rng.integers(0, 1 << 32, size=(count, 8), dtype=np.uint64)
+        return [0, 1, p - 1] + [sum(int(w) << (32 * i) for i, w in enumerate(row)) % p for row in words[3:]]
+
+    flat = vals(m * n)
+    return [flat[i * n : (i + 1) * n] for i in range(m)], vals(n)
 
 
 @pytest.fixture(scope="module")
@@ -125,6 +146,25 @@ def test_chain_products_match_zktpu(golden):
     folded = NIFS.fold_witness(ops["r"], f1, f2, t)
     np.testing.assert_array_equal(folded.e.numpy(), arrays["chain_fold_e"])
     np.testing.assert_array_equal(folded.w.numpy(), arrays["chain_fold_w"])
+
+
+def test_matvec_matches_zktpu_golden():
+    """zktpu's matrix_vector_product on random entries, word for word: the
+    port's encoding, its product on the CPU (the plain version) and the host
+    build of the matvec kernel in two designs."""
+    from test_torch_csrc_host import matvec_host_lib
+    from zktpu_torch.nova.matvec_kernel import run
+    from zktpu_torch.nova.utils import to_f_matrix
+
+    arrays = dict(np.load(os.path.join(HERE, "nova_matvec.npz")))
+    rows, zs = matvec_operands()
+    A, z = to_f_matrix(rows, CPU), to_f_vec(zs, CPU)
+    assert A.shape == MATVEC_SHAPE + (8,)
+    np.testing.assert_array_equal(A.numpy(), arrays["a"])
+    np.testing.assert_array_equal(z.numpy(), arrays["z"])
+    np.testing.assert_array_equal(matrix_vector_product(A, z).numpy(), arrays["az"])
+    for design in ("one_warp_four_rows", "library"):
+        np.testing.assert_array_equal(run(matvec_host_lib(design), A, z).numpy(), arrays["az"])
 
 
 def test_chain_ivc_satisfied_and_final_state():

@@ -25,9 +25,9 @@ from .fields.host import FieldSpec
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "zktpu_torch")
-SOURCES = ("mont_mul.cu", "g1.cu", "ntt.cu", "field_ops.cu", "sha256.cu", "mont_mma.cu", "fri_fold.cu")
+SOURCES = ("mont_mul.cu", "g1.cu", "ntt.cu", "field_ops.cu", "sha256.cu", "mont_mma.cu", "fri_fold.cu", "matvec.cu")
 HEADERS = ("field.cuh", "g1.cuh", "ntt.cuh", "ntt_gl.cuh", "field_ops.cuh", "sha256.cuh", "mont_mma.cuh",
-           "fri_fold.cuh")
+           "fri_fold.cuh", "matvec.cuh")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -89,6 +89,10 @@ _SIGNATURES = {
     "zk_fri_fold": [ctypes.c_int, _P, _I64, ctypes.c_uint32, ctypes.c_uint32, _P, _P],
     # out {registers, local bytes, shared bytes}
     "zk_fri_fold_attrs": [_P],
+    # device, p (host), pinv, 2^32 R mod p (host), A, z, out, m, n, stream
+    "zk_matvec": [ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _P, _P, _I64, _I64, _P],
+    # out {registers, local bytes, shared bytes, rows a block, threads a block}
+    "zk_matvec_attrs": [_P],
 }
 
 

@@ -1,10 +1,10 @@
 """Dense linear algebra for Nova (counterpart of zktpu/nova/utils.py).
 
 R1CS matrices are dense (m, n, 8) Fr Montgomery limb tensors and vectors are
-(n, 8), on one device.  A matrix-vector product is one batched Montgomery
-product of the matrix against z broadcast over its rows (kernel 1, which
-reads z in place by a modulo on the row index) and a field sum along axis 1
-(kernel A, which reads the (m, n, 8) product in place).
+(n, 8), on one device.  A matrix-vector product is one launch of the matvec
+kernel (nova/matvec_kernel.py: each row's products summed in registers,
+with no (m, n, 8) temporary) for CUDA tensors, and its plain version, the
+batched product against z[None] and the axis-1 sum, for CPU tensors.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import torch
 
 from ..fields.fp import field
 from ..fields.host import FR
+from .matvec_kernel import matvec, matvec_plain
 
 
 def to_f_matrix(rows: list[list[int]], device=None) -> torch.Tensor:
@@ -27,8 +28,9 @@ def to_f_vec(vals: list[int], device=None) -> torch.Tensor:
 
 def matrix_vector_product(matrix: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """(m, n, 8) x (n, 8) -> (m, 8)."""
-    f = field(FR, matrix.device)
-    return f.sum(f.mont_mul(matrix, z[None]), axis=1)
+    if matrix.device.type == "cpu" and z.device.type == "cpu":
+        return matvec_plain(field(FR, "cpu"), matrix, z)
+    return matvec(matrix, z)
 
 
 def hadamard_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -12,10 +12,11 @@ def _wrappers():
     from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_chain
     from zktpu_torch.fri.fold_kernel import fold
     from zktpu_torch.hash.sha256_kernel import hash_field
+    from zktpu_torch.nova.matvec_kernel import matvec
     from zktpu_torch.poly.ntt_kernel import ntt
 
     return (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field, fold,
-                                             fixed_base_mul)
+                                             fixed_base_mul, matvec)
 
 
 def reset() -> None:
@@ -38,7 +39,7 @@ def read() -> dict:
     from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
 
     (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field, fold,
-                                      fixed_base_mul) = _wrappers()
+                                      fixed_base_mul, matvec) = _wrappers()
     return {
         "mont_mul_fr": mont_mul.launches[FR.name],
         "mont_mul_fq": mont_mul.launches[FQ.name],
@@ -55,6 +56,7 @@ def read() -> dict:
         "sha256_field": hash_field.launches,
         "fri_fold": fold.launches,
         "fixed_base_mul": fixed_base_mul.launches,
+        "matvec_fr": matvec.launches,
         **{f"{k}_{short}": field_kernel.launches[k][spec.name]
            for k in ("field_scan", "field_addsub") for short, spec in (("fr", FR), ("fq", FQ), ("gl", GOLDILOCKS))},
     }
