@@ -33,8 +33,12 @@ Phases:
      (ntt against ntt_plain) at the path's 2^17 x batch 7 for fft, ifft,
      coset_fft and coset_ifft, at 2^20 x 1, n = 2 and n = 2^8 (below one tile),
      with an all-zero row and a row of p - 1; the Horner combine against its
-     plain loop at (c = 16, K = 1) and (c = 13, K = 8), parts holding the
-     identity; mont_mul Fr's kernel-only time from torch.profiler beside its
+     plain loop and the launch loop it replaced at (c, K, W) = (13, 1, 20),
+     (13, 3, 20), (13, 8, 20) (the PLONK and Nova commits at 2^14) and
+     (16, 1, 16) (the MSM bench's), parts holding the identity, with ms,
+     microseconds a dependent product step, registers and the depth figure
+     (steps x one lane-parallel product, timed alone as a chain in one
+     warp and held against the plain chain); mont_mul Fr's kernel-only time from torch.profiler beside its
      time with the wrapper; the field scans (cumprod, cumsum both ways, sum
      on axis 0 and 1, powers, batch_inv) and the field add/sub against their
      plain versions at the shapes the paths give them, Fr and Fq (phase_field_ops);
@@ -130,7 +134,7 @@ JSON line with the kernels (launches summed over the seven paths; times and
 bounds at the shapes the paths give them:
 proj_madd at msm_affine's mixed add, proj_add at msm_proj's first scan step,
 proj_double at K = 1, mont_mul Fr at the coset division's product, ntt_fr
-at 2^17 x 7 (fft), horner_combine at c = 16, K = 1, field_scan_fr at round
+at 2^17 x 7 (fft), horner_combine at (16, 1, 16), field_scan_fr at round
 2's 2^14 cumprod, field_scan_fq at Srs.g1_affine's 2^20 batch_inv,
 field_addsub_fr at the coset quotient's (2^17, 8) add, ntt_gl at FRI layer
 0's coset_fft, sha256_field at its leaves, mont_mul_gl at the from_mont it
@@ -557,13 +561,17 @@ def _ntt_products(n: int, batch: int, factors: int) -> int:
 
 
 def phase_ntt_horner(device, results: dict, ntt_sizes=((17, 7), (20, 1), (1, 3), (8, 3)),
-                     horner_shapes=((13, 8, 20), (16, 1, 16))) -> None:
+                     horner_shapes=((13, 1, 20), (13, 3, 20), (13, 8, 20), (16, 1, 16))) -> None:
     """The NTT kernel against ntt_plain and the one-launch Horner combine
     against its plain loop, 0 mismatching words on every lane.  ntt_sizes:
     (log n, batch); the kernels line takes ntt_fr from the first one's fft
     (the path's: _batched_coset_fft's 8n = 2^17 transform of 7 polynomials
-    at 2^14 gates).  horner_shapes: (c, K, W); the kernels line takes
-    horner_combine from the last (the MSM bench's combine at 2^20)."""
+    at 2^14 gates).  horner_shapes: (c, K, W), the PLONK and Nova commits'
+    at 2^14 (c = 13, W = 20; K = 1, 3, 8) and the MSM bench's at 2^20; the
+    kernels line takes horner_combine from the last.  Each prints ms, the
+    microseconds a dependent product step ((W - 1)(2c + 2) of them) and the
+    depth figure: the steps times one product's latency, timed alone as a
+    chain of dependent products in one warp (tools/horner_lanes.py)."""
     from zktpu_torch.curves import g1
     from zktpu_torch.curves.g1_kernel import horner_combine, horner_combine_plain
     from zktpu_torch.curves.host_curve import G1Affine
@@ -623,6 +631,23 @@ def phase_ntt_horner(device, results: dict, ntt_sizes=((17, 7), (20, 1), (1, 3),
     results["ntt_fr"]["max_abs_err"] = err
     torch.cuda.empty_cache()
 
+    from zktpu_torch import cuda_lib
+    from zktpu_torch.curves.g1_kernel import FQ, kernel_attrs
+    from zktpu_torch.fields.mont_kernel import mont_mul_chain_plain
+    from zktpu_torch.tools import horner_lanes
+
+    lib = cuda_lib.load()
+    a1, b1 = (torch.randint(0, 1 << 31, (1, 12), dtype=torch.int32, device=device, generator=gen) for _ in range(2))
+    a1[..., 11] &= (1 << 28) - 1  # < 2^380 < p
+    b1[..., 11] &= (1 << 28) - 1
+    _compare("horner product chain", [horner_lanes.mul_chain(lib, a1, b1, 64)], [mont_mul_chain_plain(FQ, a1, b1, 64)])
+    chain = 2000
+    us_product = 1e3 * _cuda_ms(lambda: horner_lanes.mul_chain(lib, a1, b1, chain), 3) / chain
+    P, Gs = horner_lanes.design_of(lib)
+    regs = kernel_attrs("horner_combine")["registers"]
+    print(f"phase 2: horner_combine design: {P} lanes a product, {Gs} products at once, {regs} registers; one "
+          f"product alone (a chain of {chain} in one warp, mismatches=0): {us_product:.4f} us", flush=True)
+
     rng = random.Random(SEED + 2)
     G = G1Affine.generator()
     err = 0
@@ -654,9 +679,12 @@ def phase_ntt_horner(device, results: dict, ntt_sizes=((17, 7), (20, 1), (1, 3),
         print(f"phase 2: the loop of {(W - 1) * (c + 1)} proj_double/proj_add launches it replaced, c={c} K={K}: "
               f"mismatches=0 ms={_cuda_ms(launch_loop, 5):.4f}", flush=True)
         products = K * (W - 1) * (8 * c + 12)
+        steps = horner_lanes.steps(c, W)
+        depth_ms = steps * us_product * 1e-3
         _record(results, "horner_combine", K, err, ms, plain_ms, 3 * (W + 1) * K * 48, products * _mont_words(12),
-                phase=f"phase 2: horner_combine c={c} K={K} W={W} ({(W - 1) * c} doubles, "
-                      f"{1e3 * ms / ((W - 1) * c):.2f} us each with the adds):")
+                phase=f"phase 2: horner_combine c={c} K={K} W={W} ({steps} product steps, "
+                      f"{1e3 * ms / steps:.4f} us each; {regs} registers; depth {depth_ms:.4f} ms = "
+                      f"{100 * depth_ms / ms:.1f}% of the time):")
 
 
 def _field_rows(f, gen, n: int, cols: int = 1, nonzero: bool = False) -> torch.Tensor:

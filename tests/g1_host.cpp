@@ -1,7 +1,13 @@
 // Host build of the CUDA kernels' per-element code, for the CPU tests
 // (tests/test_torch_csrc_host.py): field.cuh and g1.cuh compile as C++ with
 // the PTX carry chains emulated, and these loops run what each CUDA thread
-// runs.  Not part of the port.
+// runs (the Horner combine's warps with their shuffles emulated, below).
+// Not part of the port.
+#include <ucontext.h>
+
+#include <functional>
+#include <vector>
+
 #include "../zktpu_torch/csrc/g1.cuh"
 
 template <int N>
@@ -75,12 +81,87 @@ extern "C" int host_mont_mul(int limbs, const uint32_t* p, uint32_t pinv, const 
   }
 }
 
-// The Horner combine as the kernel runs it: one block of HORNER_GROUPS
-// groups of HORNER_LANES lanes after another, each phase of the schedule
-// run by every lane in turn (the warp barrier between phases).  ptrs: X, Y,
-// Z of the (W, K, 12) parts, then X, Y, Z of the (K, 12) output.
-extern "C" void host_horner_combine(const uint32_t* p, uint32_t pinv, const int64_t* ptrs, int64_t W, int64_t K,
-                                    int64_t c) {
+// A warp as the card runs it, for the Horner combine: its 32 lanes are
+// fibers (ucontext) on this thread, each run in turn from one shuffle to the
+// next, so every phase between two shuffles runs for every lane before any
+// lane reads what the shuffle exchanges.  warp_shfl deposits the lane's value
+// in a mailbox (two, used in turns, so a fast lane's next deposit never
+// overwrites a value a slow lane has still to read) and yields; on its next
+// turn the lane reads lane src's deposit.  Every lane must run as many
+// shuffles: run() returns -1 if they do not.
+namespace {
+
+struct Warp {
+  static constexpr size_t STACK = 256 << 10;
+  ucontext_t sched, ctx[32];
+  std::vector<char> stacks = std::vector<char>(32 * STACK);
+  uint32_t box[2][32];
+  int turn[32] = {}, shuffles[32] = {}, lane = 0;
+  bool done[32] = {};
+  std::function<void(uint32_t)> body;
+
+  int run() {
+    for (int l = 0; l < 32; ++l) {
+      getcontext(&ctx[l]);
+      ctx[l].uc_stack.ss_sp = stacks.data() + l * STACK;
+      ctx[l].uc_stack.ss_size = STACK;
+      ctx[l].uc_link = &sched;
+      makecontext(&ctx[l], lane_main, 0);
+    }
+    for (bool any = true; any;) {
+      any = false;
+      for (int l = 0; l < 32; ++l)
+        if (!done[l]) {
+          lane = l;
+          swapcontext(&sched, &ctx[l]);
+          any = true;
+        }
+    }
+    for (int l = 1; l < 32; ++l)
+      if (shuffles[l] != shuffles[0]) return -1;
+    return 0;
+  }
+
+  static void lane_main();
+};
+
+thread_local Warp* the_warp = nullptr;
+
+void Warp::lane_main() {
+  Warp& w = *the_warp;
+  const int l = w.lane;
+  w.body((uint32_t)l);
+  w.done[l] = true;
+}
+
+// Runs body(lane) for the 32 lanes of one warp.
+int run_warp(std::function<void(uint32_t)> body) {
+  Warp w;
+  w.body = std::move(body);
+  Warp* outer = the_warp;
+  the_warp = &w;
+  const int rc = w.run();
+  the_warp = outer;
+  return rc;
+}
+
+}  // namespace
+
+uint32_t warp_shfl(uint32_t v, uint32_t src) {
+  Warp& w = *the_warp;
+  const int l = w.lane, t = w.turn[l];
+  w.box[t][l] = v;
+  ++w.shuffles[l];
+  swapcontext(&w.ctx[l], &w.sched);
+  w.turn[l] ^= 1;
+  return w.box[t][src & 31];
+}
+
+// The Horner combine as the kernel runs it: one warp a point, one after
+// another.  ptrs: X, Y, Z of the (W, K, 12) parts, then X, Y, Z of the
+// (K, 12) output.  Returns 0, or -1 if the lanes' shuffles differ.
+extern "C" int host_horner_combine(const uint32_t* p, uint32_t pinv, const int64_t* ptrs, int64_t W, int64_t K,
+                                   int64_t c) {
   HornerArgs a;
   for (int i = 0; i < 3; ++i) {
     a.parts[i] = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[i]));
@@ -90,15 +171,15 @@ extern "C" void host_horner_combine(const uint32_t* p, uint32_t pinv, const int6
   a.K = (uint32_t)K;
   a.c = (uint32_t)c;
   const FqConsts f = make_consts<FQ_LIMBS>(p, pinv);
-  for (uint32_t block = 0; block * HORNER_GROUPS < a.K; ++block) {
-    HornerGroup groups[HORNER_GROUPS];
-    horner_schedule(
-        [&](int phase, uint32_t w) {
-          for (uint32_t t = 0; t < HORNER_THREADS; ++t) {
-            const uint32_t g = t / HORNER_LANES, kk = block * HORNER_GROUPS + g;
-            horner_phase(phase, groups[g], t % HORNER_LANES, a, kk < a.K ? kk : a.K - 1, kk < a.K, w, f);
-          }
-        },
-        a.W, a.c);
-  }
+  for (uint32_t k = 0; k < a.K; ++k)
+    if (run_warp([&](uint32_t lane) { horner_point(a, k, lane, f); })) return -1;
+  return 0;
+}
+
+// zk_horner_mul_chain's warp: ptrs = a, b, out (rows of 12 words).
+extern "C" int host_horner_mul_chain(const uint32_t* p, uint32_t pinv, const int64_t* ptrs, int64_t chain) {
+  const uint32_t* x[3];
+  for (int i = 0; i < 3; ++i) x[i] = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[i]));
+  const FqConsts f = make_consts<FQ_LIMBS>(p, pinv);
+  return run_warp([&](uint32_t lane) { horner_mul_chain(x[0], x[1], const_cast<uint32_t*>(x[2]), (uint32_t)chain, lane, f); });
 }

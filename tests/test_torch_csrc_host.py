@@ -46,23 +46,45 @@ NTT_SHIM = os.path.join(HERE, "ntt_host.cpp")
 FQT = field(FQ, "cpu")
 
 
-def _build(shim: str, name: str, flags=()) -> ctypes.CDLL:
-    """The host build of `shim` with extra g++ `flags`, cached by content."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ to build the host copy of the kernels' code")
+def _build_path(shim: str, name: str, flags=()) -> str:
+    """Where the host build of `shim` with g++ `flags` lives, named by content."""
     h = hashlib.sha256(" ".join(flags).encode())
     for path in (shim, *(os.path.join(cuda_lib.CSRC_DIR, n) for n in cuda_lib.HEADERS)):
         with open(path, "rb") as f:
             h.update(f.read())
-    out = os.path.join(cuda_lib.BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
-    if not os.path.exists(out):
+    return os.path.join(cuda_lib.BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+class _build_start:
+    """g++ started on the host build of `shim`; finish() waits and installs it."""
+
+    def __init__(self, shim: str, name: str, flags=()):
+        gxx = shutil.which("g++")
+        if gxx is None:
+            pytest.skip("no g++ to build the host copy of the kernels' code")
+        self.out = _build_path(shim, name, flags)
         os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas", *flags, "-o", tmp,
-                        shim], check=True, capture_output=True)
-        os.replace(tmp, out)
+        self.tmp = f"{self.out}.{os.getpid()}.{id(self)}.tmp"
+        self.proc = subprocess.Popen([gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas", *flags,
+                                      "-o", self.tmp, shim], stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+    def finish(self) -> str:
+        err = self.proc.communicate()[1]
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"g++ failed ({self.proc.returncode}):\n{err.decode()}")
+        os.replace(self.tmp, self.out)
+        return self.out
+
+
+def _build(shim: str, name: str, flags=()) -> ctypes.CDLL:
+    """The host build of `shim` with extra g++ `flags`, cached by content."""
+    out = _build_path(shim, name, flags)
+    if not os.path.exists(out):
+        _build_start(shim, name, flags).finish()
     return ctypes.CDLL(out)
+
+
+P_ = ctypes.c_void_p
 
 
 @pytest.fixture(scope="module")
@@ -73,6 +95,7 @@ def lib():
         getattr(so, name).argtypes = [P, ctypes.c_uint32, P, ctypes.c_int64, ctypes.c_int64]
     so.host_mont_mul.argtypes = [ctypes.c_int, P, ctypes.c_uint32, P, P, P, ctypes.c_int64, ctypes.c_int]
     so.host_horner_combine.argtypes = [P, ctypes.c_uint32, P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+    so.host_horner_mul_chain.argtypes = [P, ctypes.c_uint32, P, ctypes.c_int64]
     so.host_fixed_base_mul.argtypes = [P, ctypes.c_uint32, P, ctypes.c_int64, ctypes.c_int]
     return so
 
@@ -170,21 +193,76 @@ def test_host_proj_double_matches_plain(lib):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("W,K,c", [(3, 3, 4), (2, 9, 2), (1, 2, 5)])
-def test_host_horner_combine_matches_plain(lib, W, K, c):
-    """The lane schedule (four lanes per point, eight points per warp) on
-    arbitrary elements: a group past the last point (K = 3), two blocks
-    (K = 9), no doubling at all (W = 1), and all-zero rows."""
+# The Horner combine's designs (lanes a product, products at once) that
+# tools/horner_lanes.py sweeps; None is the library's own (no -D flag).
+HORNER_DESIGNS = (None, (1, 6), (2, 6), (4, 6), (6, 4))
+
+
+def _horner_flags(design):
+    return () if design is None else (f"-DZK_HORNER_P={design[0]}", f"-DZK_HORNER_G={design[1]}")
+
+
+@pytest.fixture(scope="module")
+def horner_libs(lib):
+    """The host build of g1_host.cpp for each design, the builds run at once."""
+    missing = [d for d in HORNER_DESIGNS[1:] if not os.path.exists(_build_path(SHIM, "g1_host", _horner_flags(d)))]
+    procs = [_build_start(SHIM, "g1_host", _horner_flags(d)) for d in missing]
+    for proc in procs:
+        proc.finish()
+    libs = {None: lib}
+    for d in HORNER_DESIGNS[1:]:
+        so = _build(SHIM, "g1_host", _horner_flags(d))
+        so.host_horner_combine.argtypes = [P_, ctypes.c_uint32, P_, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+        so.host_horner_mul_chain.argtypes = [P_, ctypes.c_uint32, P_, ctypes.c_int64]
+        libs[d] = so
+    return libs
+
+
+def _design_id(design):
+    return "library" if design is None else f"P{design[0]}G{design[1]}"
+
+
+@pytest.mark.parametrize("design,W,K,c,fill", [
+    pytest.param(None, 3, 3, 4, "random", id="3-3-4"), pytest.param(None, 2, 9, 2, "random", id="2-9-2"),
+    pytest.param(None, 1, 2, 5, "random", id="1-2-5"), pytest.param(None, 3, 2, 3, "p-1", id="3-2-3-p-1")]
+    + [pytest.param(d, 2, 2, 3, "random", id=f"{_design_id(d)}-2-2-3") for d in HORNER_DESIGNS[1:]])
+def test_host_horner_combine_matches_plain(horner_libs, design, W, K, c, fill):
+    """The warp schedule (one warp a point, lane-parallel products, values
+    exchanged by emulated shuffles) against the plain loop, word for word,
+    on arbitrary elements with all-zero rows: K points past one (K = 3, two
+    groups of lanes that run along), K = 9, W = 1 (no doubling at all),
+    parts that are all p - 1 (the largest canonical words, against the lazy
+    bounds), and each design the sweep builds."""
     rng = np.random.default_rng(12 + K)
-    parts = [FQT.encode_ints(_elements(rng, FQ, W * K)).reshape(W, K, 12) for _ in range(3)]
-    for t in parts:
-        t[0, 0] = 0
+    if fill == "p-1":
+        parts = [FQT.encode_ints([FQ.modulus - 1] * (W * K)).reshape(W, K, 12) for _ in range(3)]
+    else:
+        parts = [FQT.encode_ints(_elements(rng, FQ, W * K)).reshape(W, K, 12) for _ in range(3)]
+        for t in parts:
+            t[0, 0] = 0
     out = tuple(torch.zeros((K, 12), dtype=torch.int32) for _ in range(3))
     ptrs = np.array([t.data_ptr() for t in (*parts, *out)], dtype=np.int64)
     p, pinv = cuda_lib.field_consts(FQ)
-    lib.host_horner_combine(p.ctypes.data, pinv, ptrs.ctypes.data, W, K, c)
+    assert horner_libs[design].host_horner_combine(p.ctypes.data, pinv, ptrs.ctypes.data, W, K, c) == 0
     for g, w in zip(out, horner_combine_plain(parts, c)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("design", HORNER_DESIGNS, ids=_design_id)
+def test_host_horner_mul_chain_matches_plain(horner_libs, design):
+    """The lane-parallel product alone, chained three times in one warp and
+    gathered whole after each, against the plain chain: 0, 1, p - 1 and
+    random factors."""
+    rng = np.random.default_rng(30)
+    pairs = [(0, 5), (1, FQ.modulus - 1), (FQ.modulus - 1, FQ.modulus - 1)] + [
+        tuple(int.from_bytes(rng.bytes(48), "little") % FQ.modulus for _ in range(2)) for _ in range(3)]
+    p, pinv = cuda_lib.field_consts(FQ)
+    for x, y in pairs:
+        a, b = FQT.encode_ints([x]), FQT.encode_ints([y])
+        out = torch.zeros_like(a)
+        ptrs = np.array([a.data_ptr(), b.data_ptr(), out.data_ptr()], dtype=np.int64)
+        assert horner_libs[design].host_horner_mul_chain(p.ctypes.data, pinv, ptrs.ctypes.data, 3) == 0
+        assert torch.equal(out, mont_mul_chain_plain(FQ, a, b, 3)), (x, y)
 
 
 @pytest.mark.parametrize("window", [4, 8])

@@ -244,10 +244,11 @@ def test_ntt_kernel_matches_plain(device, log_n):
     assert ntt_kernel.kernel_attrs()["local_bytes"] == 0
 
 
-@pytest.mark.parametrize("W,K,c", [(4, 1, 16), (3, 8, 13), (2, 9, 3), (1, 2, 4)])
+@pytest.mark.parametrize("W,K,c", [(4, 1, 16), (3, 8, 13), (2, 9, 3), (1, 2, 4), (20, 1, 13), (20, 3, 13)])
 def test_horner_combine_kernel_matches_plain(device, W, K, c):
     """One launch against the plain loop, with an identity among the parts,
-    K past one warp's eight points, and W = 1."""
+    K = 9 points, W = 1, and the PLONK and Nova commits' shapes at 2^14
+    (c = 13, W = 20; K = 1 and 3)."""
     from zktpu_torch.curves import g1
     from zktpu_torch.curves.g1_kernel import horner_combine, horner_combine_plain, kernel_attrs
 

@@ -27,7 +27,8 @@
 //   outputs can be any caller-given planes that do not overlap the inputs.
 // The double (kernel 3) keeps canonical helpers and one block per SM.
 // The Horner combine runs the MSM's chain of doubles and adds in one launch,
-// and the fixed-base kernel an SRS's scalar multiplications.
+// one warp a point with lane-parallel products, and the fixed-base kernel an
+// SRS's scalar multiplications.
 #include <cuda_runtime.h>
 
 #include "g1.cuh"
@@ -85,27 +86,26 @@ static Planes<N> make_planes(const int64_t* desc) {
 // launches of a (K, 12) batch: 255 at c = 16, each about 25 us of device
 // time behind 70-80 us of host time.
 //
-// What bounds it: the serial depth of the chain, (W - 1) c doublings and
-// W - 1 adds one after another for each of K <= 8 points, so the latency of
-// one double and not throughput.  What the design does about it: one launch
-// runs the whole chain, with the accumulator in shared memory; a group of
-// HORNER_LANES = 4 lanes per point runs the independent products of each
-// formula step at once (g1.cuh horner_phase), so a double takes two product
-// latencies instead of eight and an add four instead of twelve; one warp
-// holds eight points, so K <= 8 is one block.
+// What bounds it: the serial depth of the chain, (W - 1)(2c + 2) dependent
+// steps of Montgomery products for each of K <= 8 points, so the latency of
+// one product and of the sums between them, not throughput.  What the design
+// does about it (g1.cuh): one warp a point; a formula step's products run
+// at once, one a group of HORNER_P lanes, and each product is spread over
+// its group's lanes by digits of 12 / HORNER_P words (horner_mul), so a
+// lane's carry chains are HORNER_P times shorter; values stay below 2p or
+// 4p (lazy reduction) and move between lanes by shuffles only, never
+// through shared memory.  A block is one warp, so K points run on K SMs and
+// no two share a scheduler.  tools/horner_lanes.py times the designs.
 __global__ void __launch_bounds__(HORNER_THREADS, 1)
 horner_combine_kernel(HornerArgs a, FqConsts f) {
-  __shared__ HornerGroup groups[HORNER_GROUPS];
-  const uint32_t lane = threadIdx.x % HORNER_LANES, g = threadIdx.x / HORNER_LANES;
-  const uint32_t kk = blockIdx.x * HORNER_GROUPS + g;
-  const bool live = kk < a.K;
-  const uint32_t k = live ? kk : a.K - 1;
-  horner_schedule(
-      [&](int phase, uint32_t w) {
-        horner_phase(phase, groups[g], lane, a, k, live, w, f);
-        __syncwarp();
-      },
-      a.W, a.c);
+  horner_point(a, blockIdx.x, threadIdx.x, f);
+}
+
+// One warp's chain of dependent lane-parallel products (tools/horner_lanes.py
+// times it for the latency of one product).
+__global__ void __launch_bounds__(HORNER_THREADS, 1)
+horner_mul_chain_kernel(const uint32_t* a, const uint32_t* b, uint32_t* out, uint32_t chain, FqConsts f) {
+  horner_mul_chain(a, b, out, chain, threadIdx.x, f);
 }
 
 // The fixed-base window multiply in one launch.
@@ -182,9 +182,31 @@ extern "C" int zk_horner_combine(int device, const uint32_t* p, uint32_t pinv, c
   a.K = (uint32_t)K;
   a.c = (uint32_t)c;
   FqConsts f = make_consts<FQ_LIMBS>(p, pinv);
-  const unsigned blocks = (unsigned)((K + HORNER_GROUPS - 1) / HORNER_GROUPS);
-  horner_combine_kernel<<<blocks, HORNER_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, f);
+  horner_combine_kernel<<<(unsigned)K, HORNER_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, f);
   return (int)cudaGetLastError();
+}
+
+// x = a, then x = x b R^-1 `chain` times, by the combine's lane-parallel
+// product: ptrs = a, b (canonical rows of 12 words), out, 16-byte aligned.
+// Returns cudaGetLastError() after the launch, or -1 for a bad size.
+extern "C" int zk_horner_mul_chain(int device, const uint32_t* p, uint32_t pinv, const int64_t* ptrs, int64_t chain,
+                                   void* stream) {
+  if (chain < 0 || chain >= (int64_t(1) << 31)) return -1;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const uint32_t* x[3];
+  for (int i = 0; i < 3; ++i) x[i] = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[i]));
+  FqConsts f = make_consts<FQ_LIMBS>(p, pinv);
+  horner_mul_chain_kernel<<<1, HORNER_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x[0], x[1], const_cast<uint32_t*>(x[2]), (uint32_t)chain, f);
+  return (int)cudaGetLastError();
+}
+
+// The Horner combine's design as built: out = {lanes a product, products at once}.
+extern "C" int zk_horner_design(int* out) {
+  out[0] = HORNER_P;
+  out[1] = HORNER_G;
+  return 0;
 }
 
 // [s_i] B for n scalars: ptrs = X, Y, Z of the (windows, 2^window, 12)

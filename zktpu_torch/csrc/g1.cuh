@@ -327,57 +327,64 @@ ZK_FN void fixed_base_at(const FixedBaseArgs& a, uint32_t i, const FqConsts& f) 
 
 // ---------------------------------------------------------------------------
 // The Horner combine of the MSM's window sums: acc = part[W-1], then for
-// w = W-2 .. 0, c doublings (Alg. 9) and one add of part[w] (Alg. 7), the
-// same canonical formulas as proj_double_point and proj_add_formula, so the
-// same words.  The chain is serial, so its time is the latency of one
-// double times (W - 1) c.  A group of HORNER_LANES lanes runs one point:
-// the independent Montgomery products of each formula step go to separate
-// lanes, which exchange them through the group's shared memory.  The double
-// is two steps of four independent products (Y Y, Y Z, Z Z, X Y, then
-// t2 z3, t1 z3, t0' y3, t0' (X Y)), the add two steps of six; between them
-// every lane computes the few sums the next step needs, and lane 0 the
-// formula's outputs.  With one lane per point the same schedule runs every
-// product on that lane.  The schedule is a list of phases with a warp
-// barrier after each (horner_schedule); the host tests run each phase for
-// every lane in turn.
+// w = W-2 .. 0, c doubles (Alg. 9) and one add of part[w] (Alg. 7), the
+// same field operations as proj_double_point and proj_add_point, so the same
+// words once canonical.  The chain is serial: its time is the latency of
+// (W - 1)(2c + 2) steps of dependent Montgomery products (two a double, two
+// an add) and of the sums between them.
+//
+// One warp runs one point (a block is one warp; K points, K blocks).  Its
+// lanes form HORNER_G product groups of HORNER_P lanes; lanes past
+// HORNER_G HORNER_P run along and nothing reads their results.  A formula
+// step's independent products run at once, one a group: the double's four
+// in one round, the add's six in ceil(6 / HORNER_G) rounds.  Each product is
+// spread over its group's lanes (horner_mul): lane d holds digit d, the
+// HORNER_N = 12 / HORNER_P words d N .. d N + N - 1, of the first factor,
+// of p and of the running sum, and all of the second factor.  Every lane
+// holds the accumulator and a step's operands whole, in registers: after a
+// step, each lane gathers the products it needs from their groups by
+// shuffles (horner_gather) and forms the sums of the next step's operands.
+// No value goes through shared memory; the only exchange is __shfl_sync,
+// which the host tests emulate (tests/g1_host.cpp runs the 32 lanes of a
+// warp in turn from one shuffle to the next).
+//
+// Reduction is lazy.  A product (a b + M p) / R, for the M < R that makes
+// it exact, is mont_mul_lazy's result word for word and is below
+// a b / R + p < 2p wherever a b < p R (p < 0.102 R, so a b < 9.8 p^2): so
+// one factor may be below 4p if the other is below 2p (a b < 8p^2).  The
+// accumulator's Y and Z are below 2p from step to step and X below 4p (the
+// add reduces it first); the parts are canonical (< p).  The add's first
+// step multiplies a sum of two coordinates, < 4p unreduced, by a sum of two
+// parts, < 2p.  Every other value is below 2p unless its comment says 4p:
+// add_red and sub_red by 2p of values below 2p, or add_nr of two where the
+// sum feeds only products whose other factor is below 2p.  The accumulator
+// leaves the last add below 2p and is canonicalized once, by one
+// conditional subtraction of p, where it is stored.
 // ---------------------------------------------------------------------------
-#ifndef ZK_HORNER_LANES
-#define ZK_HORNER_LANES 4
+#ifndef ZK_HORNER_P
+#define ZK_HORNER_P 3
 #endif
-constexpr uint32_t HORNER_LANES = ZK_HORNER_LANES;
-constexpr uint32_t HORNER_THREADS = 32;  // one warp per block
-constexpr uint32_t HORNER_GROUPS = HORNER_THREADS / HORNER_LANES;
+#ifndef ZK_HORNER_G
+#define ZK_HORNER_G 6
+#endif
+constexpr int HORNER_P = ZK_HORNER_P;  // lanes a product
+constexpr int HORNER_G = ZK_HORNER_G;  // products at once
+constexpr int HORNER_N = FQ_LIMBS / HORNER_P;
+constexpr uint32_t HORNER_THREADS = 32;
+static_assert(FQ_LIMBS % HORNER_P == 0 && HORNER_P <= 6 && HORNER_G >= 4 && HORNER_G * HORNER_P <= 32,
+              "a product's lanes split its 12 words, at least 2 a lane; the double's 4 products fit one warp");
 
-struct HornerGroup {
-  uint32_t P[3][FQ_LIMBS];  // the accumulator X, Y, Z
-  uint32_t T[6][FQ_LIMBS];  // the products of a formula's first step
-  uint32_t V[6][FQ_LIMBS];  // the products of its second step
-};
+#if defined(__CUDA_ARCH__)
+ZK_FN uint32_t warp_shfl(uint32_t v, uint32_t src) { return __shfl_sync(0xffffffffu, v, src); }
+#else
+uint32_t warp_shfl(uint32_t v, uint32_t src);  // lane src's v (mod 32), from the test shim
+#endif
 
 struct HornerArgs {
   const uint32_t* parts[3];  // X, Y, Z of the window sums: contiguous (W, K, 12)
   uint32_t* out[3];          // X, Y, Z of the result: contiguous (K, 12)
   uint32_t W, K, c;
 };
-
-enum HornerPhase { H_LOAD, H_DBL1, H_DBL2, H_DBL3, H_ADD1, H_ADD2, H_ADD3, H_STORE };
-
-// run(phase, w) runs one phase for the lanes and then synchronises them.
-template <class Run>
-ZK_FN void horner_schedule(Run&& run, uint32_t W, uint32_t c) {
-  run(H_LOAD, W - 1);
-  for (uint32_t w = W - 1; w-- > 0;) {
-    for (uint32_t d = 0; d < c; ++d) {
-      run(H_DBL1, w);
-      run(H_DBL2, w);
-      run(H_DBL3, w);
-    }
-    run(H_ADD1, w);
-    run(H_ADD2, w);
-    run(H_ADD3, w);
-  }
-  run(H_STORE, 0);
-}
 
 // Row k of window w of coordinate `coord`; selects rather than an index
 // into the argument's array, which would put the array in local memory.
@@ -386,140 +393,361 @@ ZK_FN const uint32_t* horner_part(const HornerArgs& a, uint32_t coord, uint32_t 
   return plane + ((uint64_t)w * a.K + k) * FQ_LIMBS;
 }
 
-// One phase of point k's chain for lane `lane` of its group G.  `live` is
-// false for the lanes of a group past the last point, which run along on
-// point K - 1 and store nothing.
-ZK_FN void horner_phase(int phase, HornerGroup& G, uint32_t lane, const HornerArgs& a, uint32_t k, bool live,
-                        uint32_t w, const FqConsts& f) {
+// t[0 .. 2N] += pr (2N words), one carry chain; the caller keeps the sum
+// below 2^(32 (2N + 1)).
+template <int N>
+ZK_FN void add_wide(uint32_t* t, const uint32_t* pr) {
+  t[0] = cc::add_cc(t[0], pr[0]);
+#pragma unroll
+  for (int j = 1; j < 2 * N; ++j) t[j] = cc::addc_cc(t[j], pr[j]);
+  t[2 * N] = cc::addc(t[2 * N], 0);
+}
+
+// t[0 .. 2N] += x y for N-word x and y: the product by rows of carry chains
+// (mad_row), then add_wide.
+template <int N>
+ZK_FN void mul_add_wide(uint32_t* t, const uint32_t* x, const uint32_t* y) {
+  uint32_t pr[2 * N];
+#pragma unroll
+  for (int j = 0; j < 2 * N; ++j) pr[j] = 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) mad_row<N>(pr + k, x, y[k]);  // the product so far < 2^(32 (N + k + 1))
+  add_wide<N>(t, pr);
+}
+
+// pr = x y (2N words) by 64-bit column sums and one pass of 64-bit carries:
+// no carry chain, so the compiler schedules it beside the chains of the
+// sum it feeds (a column is below 2N 2^32, so no sum overflows).
+template <int N>
+ZK_FN void mul_wide_u64(uint32_t* pr, const uint32_t* x, const uint32_t* y) {
+  uint64_t col[2 * N];
+#pragma unroll
+  for (int j = 0; j < 2 * N; ++j) col[j] = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const uint64_t w = (uint64_t)x[j] * y[k];
+      col[j + k] += (uint32_t)w;
+      col[j + k + 1] += w >> 32;
+    }
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < 2 * N; ++j) {
+    c += col[j];
+    pr[j] = (uint32_t)c;
+    c >>= 32;
+  }
+}
+
+// m = x y mod 2^(32 N).
+template <int N>
+ZK_FN void mul_lo(uint32_t* m, const uint32_t* x, const uint32_t* y) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) m[j] = 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; k + j < N; ++j) {
+      const uint64_t s = (uint64_t)x[j] * y[k] + m[k + j] + c;  // <= 2^64 - 1
+      m[k + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+  }
+}
+
+// q = -p^-1 mod 2^(32 N), word by word: word k of q is the one that clears
+// word k of p q + 1, i.e. that word times pinv = -p^-1 mod 2^32.
+template <int N>
+ZK_FN void neg_pinv(uint32_t* q, const FqConsts& f) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) q[j] = 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    uint32_t r[N];
+    mul_lo<N>(r, f.p, q);
+    uint64_t c = 1;
+#pragma unroll
+    for (int j = 0; j <= k; ++j) {
+      const uint64_t s = (uint64_t)r[j] + c;
+      r[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    q[k] = r[k] * f.pinv;
+  }
+}
+
+// Digit d of a 12-word value, by selects rather than an index into
+// registers (which would put the value in local memory).
+ZK_FN void horner_digit(uint32_t* out, const uint32_t* v, uint32_t d) {
+#pragma unroll
+  for (int k = 0; k < HORNER_N; ++k) {
+    uint32_t x = v[k];
+#pragma unroll
+    for (int e = 1; e < HORNER_P; ++e) x = d == (uint32_t)e ? v[e * HORNER_N + k] : x;
+    out[k] = x;
+  }
+}
+
+// out = v_i, the last value for larger i, by selects.
+ZK_FN void pick4(uint32_t* out, uint32_t i, const uint32_t* v0, const uint32_t* v1, const uint32_t* v2,
+                 const uint32_t* v3) {
+#pragma unroll
+  for (int j = 0; j < FQ_LIMBS; ++j) out[j] = i == 0 ? v0[j] : i == 1 ? v1[j] : i == 2 ? v2[j] : v3[j];
+}
+
+ZK_FN void pick6(uint32_t* out, uint32_t i, const uint32_t* v0, const uint32_t* v1, const uint32_t* v2,
+                 const uint32_t* v3, const uint32_t* v4, const uint32_t* v5) {
+#pragma unroll
+  for (int j = 0; j < FQ_LIMBS; ++j)
+    out[j] = i == 0 ? v0[j] : i == 1 ? v1[j] : i == 2 ? v2[j] : i == 3 ? v3[j] : i == 4 ? v4[j] : v5[j];
+}
+
+// A lane's place: product group g, digit d, the group's first lane, and
+// the constants of its digit.
+struct HornerLane {
+  uint32_t g, d, base;
+  uint32_t pd[HORNER_N];  // digit d of p
+  uint32_t q[HORNER_N];   // -p^-1 mod 2^(32 N)
+};
+
+ZK_FN HornerLane horner_lane(uint32_t lane, const FqConsts& f) {
+  HornerLane h;
+  h.g = lane / HORNER_P;
+  h.d = lane % HORNER_P;
+  h.base = h.g * HORNER_P;
+  horner_digit(h.pd, f.p, h.d);
+  neg_pinv<HORNER_N>(h.q, f);
+  return h;
+}
+
+// The product a b R^-1 of the group's lanes, lane-parallel CIOS by digits
+// of N words: for i = 0 .. P - 1,
+//     s += a b_i;  M_i = (s mod 2^(32 N)) q mod 2^(32 N);  s += M_i p;  s /= 2^(32 N),
+// where each lane adds its digit's share, a_d b_i and M_i p_d, at its own
+// window of the sum: 2N + 1 words from word d N.  M_i comes from digit 0's
+// lane by shuffle (its low N words are the sum's); the division hands each
+// lane's low N words to the lane below, with a shuffle (digit 0's are zero,
+// and the last digit takes none).  A window is below 5 2^(32 N) after the
+// division and below 3 2^(64 N) after the adds, so 2N + 1 words hold it
+// (the last one below 4).  This is CIOS with M = sum M_i 2^(32 N i) < R, so
+// the product is (a b + M p) / R, mont_mul_lazy's.  out is the lane's
+// window, N + 1 words: the product is sum_d out_d 2^(32 N d), each last
+// word a carry into the next digit, which horner_gather adds.
+ZK_FN void horner_mul(uint32_t* out, const uint32_t* ad, const uint32_t* b, const HornerLane& h) {
+  constexpr int N = HORNER_N;
+  uint32_t s[2 * N + 1];
+#pragma unroll
+  for (int j = 0; j < 2 * N + 1; ++j) s[j] = 0;
+  const uint32_t keep = h.d + 1 < (uint32_t)HORNER_P ? 0xffffffffu : 0u;
+#pragma unroll
+  for (int i = 0; i < HORNER_P; ++i) {
+    uint32_t pr[2 * N], m[N], up[N];
+    mul_wide_u64<N>(pr, ad, b + i * N);  // a_d b_i does not wait for s
+    add_wide<N>(s, pr);
+    mul_lo<N>(m, s, h.q);
+#pragma unroll
+    for (int k = 0; k < N; ++k) m[k] = warp_shfl(m[k], h.base);
+    mul_add_wide<N>(s, h.pd, m);
+#pragma unroll
+    for (int k = 0; k < N; ++k) up[k] = warp_shfl(s[k], h.base + h.d + 1);
+    s[0] = cc::add_cc(s[N], up[0] & keep);
+#pragma unroll
+    for (int k = 1; k < N; ++k) s[k] = cc::addc_cc(s[N + k], up[k] & keep);
+    s[N] = cc::addc(s[2 * N], 0);
+#pragma unroll
+    for (int k = N + 1; k < 2 * N + 1; ++k) s[k] = 0;
+  }
+#pragma unroll
+  for (int j = 0; j < N + 1; ++j) out[j] = s[j];
+}
+
+// out = this lane's share of the product a b R^-1 of its group.
+ZK_FN void horner_product(uint32_t* out, const uint32_t* a, const uint32_t* b, const HornerLane& h) {
+  uint32_t ad[HORNER_N];
+  horner_digit(ad, a, h.d);
+  horner_mul(out, ad, b, h);
+}
+
+// v = the whole product that group g's lanes hold (g may differ from lane
+// to lane): the digits' windows by shuffles, then their carry words added
+// in one 12-word chain.  The product is < 2p < R, so the last digit's carry
+// word is 0 and no carry leaves word 11.
+ZK_FN void horner_gather(uint32_t* v, const uint32_t* out, uint32_t g) {
+  constexpr int N = HORNER_N;
+  uint32_t top[HORNER_P];
+#pragma unroll
+  for (int e = 0; e < HORNER_P; ++e) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[e * N + k] = warp_shfl(out[k], g * HORNER_P + e);
+    top[e] = e + 1 < HORNER_P ? warp_shfl(out[N], g * HORNER_P + e) : 0;
+  }
+  if constexpr (HORNER_P > 1) {
+    v[N] = cc::add_cc(v[N], top[0]);
+#pragma unroll
+    for (int j = N + 1; j < FQ_LIMBS - 1; ++j) v[j] = cc::addc_cc(v[j], j % N == 0 ? top[j / N - 1] : 0);
+    v[FQ_LIMBS - 1] = cc::addc(v[FQ_LIMBS - 1], 0);
+  }
+}
+
+// RCB Alg. 9 on the lane's copy of the accumulator, in place: the first
+// step's products (Y Y, Y Z, Z Z, X Y), then (t2 z3, t1 z3, t0' y3, t0' X Y).
+// Takes X < 4p, Y, Z < 2p and gives the same.  z3 and y3 stay below 4p,
+// since their other factors are below 2p.
+ZK_FN void horner_double(uint32_t* X, uint32_t* Y, uint32_t* Z, const HornerLane& h, const FqConsts& f) {
   constexpr int L = FQ_LIMBS;
-  switch (phase) {
-    case H_LOAD:
-      if (lane == 0) {
-        uint32_t x[L];
-        for (uint32_t i = 0; i < 3; ++i) {
-          load_row(x, horner_part(a, i, w, k));
-          copy_limbs<L>(G.P[i], x);
-        }
-      }
-      break;
-    case H_DBL1:  // T = (Y Y, Y Z, Z Z, X Y)
-#pragma unroll 1
-      for (uint32_t q = lane; q < 4; q += HORNER_LANES) {
-        uint32_t x[L], y[L];
-        copy_limbs<L>(x, G.P[q == 3 ? 0 : (q == 2 ? 2 : 1)]);
-        copy_limbs<L>(y, G.P[q == 0 || q == 3 ? 1 : 2]);
-        fmul<L>(x, x, y, f);
-        copy_limbs<L>(G.T[q], x);
-      }
-      break;
-    case H_DBL2: {  // V = (t2 z3, t1 z3, t0' y3, t0' xy)
-      uint32_t t0[L], t2[L], z3[L], y3[L], u[L];
-      copy_limbs<L>(t0, G.T[0]);
-      fdbl<L>(z3, t0, f);  // z3 = 8 Y^2
-      fdbl<L>(z3, z3, f);
-      fdbl<L>(z3, z3, f);
-      copy_limbs<L>(u, G.T[2]);
-      fq_mul12(t2, u, f);  // t2 = 3b Z^2
-      fadd<L>(y3, t0, t2, f);
-      fdbl<L>(u, t2, f);  // 9b Z^2
-      fadd<L>(u, u, t2, f);
-      fsub<L>(t0, t0, u, f);  // t0' = Y^2 - 9b Z^2
-#pragma unroll 1
-      for (uint32_t q = lane; q < 4; q += HORNER_LANES) {
-        uint32_t x[L], y[L];
+  const uint32_t* p2 = f.p2;
+  uint32_t a[L], b[L], o[HORNER_N + 1], t0[L], u[L], e[L], z3[L], t2[L], y3[L];
+  pick4(a, h.g, Y, Y, Z, X);
+  pick4(b, h.g, Y, Z, Z, Y);
+  horner_product(o, a, b, h);
+  horner_gather(u, o, 2);                 // Z^2, first: the longest chain of sums starts from it
+  horner_gather(t0, o, 0);                // t0 = Y^2
+  horner_gather(e, o, h.g == 1 ? 1 : 3);  // t1 = Y Z for group 1, X Y for the others
+  fq_mul12_lazy(t2, u, f);                // t2 = 3b Z^2
+  add_red<L>(z3, t0, t0, p2);             // z3 = 8 Y^2 < 4p
+  add_red<L>(z3, z3, z3, p2);
+  add_nr<L>(z3, z3, z3);
+  add_nr<L>(y3, t0, t2);                  // y3 = Y^2 + 3b Z^2 < 4p
+  sub_red<L>(t0, t0, t2, p2);             // t0' = (Y^2 - 3b Z^2) - 6b Z^2 = Y^2 - 9b Z^2
+  add_red<L>(u, t2, t2, p2);
+  sub_red<L>(t0, t0, u, p2);
+  pick4(a, h.g, t2, e, t0, t0);
+  pick4(b, h.g, z3, z3, y3, e);
+  horner_product(o, a, b, h);
+  horner_gather(a, o, 2);                 // Y3 = t0' y3 + t2 z3
+  horner_gather(b, o, 0);
+  add_red<L>(Y, a, b, p2);
+  horner_gather(Z, o, 1);                 // Z3 = t1 z3
+  horner_gather(a, o, 3);                 // X3 = 2 t0' X Y < 4p
+  add_nr<L>(X, a, a);
+}
+
+// RCB Alg. 7 in place: (X, Y, Z) += part[w] (row k, canonical).  Product j
+// of a step runs in round j / G on group j % G: first X1 X2, Y1 Y2, Z1 Z2,
+// (X1 + Y1)(X2 + Y2), (Y1 + Z1)(Y2 + Z2), (X1 + Z1)(X2 + Z2), then
+// (t3 t1, t4 t5, t1 Zc, t5 t0, Zc t4, t0 t3).  Takes X < 4p (reduced to
+// < 2p first, for the sums X1 + Y1 and X1 + Z1), Y, Z < 2p, and gives
+// values < 2p.  t0 and Zc stay below 4p: each is a factor of two products
+// whose other factor is below 2p.
+ZK_FN void horner_add(uint32_t* X, uint32_t* Y, uint32_t* Z, const HornerArgs& args, uint32_t w, uint32_t k,
+                      const HornerLane& h, const FqConsts& f) {
+  constexpr int L = FQ_LIMBS, G = HORNER_G, ROUNDS = (6 + G - 1) / G;
+  const uint32_t* p2 = f.p2;
+  uint32_t o[ROUNDS][HORNER_N + 1], a[L], b[L], c[L];
+  cond_sub<L>(X, X, p2);  // < 2p
 #pragma unroll
-        for (int j = 0; j < L; ++j) {
-          x[j] = q == 0 ? t2[j] : (q == 1 ? G.T[1][j] : t0[j]);
-          y[j] = q <= 1 ? z3[j] : (q == 2 ? y3[j] : G.T[3][j]);
-        }
-        fmul<L>(x, x, y, f);
-        copy_limbs<L>(G.V[q], x);
-      }
-      break;
-    }
-    case H_DBL3:  // (X3, Y3, Z3) = (2 t0' xy, t0' y3 + t2 z3, t1 z3)
-      if (lane == 0) {
-        uint32_t x[L], y[L];
-        copy_limbs<L>(x, G.V[3]);
-        fdbl<L>(G.P[0], x, f);
-        copy_limbs<L>(x, G.V[2]);
-        copy_limbs<L>(y, G.V[0]);
-        fadd<L>(G.P[1], x, y, f);
-        copy_limbs<L>(G.P[2], G.V[1]);
-      }
-      break;
-    case H_ADD1:  // T = (X1 X2, Y1 Y2, Z1 Z2, (X1 + Y1)(X2 + Y2), (Y1 + Z1)(Y2 + Z2), (X1 + Z1)(X2 + Z2))
-#pragma unroll 1
-      for (uint32_t q = lane; q < 6; q += HORNER_LANES) {
-        const uint32_t i0 = q < 3 ? q : (q == 4 ? 1 : 0), i1 = q == 3 ? 1 : 2;
-        uint32_t x[L], y[L];
-        copy_limbs<L>(x, G.P[i0]);
-        load_row(y, horner_part(a, i0, w, k));
-        if (q >= 3) {
-          uint32_t t[L];
-          copy_limbs<L>(t, G.P[i1]);
-          fadd<L>(x, x, t, f);
-          load_row(t, horner_part(a, i1, w, k));
-          fadd<L>(y, y, t, f);
-        }
-        fmul<L>(x, x, y, f);
-        copy_limbs<L>(G.T[q], x);
-      }
-      break;
-    case H_ADD2: {  // V = (t3 t1, t4 t5, t1 Zc, t5 t0, Zc t4, t0 t3)
-      uint32_t t0[L], t1[L], t3[L], t4[L], t5[L], zc[L], s[L];
-      copy_limbs<L>(t0, G.T[0]);
-      copy_limbs<L>(t1, G.T[1]);
-      copy_limbs<L>(zc, G.T[2]);  // Z1 Z2 until Zc is formed
-      fadd<L>(s, t0, t1, f);      // t3 = X1 Y2 + X2 Y1
-      copy_limbs<L>(t3, G.T[3]);
-      fsub<L>(t3, t3, s, f);
-      fadd<L>(s, t1, zc, f);  // t4 = Y1 Z2 + Y2 Z1
-      copy_limbs<L>(t4, G.T[4]);
-      fsub<L>(t4, t4, s, f);
-      fadd<L>(s, t0, zc, f);  // t5 = X1 Z2 + X2 Z1
-      copy_limbs<L>(t5, G.T[5]);
-      fsub<L>(t5, t5, s, f);
-      fdbl<L>(s, t0, f);  // t0 = 3 X1 X2
-      fadd<L>(t0, s, t0, f);
-      fq_mul12(s, zc, f);  // 3b Z1 Z2
-      fadd<L>(zc, t1, s, f);  // Zc = Y1 Y2 + 3b Z1 Z2
-      fsub<L>(t1, t1, s, f);  // t1 = Y1 Y2 - 3b Z1 Z2
-      fq_mul12(t5, t5, f);    // t5 = 3b (X1 Z2 + X2 Z1)
-#pragma unroll 1
-      for (uint32_t q = lane; q < 6; q += HORNER_LANES) {
-        uint32_t x[L], y[L];
+  for (int r = 0; r < ROUNDS; ++r) {
+    const uint32_t j = r * G + h.g;  // past 5: the last product again, unread
+    const uint32_t i0 = j == 1 || j == 4 ? 1 : (j == 2 ? 2 : 0), i1 = j == 3 ? 1 : 2;
+    const uint32_t both = j >= 3 ? 0xffffffffu : 0u;
+    pick6(a, j, X, Y, Z, X, Y, X);
+    pick6(c, j, Y, Z, Z, Y, Z, Z);
 #pragma unroll
-        for (int j = 0; j < L; ++j) {
-          x[j] = q == 0 ? t3[j] : q == 1 ? t4[j] : q == 2 ? t1[j] : q == 3 ? t5[j] : q == 4 ? zc[j] : t0[j];
-          y[j] = q == 0 ? t1[j] : q == 1 ? t5[j] : q == 2 ? zc[j] : q == 3 ? t0[j] : q == 4 ? t4[j] : t3[j];
-        }
-        fmul<L>(x, x, y, f);
-        copy_limbs<L>(G.V[q], x);
-      }
-      break;
-    }
-    case H_ADD3:  // (X3, Y3, Z3) = (t3 t1 - t4 t5, t1 Zc + t5 t0, Zc t4 + t0 t3)
-      if (lane == 0) {
-        uint32_t x[L], y[L];
-        for (uint32_t i = 0; i < 3; ++i) {
-          copy_limbs<L>(x, G.V[2 * i]);
-          copy_limbs<L>(y, G.V[2 * i + 1]);
-          if (i == 0)
-            fsub<L>(G.P[0], x, y, f);
-          else
-            fadd<L>(G.P[i], x, y, f);
-        }
-      }
-      break;
-    case H_STORE:
-      if (lane == 0 && live) {
-        uint32_t x[L];
-        for (uint32_t i = 0; i < 3; ++i) {
-          copy_limbs<L>(x, G.P[i]);
-          store_row((i == 0 ? a.out[0] : (i == 1 ? a.out[1] : a.out[2])) + (uint64_t)k * L, x);
-        }
-      }
-      break;
+    for (int m = 0; m < L; ++m) c[m] &= both;
+    add_nr<L>(a, a, c);  // < 4p
+    load_row(b, horner_part(args, i0, w, k));
+    load_row(c, horner_part(args, i1, w, k));
+#pragma unroll
+    for (int m = 0; m < L; ++m) c[m] &= both;
+    add_nr<L>(b, b, c);  // < 2p
+    horner_product(o[r], a, b, h);
+  }
+  uint32_t t0[L], t1[L], t3[L], t4[L], t5[L], zc[L];
+  horner_gather(t0, o[0], 0);
+  horner_gather(t1, o[0], 1);
+  horner_gather(zc, o[0], 2);              // Z1 Z2 until Zc is formed
+  add_red<L>(a, t0, t1, p2);   // t3 = X1 Y2 + X2 Y1
+  horner_gather(t3, o[0], 3);
+  sub_red<L>(t3, t3, a, p2);
+  add_red<L>(a, t1, zc, p2);   // t4 = Y1 Z2 + Y2 Z1
+  horner_gather(t4, o[4 / G], 4 % G);
+  sub_red<L>(t4, t4, a, p2);
+  add_red<L>(a, t0, zc, p2);   // t5 = X1 Z2 + X2 Z1
+  horner_gather(t5, o[5 / G], 5 % G);
+  sub_red<L>(t5, t5, a, p2);
+  add_red<L>(a, t0, t0, p2);   // t0 = 3 X1 X2 < 4p
+  add_nr<L>(t0, a, t0);
+  fq_mul12_lazy(a, zc, f);     // 3b Z1 Z2
+  add_nr<L>(zc, t1, a);        // Zc = Y1 Y2 + 3b Z1 Z2 < 4p
+  sub_red<L>(t1, t1, a, p2);   // t1 = Y1 Y2 - 3b Z1 Z2
+  fq_mul12_lazy(t5, t5, f);    // t5 = 3b (X1 Z2 + X2 Z1)
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const uint32_t j = r * G + h.g;
+    pick6(a, j, t3, t4, t1, t5, zc, t0);
+    pick6(b, j, t1, t5, zc, t0, t4, t3);
+    horner_product(o[r], a, b, h);
+  }
+  horner_gather(a, o[0], 0);  // X3 = t3 t1 - t4 t5
+  horner_gather(b, o[0], 1);
+  sub_red<L>(X, a, b, p2);
+  horner_gather(a, o[0], 2);  // Y3 = t1 Zc + t5 t0
+  horner_gather(b, o[0], 3);
+  add_red<L>(Y, a, b, p2);
+  horner_gather(a, o[4 / G], 4 % G);  // Z3 = Zc t4 + t0 t3
+  horner_gather(b, o[5 / G], 5 % G);
+  add_red<L>(Z, a, b, p2);
+}
+
+// Window w's part rows into L1 while the doubles run, so that the add does
+// not wait on device memory: the first and last byte of each 48-byte row.
+ZK_FN void horner_prefetch(const HornerArgs& a, uint32_t w, uint32_t k) {
+#if defined(__CUDA_ARCH__)
+#pragma unroll
+  for (uint32_t i = 0; i < 3; ++i) {
+    const uint32_t* row = horner_part(a, i, w, k);
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(row));
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(row + FQ_LIMBS - 1));
+  }
+#else
+  (void)a, (void)w, (void)k;
+#endif
+}
+
+// Point k's whole chain, run by each lane of its warp; lane 0 stores it.
+ZK_FN void horner_point(const HornerArgs& a, uint32_t k, uint32_t lane, const FqConsts& f) {
+  constexpr int L = FQ_LIMBS;
+  const HornerLane h = horner_lane(lane, f);
+  uint32_t X[L], Y[L], Z[L];
+  load_row(X, horner_part(a, 0, a.W - 1, k));
+  load_row(Y, horner_part(a, 1, a.W - 1, k));
+  load_row(Z, horner_part(a, 2, a.W - 1, k));
+#pragma unroll 1
+  for (uint32_t w = a.W - 1; w-- > 0;) {
+    horner_prefetch(a, w, k);
+#pragma unroll 1
+    for (uint32_t i = 0; i < a.c; ++i) horner_double(X, Y, Z, h, f);
+    horner_add(X, Y, Z, a, w, k, h, f);
+  }
+  if (lane == 0) {
+    cond_sub<L>(X, X, f.p);
+    cond_sub<L>(Y, Y, f.p);
+    cond_sub<L>(Z, Z, f.p);
+    store_row(a.out[0] + (uint64_t)k * L, X);
+    store_row(a.out[1] + (uint64_t)k * L, Y);
+    store_row(a.out[2] + (uint64_t)k * L, Z);
+  }
+}
+
+// The latency of one product: x = a, then x = x b R^-1 `chain` times, each
+// product lane-parallel in every group as the combine runs it and gathered
+// whole before the next; lane 0 stores x canonical.  a, b canonical rows.
+ZK_FN void horner_mul_chain(const uint32_t* a, const uint32_t* b, uint32_t* out, uint32_t chain, uint32_t lane,
+                            const FqConsts& f) {
+  constexpr int L = FQ_LIMBS;
+  const HornerLane h = horner_lane(lane, f);
+  uint32_t x[L], y[L], o[HORNER_N + 1];
+  load_row(x, a);
+  load_row(y, b);
+#pragma unroll 1
+  for (uint32_t i = 0; i < chain; ++i) {
+    horner_product(o, x, y, h);
+    horner_gather(x, o, h.g);
+  }
+  if (lane == 0) {
+    cond_sub<L>(x, x, f.p);
+    store_row(out, x);
   }
 }

@@ -51,6 +51,10 @@ _SIGNATURES = {
     "zk_fixed_base_mul": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, ctypes.c_int, _P],
     # device, p (host), pinv, ptrs (host: X, Y, Z parts, X, Y, Z out), W, K, c, stream
     "zk_horner_combine": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _I64, _I64, _P],
+    # device, p (host), pinv, ptrs (host: a, b, out), chain, stream
+    "zk_horner_mul_chain": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _P],
+    # out {lanes a product, products at once}
+    "zk_horner_design": [_P],
     # device, limbs, p (host), pinv, in, out, batch, log_n, twiddles, in factor,
     # its row stride, out factor, its row stride, stream, out: launches
     "zk_ntt": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _I64, ctypes.c_int, _P, _P, _I64, _P, _I64,

@@ -24,11 +24,7 @@ kernel's loop, and the add and mixed add.
 Run as a file with PYTHONPATH=<another checkout> it times that tree's
 library as built (its g1.cu has no budget to set) and counts its SASS.
 
---horner times the one-launch Horner combine instead, built once per lane
-count (-DZK_HORNER_LANES=1 and 4; the library uses 4) at the paths' shapes:
-c = 16, K = 1, W = 16 (an MSM at 2^20) and c = 13, K = 8, W = 20 (the PLONK
-prover's commit_many at 2^14 gates).  Each row gives ms per call and the
-latency of one double, ms over (W - 1) c (the adds included).
+(The Horner combine has its own tool, tools/horner_lanes.py.)
 """
 from __future__ import annotations
 
@@ -59,8 +55,6 @@ SHAPES = (
 )
 PRODUCTS = {"proj_add": 12, "proj_madd": 11}
 BUDGET_MACRO = "ZK_ADD_MIN_BLOCKS"
-LANES_MACRO = "ZK_HORNER_LANES"
-HORNER_SHAPES = ((16, 1, 16), (13, 8, 20))  # (c, K, W)
 
 
 def _random_fq(shape, device, gen):
@@ -119,7 +113,7 @@ def build_budgets(budgets, macro: str = BUDGET_MACRO, source: str = "g1.cu") -> 
 
 
 @contextlib.contextmanager
-def _library(path, names=("zk_proj_add", "zk_proj_madd", "zk_proj_double", "zk_g1_kernel_attrs", "zk_horner_combine")):
+def _library(path, names=("zk_proj_add", "zk_proj_madd", "zk_proj_double", "zk_g1_kernel_attrs")):
     """The wrappers launch the kernels of the library at `path` (None: the
     port's own), entry points `names`, inside this block."""
     if path is None:
@@ -161,32 +155,6 @@ def time_budgets(reps: int = 20, budgets=(1, 3, 4), device=None) -> list[dict]:
             print(json.dumps(row), flush=True)
         del a1, a2
         torch.cuda.empty_cache()
-    return rows
-
-
-def time_horner(reps: int = 20, lanes=(1, 4), device=None) -> list[dict]:
-    """The Horner combine at the paths' shapes, once per lane count."""
-    from zktpu_torch.curves import g1
-    from zktpu_torch.curves.host_curve import G1Affine
-
-    device = torch.device("cuda", 0) if device is None else torch.device(device)
-    libs = build_budgets(lanes, LANES_MACRO)
-    G = G1Affine.generator()
-    rows = []
-    for c, K, W in HORNER_SHAPES:
-        pts = [G.mul(3 + 7 * i) for i in range(W * K)]
-        parts = tuple(t.reshape(W, K, 12) for t in g1.host_points_to_device(pts, device))
-        ref = None
-        for n_lanes, path in libs.items():
-            with _library(path):
-                got = g1_kernel.horner_combine(parts, c)
-                ref = got if ref is None else ref
-                assert all(torch.equal(a, b) for a, b in zip(got, ref)), "the lane counts disagree"
-                row = {"kernel": "horner_combine", "c": c, "K": K, "W": W, "lanes": n_lanes,
-                       **g1_kernel.kernel_attrs("horner_combine"), "ms": _ms(lambda: g1_kernel.horner_combine(parts, c), reps)}
-            row["us_per_double"] = 1e3 * row["ms"] / ((W - 1) * c)
-            rows.append(row)
-            print(json.dumps(row), flush=True)
     return rows
 
 
@@ -240,14 +208,10 @@ def main(argv=None) -> int:
     ap.add_argument("--budgets", type=int, nargs="+", default=[1, 3, 4],
                     help="minimum 128-thread blocks per SM for each build of g1.cu")
     ap.add_argument("--sass", action="store_true", help="also count SASS instructions with cuobjdump")
-    ap.add_argument("--horner", action="store_true", help="time the Horner combine at 1 and 4 lanes per point instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("g1_budgets: no CUDA device")
     print(f"device {torch.cuda.get_device_name(0)}; library {cuda_lib.build()}", flush=True)
-    if args.horner:
-        time_horner(args.reps)
-        return 0
     time_budgets(args.reps, tuple(args.budgets))
     if args.sass:
         print(json.dumps({"sass": sass_counts()}), flush=True)
