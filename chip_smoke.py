@@ -2,6 +2,7 @@
 """Run the zktpu_torch main paths once on one CUDA GPU and check them.
 
     python3 chip_smoke.py [--log-n 14] [--msm-log-n 20] [--fri-log-n 20] [--nova-log-m 14] [--nova-steps 64]
+                          [--parent DIR]
 
 Phases:
   1. device: the card's name and power limit (fails without CUDA); the
@@ -10,9 +11,13 @@ Phases:
      local (spill) bytes and shared memory per block of the group-law
      kernels, the Horner combine, the NTT (Fr and Goldilocks), the field
      scans, the field add/sub, the field hash, the FRI fold, the fixed-base
-     multiply, Nova's matrix-vector product (and its rows and threads a
-     block) and the tensor-core chained products (mxu and f32, Fr and Fq)
-     (fails if one spills); the SASS of the chained product's three bodies (IMMA, FFMA,
+     multiply (its dynamic shared memory included), Nova's matrix-vector
+     product (and its rows and threads a block) and the tensor-core chained
+     products (mxu and f32, Fr and Fq) (fails if one spills); the designs of
+     the fixed-base multiply (threads a block, launch bound) and of the field
+     scans (threads a block, the tile rule's grid and longest chunk); with
+     --parent DIR, another checkout's library built beside this one
+     (tools/parent.py); the SASS of the chained product's three bodies (IMMA, FFMA,
      IMAD: cuobjdump), the mxu and f32 kernels must hold IMMA and the f32
      ones FFMA; the Goldilocks NTT's plan at 2^fri_log_n and 2^22 and its
      SASS per butterfly (IMAD, LDS/STS of one radix step; BAR per butterfly
@@ -41,7 +46,9 @@ Phases:
      warp and held against the plain chain); mont_mul Fr's kernel-only time from torch.profiler beside its
      time with the wrapper; the field scans (cumprod, cumsum both ways, sum
      on axis 0 and 1, powers, batch_inv) and the field add/sub against their
-     plain versions at the shapes the paths give them, Fr and Fq (phase_field_ops);
+     plain versions at the shapes the paths give them, a scan of many tiles
+     (2^20) and one of 5 rows, Fr and Fq, each with its launches a call and
+     its kernel-only ms (phase_field_ops);
      the Goldilocks NTT (fft, ifft, coset_fft, coset_ifft and coset_fft with
      the raw-1 output factor at 2^fri_log_n x 1, 2^13 x 3, n = 2 and 2^8 x 3,
      2^16 and 2^22, an all-zero row and a row of p - 1; its kernel-only time
@@ -49,11 +56,15 @@ Phases:
      values, pairs at 2^(fri_log_n - 1), digit-length edges mixed in; the
      first 64 of each against hashlib) and the FRI fold at the first fold's
      (2^(fri_log_n - 1), 2) coefficients (phase_fri_kernels); the
-     fixed-base kernel at 2^msm_log_n random scalars against its plain
-     loop (every projective word, every affine point), 64 against host
-     scalar multiplication, timed beside the loop it replaced (32
-     gathers and proj_add launches), and Srs.new_from_secret of 2^msm_log_n points with
-     the kernel, the former loop and the plain loop (phase_fixed_base);
+     fixed-base kernel at 2^msm_log_n and 2^log_n + 3 scalars (the edge
+     scalars 0, 1, r - 1, 2^256 - 1 and zero digits among random ones)
+     against its plain loop (every projective word, every affine point), 64
+     against host scalar multiplication, with its kernel-only ms, bound and
+     share, timed beside the loop it replaced (32 gathers and proj_add
+     launches), and Srs.new_from_secret of 2^msm_log_n points with the
+     kernel, the former loop and the plain loop (phase_fixed_base).  With
+     --parent, the fixed-base multiply, the scans and Srs.new of the other
+     checkout are timed in turns with this one's, their words equal;
   3. small proof: a 4-gate circuit proved with every tensor path forced,
      once on the GPU and once on the CPU; the proofs must be equal;
   4. PLONK path: synthetic_mul_chain(log_n) and its SRS on the GPU, prove,
@@ -700,6 +711,13 @@ def _field_rows(f, gen, n: int, cols: int = 1, nonzero: bool = False) -> torch.T
     return t
 
 
+def _only(kernel_ms, bound_ms: float) -> str:
+    """A kernel-only time and its share of the bound, or "not measured"."""
+    if not kernel_ms:
+        return "not measured (the profiler saw no device event)"
+    return f"{kernel_ms:.4f} ms, {100 * bound_ms / kernel_ms:.2f}% of the bound"
+
+
 def _timed_once(fn):
     """(result, ms) of one call, CUDA events around it (for the slow plain versions)."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -710,16 +728,21 @@ def _timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def phase_field_ops(device, results: dict, log_n: int = 14, fq_log_n: int = 20) -> None:
+def phase_field_ops(device, results: dict, log_n: int = 14, fq_log_n: int = 20, parent=None) -> None:
     """Kernels A and B (fields/field_kernel.py) against their plain versions
     at the shapes the paths give them, 0 mismatching words each, with the
-    kernel's ms (CUDA events, the wrapper's passes and host copy included),
-    the plain version's and the bound.  Fr at 2^log_n gates: the round-2
-    grand product (cumprod, n x 1), the cumsum of divide_by_linear (reverse),
-    the powers of Poly.evaluate and of the 8n coset's offsets, the sums of
-    evaluate (axis 0) and evaluate_many (axis 1 of (8, n + 3, 8)), the
-    batch inversion of round 2, and the adds of the coset quotient ((8n, 8)
-    operands and a broadcast constant) and a sub; Fq: the batch inversion of
+    kernel's ms (CUDA events, the wrapper and batch_inv's host copy
+    included), its kernel-only ms (torch.profiler, each launch of a call),
+    its launches a call, the plain version's ms and the bound; with
+    `parent` (another checkout's package, tools/parent.py), the parent
+    design's ms and launches, timed in turns (kernel, parent, parent,
+    kernel), its words equal.  Fr at 2^log_n gates: the round-2 grand
+    product (cumprod, n x 1), the cumsum of divide_by_linear (reverse), the
+    powers of Poly.evaluate and of the 8n coset's offsets, the sums of
+    evaluate (axis 0) and evaluate_many (axis 1 of (8, n + 3, 8)), the batch
+    inversion of round 2, a scan of many tiles (cumprod at 2^20) and one of
+    a few rows (5), and the adds of the coset quotient ((8n, 8) operands and
+    a broadcast constant) and a sub; Fq: the batch inversion of
     Srs.g1_affine at 2^fq_log_n, a reverse scan and add/sub at 2^16 + 3.
     The kernels line takes field_scan_fr from the grand product,
     field_scan_fq from the Fq batch inversion and field_addsub_fr from the
@@ -727,24 +750,50 @@ def phase_field_ops(device, results: dict, log_n: int = 14, fq_log_n: int = 20) 
     from zktpu_torch.fields import field_kernel as fk
     from zktpu_torch.fields.fp import field
     from zktpu_torch.fields.host import FQ, FR
+    from zktpu_torch.tools.trace import launch_device_ms
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 3)
     n = 1 << log_n
     fr, fq = field(FR, device), field(FQ, device)
+    pk = parent.fields.field_kernel if parent is not None else None
 
-    def check(key, f, name, kernel, plain, nbytes, words, reps=20, rows=0):
-        """Kernel against plain on the same inputs; `key`: record it for the kernels line."""
+    def check(key, f, name, make, plain, nbytes, words, reps=20, rows=0):
+        """make(ops): the call through a field_kernel module's functions,
+        against plain on the same inputs; `key`: record it for the kernels
+        line."""
+        kernel = make(fk)
+        before = fk.launches["field_scan"][f.spec.name] + fk.launches["field_addsub"][f.spec.name]
         got = kernel()
+        launched = fk.launches["field_scan"][f.spec.name] + fk.launches["field_addsub"][f.spec.name] - before
         plain_out, plain_ms = _timed_once(plain)
         err = _compare(f"{f.spec.name} {name}", [got], [plain_out])
-        ms = _cuda_ms(kernel, reps)
+        del plain_out
+        turns = {"kernel": []}
+        if pk is not None:
+            other = make(pk)
+            before = pk.launches["field_scan"][f.spec.name] + pk.launches["field_addsub"][f.spec.name]
+            assert torch.equal(other(), got), f"{f.spec.name} {name}: the parent design differs"
+            parent_launched = pk.launches["field_scan"][f.spec.name] + pk.launches["field_addsub"][f.spec.name] - before
+            turns["parent"] = []
+            for order in (("kernel", "parent"), ("parent", "kernel")):
+                for who in order:
+                    turns[who].append(_cuda_ms(kernel if who == "kernel" else other, reps))
+        else:
+            turns["kernel"].append(_cuda_ms(kernel, reps))
+        ms = sum(turns["kernel"]) / len(turns["kernel"])
+        kname = "field_addsub_kernel" if name.startswith(("add", "sub", "neg")) else "field_"
+        each = launch_device_ms(kernel, kname, reps=2)
         b = _bound(nbytes, words)
         if key:
             _record(results, key, rows, err, ms, plain_ms, nbytes, words, phase=f"phase 2: {f.spec.name} {name}:")
-        else:
-            print(f"phase 2: {f.spec.name} {name}: mismatches=0 kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']})", flush=True)
+            results[key]["kernel_only_ms"] = sum(each) or None
+        parent_txt = (f"parent {sum(turns['parent']) / 2:.4f} ms in {parent_launched} launches (turns "
+                      f"{[round(v, 4) for v in turns['parent']]} against {[round(v, 4) for v in turns['kernel']]})"
+                      if pk is not None else "parent not measured (no --parent)")
+        print(f"phase 2: {f.spec.name} {name}: mismatches=0 kernel_ms={ms:.4f} in {launched} launches, kernel only "
+              f"{_only(sum(each), b['bound_ms'])} {[round(v, 4) for v in each]}; {parent_txt}; plain_ms={plain_ms:.4f} "
+              f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']})", flush=True)
         return err
 
     E = 32  # bytes of an Fr element; an add counts as L word operations
@@ -752,41 +801,50 @@ def phase_field_ops(device, results: dict, log_n: int = 14, fq_log_n: int = 20) 
     err = 0
     x = _field_rows(fr, gen, n)[:, 0]
     err = max(err, check("field_scan_fr", fr, f"cumprod ({n}, 8) (round 2's grand product)",
-                         lambda: fr.cumprod(x), lambda: fk.scan_plain(fr, x, fk.OP_MUL),
+                         lambda ops: lambda: ops.scan(fr, x, ops.OP_MUL), lambda: fk.scan_plain(fr, x, fk.OP_MUL),
                          2 * n * E, (n - 1) * mul_w, rows=n))
     for rev in (False, True):
         err = max(err, check(None, fr, f"cumsum ({n}, 8) reverse={rev} (divide_by_linear)",
-                             lambda: fr.cumsum(x, reverse=rev), lambda: fk.scan_plain(fr, x, fk.OP_ADD, 0, rev),
-                             2 * n * E, (n - 1) * add_w))
+                             lambda ops: lambda: ops.scan(fr, x, ops.OP_ADD, 0, rev),
+                             lambda: fk.scan_plain(fr, x, fk.OP_ADD, 0, rev), 2 * n * E, (n - 1) * add_w))
     err = max(err, check(None, fr, f"cumprod ({n}, 8) reverse",
-                         lambda: fr.cumprod(x, reverse=True), lambda: fk.scan_plain(fr, x, fk.OP_MUL, 0, True),
-                         2 * n * E, (n - 1) * mul_w))
+                         lambda ops: lambda: ops.scan(fr, x, ops.OP_MUL, 0, True),
+                         lambda: fk.scan_plain(fr, x, fk.OP_MUL, 0, True), 2 * n * E, (n - 1) * mul_w))
+    for rows_ in (5, 1 << 20):
+        xs = _field_rows(fr, gen, rows_)[:, 0]
+        err = max(err, check(None, fr, f"cumprod ({rows_}, 8) ({'a few rows' if rows_ < 32 else 'many tiles'})",
+                             lambda ops: lambda: ops.scan(fr, xs, ops.OP_MUL), lambda: fk.scan_plain(fr, xs, fk.OP_MUL),
+                             2 * rows_ * E, (rows_ - 1) * mul_w, reps=10))
+        del xs
     z = 0x1234567 % FR.modulus
     for count, where in ((n + 3, "Poly.evaluate"), (8 * n, "the 8n coset's offset powers")):
-        err = max(err, check(None, fr, f"powers({count}) ({where})", lambda: fr.powers(z, count),
+        err = max(err, check(None, fr, f"powers({count}) ({where})", lambda ops: lambda: ops.powers(fr, z, count),
                              lambda: fk.powers_plain(fr, z, count), count * E, (count - 1) * mul_w))
     y = _field_rows(fr, gen, n + 3, 8)
-    err = max(err, check(None, fr, f"sum axis 0 of ({n + 3}, 8) (Poly.evaluate)", lambda: fr.sum(y[:, 0]),
-                         lambda: fk.sum_plain(fr, y[:, 0]), (n + 4) * E, (n + 2) * add_w))
+    err = max(err, check(None, fr, f"sum axis 0 of ({n + 3}, 8) (Poly.evaluate)",
+                         lambda ops: lambda: ops.field_sum(fr, y[:, 0]), lambda: fk.sum_plain(fr, y[:, 0]),
+                         (n + 4) * E, (n + 2) * add_w))
     yt = y.transpose(0, 1)  # (8, n + 3, 8), as evaluate_many stacks its polynomials
-    err = max(err, check(None, fr, f"sum axis 1 of (8, {n + 3}, 8) (evaluate_many)", lambda: fr.sum(yt, axis=1),
-                         lambda: fk.sum_plain(fr, yt, 1), 8 * (n + 4) * E, 8 * (n + 2) * add_w))
+    err = max(err, check(None, fr, f"sum axis 1 of (8, {n + 3}, 8) (evaluate_many)",
+                         lambda ops: lambda: ops.field_sum(fr, yt, 1), lambda: fk.sum_plain(fr, yt, 1),
+                         8 * (n + 4) * E, 8 * (n + 2) * add_w))
     d = _field_rows(fr, gen, n, nonzero=True)[:, 0]
-    err = max(err, check(None, fr, f"batch_inv ({n}, 8) (round 2)", lambda: fr.batch_inv(d, FR.inv),
+    err = max(err, check(None, fr, f"batch_inv ({n}, 8) (round 2)", lambda ops: lambda: ops.batch_inv(fr, d, FR.inv),
                          lambda: fk.batch_inv_plain(fr, d, FR.inv), 2 * n * E, 3 * (n - 1) * mul_w, reps=10))
     results["field_scan_fr"]["max_abs_err"] = err
 
     err = 0
     a, b = (_field_rows(fr, gen, 8 * n)[:, 0] for _ in range(2))
     err = max(err, check("field_addsub_fr", fr, f"add ({8 * n}, 8) + ({8 * n}, 8) (the coset quotient)",
-                         lambda: fr.add(a, b), lambda: fk.add_plain(fr, a, b), 3 * 8 * n * E, 8 * n * add_w,
-                         rows=8 * n))
-    err = max(err, check(None, fr, f"sub ({8 * n}, 8) - ({8 * n}, 8)", lambda: fr.sub(a, b),
+                         lambda ops: lambda: ops.add(fr, a, b), lambda: fk.add_plain(fr, a, b), 3 * 8 * n * E,
+                         8 * n * add_w, rows=8 * n))
+    err = max(err, check(None, fr, f"sub ({8 * n}, 8) - ({8 * n}, 8)", lambda ops: lambda: ops.sub(fr, a, b),
                          lambda: fk.sub_plain(fr, a, b), 3 * 8 * n * E, 8 * n * add_w))
     c = b[5]
-    err = max(err, check(None, fr, f"add ({n}, 8) + one constant (round 2's + gamma)", lambda: fr.add(a[:n], c),
-                         lambda: fk.add_plain(fr, a[:n], c), (2 * n + 1) * E, n * add_w))
-    err = max(err, check(None, fr, f"neg ({n}, 8)", lambda: fr.neg(a[:n]),
+    err = max(err, check(None, fr, f"add ({n}, 8) + one constant (round 2's + gamma)",
+                         lambda ops: lambda: ops.add(fr, a[:n], c), lambda: fk.add_plain(fr, a[:n], c),
+                         (2 * n + 1) * E, n * add_w))
+    err = max(err, check(None, fr, f"neg ({n}, 8)", lambda ops: lambda: ops.sub(fr, fr.zero, a[:n]),
                          lambda: fk.sub_plain(fr, torch.zeros_like(a[:n]), a[:n]), 2 * n * E, n * add_w))
     results["field_addsub_fr"]["max_abs_err"] = err
     del a, b, x, y, yt, d
@@ -795,25 +853,27 @@ def phase_field_ops(device, results: dict, log_n: int = 14, fq_log_n: int = 20) 
     mul_w, add_w = _mont_words(12), 12
     m = 1 << fq_log_n
     d = _field_rows(fq, gen, m, nonzero=True)[:, 0]
-    err = check("field_scan_fq", fq, f"batch_inv ({m}, 12) (Srs.g1_affine)", lambda: fq.batch_inv(d, FQ.inv),
-                lambda: fk.batch_inv_plain(fq, d, FQ.inv), 2 * m * E, 3 * (m - 1) * mul_w, reps=5, rows=m)
+    err = check("field_scan_fq", fq, f"batch_inv ({m}, 12) (Srs.g1_affine)",
+                lambda ops: lambda: ops.batch_inv(fq, d, FQ.inv), lambda: fk.batch_inv_plain(fq, d, FQ.inv),
+                2 * m * E, 3 * (m - 1) * mul_w, reps=5, rows=m)
     del d
     torch.cuda.empty_cache()
     k = (1 << 16) + 3
     a, b = (_field_rows(fq, gen, k)[:, 0] for _ in range(2))
-    err = max(err, check(None, fq, f"cumprod ({k}, 12) reverse", lambda: fq.cumprod(a, reverse=True),
+    err = max(err, check(None, fq, f"cumprod ({k}, 12) reverse", lambda ops: lambda: ops.scan(fq, a, ops.OP_MUL, 0, True),
                          lambda: fk.scan_plain(fq, a, fk.OP_MUL, 0, True), 2 * k * E, (k - 1) * mul_w))
-    err = max(err, check(None, fq, f"cumsum ({k}, 12)", lambda: fq.cumsum(a),
+    err = max(err, check(None, fq, f"cumsum ({k}, 12)", lambda ops: lambda: ops.scan(fq, a, ops.OP_ADD),
                          lambda: fk.scan_plain(fq, a, fk.OP_ADD), 2 * k * E, (k - 1) * add_w))
-    err = max(err, check(None, fq, f"powers({k})", lambda: fq.powers(z, k), lambda: fk.powers_plain(fq, z, k),
-                         k * E, (k - 1) * mul_w))
-    err = max(err, check(None, fq, f"sum axis 0 of ({k}, 12)", lambda: fq.sum(a), lambda: fk.sum_plain(fq, a),
-                         (k + 1) * E, (k - 1) * add_w))
+    err = max(err, check(None, fq, f"powers({k})", lambda ops: lambda: ops.powers(fq, z, k),
+                         lambda: fk.powers_plain(fq, z, k), k * E, (k - 1) * mul_w))
+    err = max(err, check(None, fq, f"sum axis 0 of ({k}, 12)", lambda ops: lambda: ops.field_sum(fq, a),
+                         lambda: fk.sum_plain(fq, a), (k + 1) * E, (k - 1) * add_w))
     results["field_scan_fq"]["max_abs_err"] = err
     err = 0
-    for name, op, plain in (("add", fq.add, fk.add_plain), ("sub", fq.sub, fk.sub_plain)):
+    for name, plain in (("add", fk.add_plain), ("sub", fk.sub_plain)):
         err = max(err, check(None, fq, f"{name} ({k}, 12) (no path adds in Fq: the group-law kernels fuse theirs)",
-                             lambda: op(a, b), lambda: plain(fq, a, b), 3 * k * E, k * add_w))
+                             lambda ops: lambda: getattr(ops, name)(fq, a, b), lambda: plain(fq, a, b), 3 * k * E,
+                             k * add_w))
     print(f"phase 2: field_addsub Fq mismatches=0 (max_abs_err {err})", flush=True)
     torch.cuda.empty_cache()
 
@@ -924,8 +984,10 @@ def _traced_prove(circuit, srs) -> str:
 
     t, table = trace_prove(circuit, srs, SEED)
     print(table, file=sys.stderr)
+    scan_ms, scans = t["by_name_ms"].get("field_scan_kernel", (0.0, 0))
     return (f"{t['launch_calls']} kernel launch calls, {t['device_kernels']} device kernels, wall {t['wall_s']:.3f} s, "
-            f"device {t['device_s']:.3f} s (idle {100 * t['idle_share']:.1f}%)")
+            f"device {t['device_s']:.3f} s (idle {100 * t['idle_share']:.1f}%); field_scan_kernel {scan_ms:.4f} ms "
+            f"over {scans} launches")
 
 
 def phase_msm(device, log_n: int):
@@ -1503,7 +1565,8 @@ def phase_nova(device, log_m: int, steps: int) -> tuple[dict, dict]:
     print(f"phase 7: one traced two-step run (one fold, outside the count): {summary['launch_calls']} kernel launch "
           f"calls, {summary['device_kernels']} device kernels, wall {summary['wall_s']:.3f} s, device "
           f"{summary['device_s']:.3f} s (idle {100 * summary['idle_share']:.1f}%); by kernel ms "
-          f"{json.dumps({k: round(v, 3) for k, v in summary['by_kernel_ms'].items()})}", flush=True)
+          f"{json.dumps({k: round(v, 3) for k, v in summary['by_kernel_ms'].items()})}; field_scan_kernel "
+          f"{json.dumps(summary['by_name_ms'].get('field_scan_kernel', (0.0, 0)))} (ms, launches)", flush=True)
     return launches, {"r1cs": r1cs, "z": pn.chain_witness(inputs[0], m)}
 
 
@@ -1670,56 +1733,83 @@ def _random_words(n: int, rows: int, seed: int, top_bits: int = 32):
     return w
 
 
-def phase_fixed_base(device, results: dict, log_n: int = 20) -> None:
-    """Phase 2, the fixed-base kernel: [s_i] G for 2^log_n random 256-bit
-    scalars (the first four 0, 1, r - 1, 2^256 - 1) against
-    fixed_base_mul_plain, every projective word, and every point but the
-    zero scalar's identity after proj_to_affine_dev; 64 against host
-    G1Affine.mul.  Its time, the plain loop's, the former loop's (32
-    gathers and proj_add launches) and the bound; Srs.new_from_secret of
-    2^log_n points with the kernel, the former loop and the plain loop."""
-    import numpy as np
-
+def phase_fixed_base(device, results: dict, log_n: int = 20, srs_log_n: int = 14, parent=None) -> None:
+    """Phase 2, the fixed-base kernel: [s_i] G for 2^log_n scalars (an SRS
+    of that size) and 2^srs_log_n + 3 (the PLONK SRS's), the first four 0, 1,
+    r - 1, 2^256 - 1 and a zero digit in every third of the random ones
+    (tools/fixed_base_tiles.scalars), against fixed_base_mul_plain, every
+    projective word, and every point but the zero scalar's identity after
+    proj_to_affine_dev; 64 against host G1Affine.mul.  At each size its ms
+    (CUDA events, the wrapper included), kernel-only ms (torch.profiler), the
+    parent design's ms in turns when `parent` (another checkout's package,
+    tools/parent.py) is given, the bound (32 n adds of 11 products: every
+    table row but O is affine) and its share, and the 12-product figure of
+    a complete add beside it; at 2^log_n the former loop's (32 gathers and
+    proj_add launches) and the plain loop's.  Then Srs.new_from_secret of
+    2^log_n points once each with the kernel, the former loop, the plain
+    loop and the parent's kernel (the SRSs equal), and three times in turns
+    with the parent's, each split where the multiply ends
+    (fixed_base_tiles.srs_turns)."""
     from zktpu_torch.curves import g1, g1_kernel
     from zktpu_torch.curves.host_curve import G1Affine
-    from zktpu_torch.fields.fp import ints_to_limbs, limbs_to_ints
-    from zktpu_torch.fields.host import FR
+    from zktpu_torch.fields.fp import limbs_to_ints
     from zktpu_torch.kzg import Srs
+    from zktpu_torch.tools.fixed_base_tiles import bound_ms, scalars, srs_turns, zero_digits
+    from zktpu_torch.tools.trace import launch_device_ms
 
-    n = 1 << log_n
-    words = _random_words(8, n, SEED)
-    words[:4] = ints_to_limbs([0, 1, FR.modulus - 1, (1 << 256) - 1], 8).view(np.uint32)
-    sc = torch.from_numpy(words.view(np.int32)).to(device)
     G = G1Affine.generator()
     tables = g1.fixed_base_tables(G, 8, device)
-    got = g1_kernel.fixed_base_mul(tables, sc, 8)
-    want, plain_ms = _timed_once(lambda: g1_kernel.fixed_base_mul_plain(tables, sc, 8))
-    err = _compare("fixed_base_mul", got, want)
-    _compare("fixed_base_mul affine", g1.proj_to_affine_dev(tuple(t[1:] for t in got)),
-             g1.proj_to_affine_dev(tuple(t[1:] for t in want)))
-    del want
-    ints = limbs_to_ints(words[:64].view(np.int32))
-    assert g1.proj_to_affine_host(tuple(t[:64] for t in got)) == [G.mul(k) for k in ints], \
-        "fixed_base_mul differs from host scalar multiplication"
-    ms = _cuda_ms(lambda: g1_kernel.fixed_base_mul(tables, sc, 8), 10)
-    former_ms = _cuda_ms(lambda: g1_kernel.fixed_base_mul_plain(tables, sc, 8, g1_kernel.proj_add), 3)
-    table_bytes = sum(t.numel() * 4 for t in tables)
-    _record(results, "fixed_base_mul", n, err, ms, plain_ms, n * 32 + table_bytes + 3 * n * 48,
-            32 * 12 * n * _mont_words(12))
-    print(f"phase 2: fixed_base_mul n={n}: every projective word and every affine point (but the identity) == "
-          f"fixed_base_mul_plain, 64 == host G1Affine.mul; the former loop (32 gathers and proj_add "
-          f"launches) {former_ms:.4f} ms", flush=True)
+    for n in ((1 << srs_log_n) + 3, 1 << log_n):
+        sc = scalars(n, SEED + n, device)
+        got = g1_kernel.fixed_base_mul(tables, sc, 8)
+        want, plain_ms = _timed_once(lambda: g1_kernel.fixed_base_mul_plain(tables, sc, 8))
+        err = _compare("fixed_base_mul", got, want)
+        _compare("fixed_base_mul affine", g1.proj_to_affine_dev(tuple(t[1:] for t in got)),
+                 g1.proj_to_affine_dev(tuple(t[1:] for t in want)))
+        del want
+        ints = limbs_to_ints(sc[:64].cpu().numpy())
+        assert g1.proj_to_affine_host(tuple(t[:64] for t in got)) == [G.mul(k) for k in ints], \
+            "fixed_base_mul differs from host scalar multiplication"
+        calls = {"kernel": lambda: g1_kernel.fixed_base_mul(tables, sc, 8)}
+        if parent is not None:
+            calls["parent"] = lambda: parent.curves.g1_kernel.fixed_base_mul(tables, sc, 8)
+            assert all(torch.equal(x, y) for x, y in zip(calls["parent"](), got)), "the parent design differs"
+        turns = {k: [] for k in calls}
+        for order in (list(calls), list(calls)[::-1]):  # in turns, then back
+            for k in order:
+                turns[k].append(_cuda_ms(calls[k], 3 if n > 1 << 16 else 20))
+        ms = {k: sum(v) / len(v) for k, v in turns.items()}
+        kernel_ms = sum(launch_device_ms(calls["kernel"], "fixed_base_kernel", reps=2)) or None
+        parent_txt = f"parent design {ms['parent']:.4f} ms in turns ({turns['parent']} against {turns['kernel']})" \
+            if parent is not None else "parent design not measured (no --parent)"
+        print(f"phase 2: fixed_base_mul n={n}: every projective word and every affine point (but the identity) == "
+              f"fixed_base_mul_plain, 64 == host G1Affine.mul; kernel_ms={ms['kernel']:.4f} kernel only "
+              f"{_only(kernel_ms, bound_ms(n))} (profiler); {parent_txt}; plain {plain_ms:.4f} ms; bound "
+              f"{bound_ms(n):.5f} ms (32 n adds of 11 products; of 12, a complete add's: {bound_ms(n, 12):.5f} "
+              f"ms); {zero_digits(sc)} zero digits", flush=True)
+        if n == 1 << log_n:
+            former_ms = _cuda_ms(lambda: g1_kernel.fixed_base_mul_plain(tables, sc, 8, g1_kernel.proj_add), 3)
+            table_bytes = sum(t.numel() * 4 for t in tables)
+            _record(results, "fixed_base_mul", n, err, ms["kernel"], plain_ms, n * 32 + table_bytes + 3 * n * 48,
+                    32 * 11 * n * _mont_words(12))
+            results["fixed_base_mul"]["kernel_only_ms"] = kernel_ms
+            print(f"phase 2: fixed_base_mul n={n}: the former loop (32 gathers and proj_add launches) "
+                  f"{former_ms:.4f} ms", flush=True)
+        del got
+        torch.cuda.empty_cache()
 
+    n = 1 << log_n
     loops = {"kernel": None,
              "former loop": functools.partial(g1_kernel.fixed_base_mul_plain, add=g1_kernel.proj_add),
              "plain loop": g1_kernel.fixed_base_mul_plain}
+    if parent is not None:
+        loops["parent kernel"] = lambda t, s, w: parent.curves.g1_kernel.fixed_base_mul(t, s, w)
     secs, planes = {}, {}
     saved = g1.fixed_base_mul_u32
     try:
         for name, loop in loops.items():
-            if loop is not None:
-                g1.fixed_base_mul_u32 = lambda base, s, window=8, loop=loop: loop(
-                    g1.fixed_base_tables(base, window, s.device), s, window)
+            g1.fixed_base_mul_u32 = saved if loop is None else (lambda base, s, window=8, loop=loop: loop(
+                g1.fixed_base_tables(base, window, s.device), s, window))
             Srs.new_from_secret(SRS_SECRET, 1 << 12, device=device)  # warm
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1729,10 +1819,15 @@ def phase_fixed_base(device, results: dict, log_n: int = 20) -> None:
             planes[name] = srs.g1_proj
     finally:
         g1.fixed_base_mul_u32 = saved
-    for name in ("former loop", "plain loop"):
-        _compare(f"Srs.new with the {name}", planes["kernel"], planes[name])
-    print(f"phase 2: Srs.new_from_secret({n - 3}) ({n} points) seconds: "
-          f"{json.dumps({k: round(v, 4) for k, v in secs.items()})}; the three SRSs equal word for word", flush=True)
+    for name in loops:
+        if name != "kernel":
+            _compare(f"Srs.new with the {name}", planes["kernel"], planes[name])
+    print(f"phase 2: Srs.new_from_secret({n - 3}) ({n} points) seconds, one call each: "
+          f"{json.dumps({k: round(v, 4) for k, v in secs.items()})}; the SRSs equal word for word", flush=True)
+    turns = srs_turns(parent, log_n, 3, device)
+    print(f"phase 2: Srs.new_from_secret({n - 3}) in turns with the parent's, seconds (total: as a caller sees "
+          f"it; then a call split where the multiply ends: to_multiply, and after, the host's G2 multiplication): "
+          f"{json.dumps(turns)}", flush=True)
 
 
 def _fr_rows(shape, seed: int, device) -> torch.Tensor:
@@ -2162,6 +2257,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fri-log-n", type=int, default=20, help="log2 of the FRI path's domain (blowup 2)")
     ap.add_argument("--nova-log-m", type=int, default=14, help="log2 of the Nova path's R1CS constraints")
     ap.add_argument("--nova-steps", type=int, default=64, help="IVC steps of the Nova path")
+    ap.add_argument("--parent", default=None,
+                    help="another checkout (a git archive unpacked) whose fixed-base multiply and field scans phase 2 "
+                         "times in turns with this one's")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2205,15 +2303,29 @@ def main(argv=None) -> int:
     assert all(a["local_bytes"] == 0 for a in attrs.values()), f"a kernel spills: {attrs}"
     print(f"phase 1: matvec_fr design: {attrs['matvec_fr']['rows']} rows and {attrs['matvec_fr']['threads']} "
           f"threads a block", flush=True)
+    fb = g1_kernel.fixed_base_design()
+    print(f"phase 1: fixed_base_mul design: {fb['threads']} threads a block, launch bound {fb['min_blocks']} blocks a "
+          f"SM; field_scan design: {cuda_lib.load().zk_field_scan_threads()} threads a block, a grid of at most "
+          f"{field_kernel.SCAN_GRID} blocks before chunks grow, chunks of at most {field_kernel.SCAN_CHUNK_MAX} rows",
+          flush=True)
+    parent = None
+    if args.parent:
+        from zktpu_torch.tools.parent import load_parent
+
+        t0 = time.perf_counter()
+        parent = load_parent(args.parent)
+        parent.cuda_lib.build()
+        print(f"phase 1: the parent design's library built from {args.parent} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
     phase_chain_sass()
     phase_ntt_gl_sass(args.fri_log_n)
 
     kernels = phase_kernels(device)
     phase_small_path_shapes(device, kernels)
     phase_ntt_horner(device, kernels, ntt_sizes=((args.log_n + 3, 7), (20, 1), (1, 3), (8, 3)))
-    phase_field_ops(device, kernels, args.log_n, args.msm_log_n)
+    phase_field_ops(device, kernels, args.log_n, args.msm_log_n, parent)
     phase_fri_kernels(device, kernels, args.fri_log_n)
-    phase_fixed_base(device, kernels, args.msm_log_n)
+    phase_fixed_base(device, kernels, args.msm_log_n, args.log_n, parent)
     torch.cuda.empty_cache()
     phase_small_proof(device)
     plonk, plonk_ctx = phase_plonk(device, args.log_n)

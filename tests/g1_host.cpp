@@ -1,14 +1,12 @@
 // Host build of the CUDA kernels' per-element code, for the CPU tests
 // (tests/test_torch_csrc_host.py): field.cuh and g1.cuh compile as C++ with
 // the PTX carry chains emulated, and these loops run what each CUDA thread
-// runs (the Horner combine's warps with their shuffles emulated, below).
+// runs (the Horner combine's warps as fibers, warp_host.h).
 // Not part of the port.
-#include <ucontext.h>
-
-#include <functional>
 #include <vector>
 
 #include "../zktpu_torch/csrc/g1.cuh"
+#include "warp_host.h"
 
 template <int N>
 static Planes<N> planes_of(const int64_t* desc) {
@@ -42,19 +40,36 @@ extern "C" void host_proj_double(const uint32_t* p, uint32_t pinv, const int64_t
   for (int64_t i = 0; i < n; ++i) proj_double_at(pl, (uint32_t)(i / inner), (uint32_t)(i % inner), f);
 }
 
-// ptrs = X, Y, Z of the table, the scalars, X, Y, Z of the result (zk_fixed_base_mul's).
-extern "C" void host_fixed_base_mul(const uint32_t* p, uint32_t pinv, const int64_t* ptrs, int64_t n, int window) {
+// ptrs = X, Y of the table, the scalars, X, Y, Z of the result
+// (zk_fixed_base_mul's).  Each block runs as the kernel runs it: between two
+// of its barriers every thread's step in turn, in a buffer laid out as its
+// shared memory (the copy of window w + 1 lands before the adds of window
+// w, into the other buffer, as cp.async may).
+extern "C" int host_fixed_base_mul(const uint32_t* p, uint32_t pinv, const int64_t* ptrs, int64_t n, int window) {
+  if (window < 1 || window > (int)FB_MAX_WINDOW || 32 % window) return -1;
   FixedBaseArgs a;
-  for (int k = 0; k < 3; ++k) {
-    a.table[k] = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[k]));
-    a.out[k] = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(ptrs[4 + k]));
-  }
-  a.scalars = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[3]));
+  for (int k = 0; k < 2; ++k) a.table[k] = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[k]));
+  a.scalars = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[2]));
+  for (int k = 0; k < 3; ++k) a.out[k] = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(ptrs[3 + k]));
   a.n = (uint32_t)n;
   a.window = (uint32_t)window;
   a.windows = 256u / (uint32_t)window;
   const FqConsts f = make_consts<FQ_LIMBS>(p, pinv);
-  for (int64_t i = 0; i < n; ++i) fixed_base_at(a, (uint32_t)i, f);
+  std::vector<uint32_t> smem(fb_shared_words(a.window));
+  const FbShared s = fb_shared(smem.data(), a.window);
+  for (uint32_t block = 0; block * FB_THREADS < a.n; ++block) {
+    for (uint32_t t = 0; t < FB_THREADS; ++t) fb_stage(a, s, 0, 0, t);
+    for (uint32_t t = 0; t < FB_THREADS; ++t) fb_begin(a, s, block * FB_THREADS + t, t);
+    for (uint32_t w = 0; w < a.windows; ++w) {
+      if (w + 1 < a.windows)
+        for (uint32_t t = 0; t < FB_THREADS; ++t) fb_stage(a, s, w + 1, (w + 1) & 1, t);
+      for (uint32_t t = 0; t < FB_THREADS; ++t)
+        if (block * FB_THREADS + t < a.n) fb_add(a, s, w, w & 1, t, f);
+    }
+    for (uint32_t t = 0; t < FB_THREADS; ++t)
+      if (block * FB_THREADS + t < a.n) fb_end(a, s, block * FB_THREADS + t, t);
+  }
+  return 0;
 }
 
 // The canonical product (kernel 1's body, lazy = 0) or the lazy product
@@ -79,82 +94,6 @@ extern "C" int host_mont_mul(int limbs, const uint32_t* p, uint32_t pinv, const 
     case 12: mul_rows<12>(p, pinv, a, b, out, n, lazy); return 0;
     default: return -1;
   }
-}
-
-// A warp as the card runs it, for the Horner combine: its 32 lanes are
-// fibers (ucontext) on this thread, each run in turn from one shuffle to the
-// next, so every phase between two shuffles runs for every lane before any
-// lane reads what the shuffle exchanges.  warp_shfl deposits the lane's value
-// in a mailbox (two, used in turns, so a fast lane's next deposit never
-// overwrites a value a slow lane has still to read) and yields; on its next
-// turn the lane reads lane src's deposit.  Every lane must run as many
-// shuffles: run() returns -1 if they do not.
-namespace {
-
-struct Warp {
-  static constexpr size_t STACK = 256 << 10;
-  ucontext_t sched, ctx[32];
-  std::vector<char> stacks = std::vector<char>(32 * STACK);
-  uint32_t box[2][32];
-  int turn[32] = {}, shuffles[32] = {}, lane = 0;
-  bool done[32] = {};
-  std::function<void(uint32_t)> body;
-
-  int run() {
-    for (int l = 0; l < 32; ++l) {
-      getcontext(&ctx[l]);
-      ctx[l].uc_stack.ss_sp = stacks.data() + l * STACK;
-      ctx[l].uc_stack.ss_size = STACK;
-      ctx[l].uc_link = &sched;
-      makecontext(&ctx[l], lane_main, 0);
-    }
-    for (bool any = true; any;) {
-      any = false;
-      for (int l = 0; l < 32; ++l)
-        if (!done[l]) {
-          lane = l;
-          swapcontext(&sched, &ctx[l]);
-          any = true;
-        }
-    }
-    for (int l = 1; l < 32; ++l)
-      if (shuffles[l] != shuffles[0]) return -1;
-    return 0;
-  }
-
-  static void lane_main();
-};
-
-thread_local Warp* the_warp = nullptr;
-
-void Warp::lane_main() {
-  Warp& w = *the_warp;
-  const int l = w.lane;
-  w.body((uint32_t)l);
-  w.done[l] = true;
-}
-
-// Runs body(lane) for the 32 lanes of one warp.
-int run_warp(std::function<void(uint32_t)> body) {
-  Warp w;
-  w.body = std::move(body);
-  Warp* outer = the_warp;
-  the_warp = &w;
-  const int rc = w.run();
-  the_warp = outer;
-  return rc;
-}
-
-}  // namespace
-
-uint32_t warp_shfl(uint32_t v, uint32_t src) {
-  Warp& w = *the_warp;
-  const int l = w.lane, t = w.turn[l];
-  w.box[t][l] = v;
-  ++w.shuffles[l];
-  swapcontext(&w.ctx[l], &w.sched);
-  w.turn[l] ^= 1;
-  return w.box[t][src & 31];
 }
 
 // The Horner combine as the kernel runs it: one warp a point, one after

@@ -1,7 +1,7 @@
 """Write the goldens that the port's CPU tests compare against, from zktpu.
 
     JAX_PLATFORMS=cpu python tests/goldens/make_goldens.py [field_ops] [fri] [fri_cases] [mont_mma] [nova] [matvec]
-        [kzg_vector] [parser] [mont_mul_words] [plonk] [compat] [dist]
+        [kzg_vector] [parser] [mont_mul_words] [plonk] [compat] [dist] [g1]
 
 - field_ops.npz: zktpu's DeviceField (cumprod and cumsum both ways, sum on
   axis 0 and 1, powers, batch_inv, add, sub, neg, double) on the inputs of
@@ -59,7 +59,12 @@
   for k = 2 .. 129, the sharded MSM of 64 of them at c = 4, dist_fri_layer's
   evaluations, levels and root at a 2^12 Goldilocks domain, the three wire
   commitments at n = 2^7 (tests/test_dist.py: 2^8) and the blinded ones at
-  n = 2^6.
+  n = 2^6;
+- g1.npz: zktpu's G1 group law on tests/test_torch_g1.py's points PTS1 and
+  PTS2: host_points_to_device of both, and _proj_add_jnp of the pair and
+  _proj_double_jnp of PTS1 (the complete formulas' edge lanes: identity
+  operands, P + P, P + (-P), identity + identity), as the port's (N, 12)
+  int32 limbs.
 
 Run once; the tests need neither JAX nor zktpu for these comparisons.  Not
 collected by pytest.
@@ -623,9 +628,29 @@ def dist() -> None:
     np.savez_compressed(os.path.join(HERE, "dist.npz"), **arrays)
 
 
+def g1() -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import test_torch_g1 as t
+    from zktpu.curves import g1 as zg1
+    from zktpu.curves.host_curve import G1Affine
+    from zktpu_torch.convert import digits_to_limbs
+
+    def ours(pts):  # the test's points are the port's host points: zktpu's, by coordinates
+        return [G1Affine.identity() if p.infinity else G1Affine(p.x, p.y) for p in pts]
+
+    P, Q = zg1.host_points_to_device(ours(t.PTS1)), zg1.host_points_to_device(ours(t.PTS2))
+    arrays = {}
+    for name, triple in (("P", P), ("Q", Q), ("add", zg1._proj_add_jnp(zg1.FQD, P, Q)),
+                         ("double", zg1._proj_double_jnp(zg1.FQD, P))):
+        arrays.update({f"{name}/{k}": digits_to_limbs(np.asarray(a)) for k, a in zip("XYZ", triple)})
+    np.savez_compressed(os.path.join(HERE, "g1.npz"), **arrays)
+
+
 TARGETS = {"field_ops": field_ops, "fri": fri, "fri_cases": fri_cases, "mont_mma": mont_mma, "nova": nova,
            "matvec": matvec, "kzg_vector": kzg_vector, "parser": parser, "mont_mul_words": mont_mul_words,
-           "plonk": plonk, "compat": compat, "dist": dist}
+           "plonk": plonk, "compat": compat, "dist": dist, "g1": g1}
 
 if __name__ == "__main__":
     for name in sys.argv[1:] or list(TARGETS):

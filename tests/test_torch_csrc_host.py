@@ -49,7 +49,7 @@ FQT = field(FQ, "cpu")
 def _build_path(shim: str, name: str, flags=()) -> str:
     """Where the host build of `shim` with g++ `flags` lives, named by content."""
     h = hashlib.sha256(" ".join(flags).encode())
-    for path in (shim, *(os.path.join(cuda_lib.CSRC_DIR, n) for n in cuda_lib.HEADERS)):
+    for path in (shim, os.path.join(HERE, "warp_host.h"), *(os.path.join(cuda_lib.CSRC_DIR, n) for n in cuda_lib.HEADERS)):
         with open(path, "rb") as f:
             h.update(f.read())
     return os.path.join(cuda_lib.BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
@@ -87,9 +87,14 @@ def _build(shim: str, name: str, flags=()) -> ctypes.CDLL:
 P_ = ctypes.c_void_p
 
 
+# The fixed-base kernel's blocks of 64 threads here, not the library's 192,
+# so that the tests' 128 and 130 scalars take two and three blocks.
+FB_FLAGS = ("-DZK_FB_THREADS=64",)
+
+
 @pytest.fixture(scope="module")
 def lib():
-    so = _build(SHIM, "g1_host")
+    so = _build(SHIM, "g1_host", FB_FLAGS)
     P = ctypes.c_void_p
     for name in ("host_proj_add", "host_proj_madd", "host_proj_double"):
         getattr(so, name).argtypes = [P, ctypes.c_uint32, P, ctypes.c_int64, ctypes.c_int64]
@@ -97,6 +102,7 @@ def lib():
     so.host_horner_combine.argtypes = [P, ctypes.c_uint32, P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
     so.host_horner_mul_chain.argtypes = [P, ctypes.c_uint32, P, ctypes.c_int64]
     so.host_fixed_base_mul.argtypes = [P, ctypes.c_uint32, P, ctypes.c_int64, ctypes.c_int]
+    so.host_fixed_base_mul.restype = ctypes.c_int
     return so
 
 
@@ -265,28 +271,77 @@ def test_host_horner_mul_chain_matches_plain(horner_libs, design):
         assert torch.equal(out, mont_mul_chain_plain(FQ, a, b, 3)), (x, y)
 
 
+def _host_fixed_base(lib, tables, sc, window):
+    """The fixed-base kernel's block walk on the CPU (tests/g1_host.cpp)."""
+    out = tuple(torch.zeros((sc.shape[0], 12), dtype=torch.int32) for _ in range(3))
+    ptrs = np.array([t.data_ptr() for t in (*tables[:2], sc, *out)], dtype=np.int64)
+    p, pinv = cuda_lib.field_consts(FQ)
+    assert lib.host_fixed_base_mul(p.ctypes.data, pinv, ptrs.ctypes.data, sc.shape[0], window) == 0
+    return out
+
+
 @pytest.mark.parametrize("window", [4, 8])
 def test_host_fixed_base_mul_matches_plain(lib, window):
-    """The fixed-base kernel's per-thread walk (accumulator in registers, a
-    table row read per window) on G's table, against the plain loop word
-    for word and, for a few scalars, against host curve arithmetic: the
-    scalars 0, 1, r - 1 and 2^256 - 1 (every digit the table's last) among
-    random ones."""
+    """The fixed-base kernel's block walk (FB_FLAGS: 64 threads a block in
+    step, each window's X and Y rows staged in a buffer laid out as its
+    shared memory, the accumulators there too, Z2 put in by the digit) on
+    G's table, against the plain loop word for word and, for a few scalars,
+    against host curve arithmetic: 130 scalars (three blocks, the last with
+    two), 0, 1, r - 1 and 2^256 - 1 (every digit the table's last), scalars
+    with zero digits among random ones."""
     from zktpu_torch.curves import g1
     from zktpu_torch.curves.host_curve import G1Affine
 
     rng = np.random.default_rng(20 + window)
     G = G1Affine.generator()
-    ints = [0, 1, FR.modulus - 1, (1 << 256) - 1] + [int.from_bytes(rng.bytes(32), "little") for _ in range(12)]
+    edges = [0, 1, FR.modulus - 1, (1 << 256) - 1, 2**200 + 3, 0xDEADBEEF << 96]
+    rand = [int.from_bytes(rng.bytes(32), "little") for _ in range(124)]
+    rand[::3] = [v & ~(0xFF << (8 * int(rng.integers(32)))) for v in rand[::3]]  # a digit of 0
+    ints = edges + rand
     sc = g1.scalars_to_u32(ints, device="cpu")
     tables = g1.fixed_base_tables(G, window, torch.device("cpu"))
-    out = tuple(torch.zeros((len(ints), 12), dtype=torch.int32) for _ in range(3))
-    ptrs = np.array([t.data_ptr() for t in (*tables, sc, *out)], dtype=np.int64)
-    p, pinv = cuda_lib.field_consts(FQ)
-    lib.host_fixed_base_mul(p.ctypes.data, pinv, ptrs.ctypes.data, len(ints), window)
+    out = _host_fixed_base(lib, tables, sc, window)
     for got, want in zip(out, g1_kernel.fixed_base_mul_plain(tables, sc, window)):
         assert torch.equal(got, want)
-    assert g1.proj_to_affine_host(tuple(t[:5] for t in out)) == [G.mul(k) for k in ints[:5]]
+    assert g1.proj_to_affine_host(tuple(t[:6] for t in out)) == [G.mul(k) for k in ints[:6]]
+
+
+def test_host_fixed_base_mul_matches_zktpu_golden(lib):
+    """The block walk at window 8 (two blocks of 64 threads) against zktpu's
+    own words for [k] G, k = 2 .. 129 (tests/goldens/dist.npz, points/X|Y|Z):
+    nearly every digit of these scalars is 0, so nearly every add is of O,
+    with Z2 = 0."""
+    from zktpu_torch.curves import g1
+    from zktpu_torch.curves.host_curve import G1Affine
+
+    golden = np.load(os.path.join(HERE, "goldens", "dist.npz"))
+    sc = g1.scalars_to_u32(range(2, 130), device="cpu")
+    out = _host_fixed_base(lib, g1.fixed_base_tables(G1Affine.generator(), 8, torch.device("cpu")), sc, 8)
+    for got, k in zip(out, "XYZ"):
+        np.testing.assert_array_equal(got.numpy(), golden[f"points/{k}"])
+
+
+def test_host_mixed_add_and_identity_add_match_complete_add(lib):
+    """The identities of the fixed-base table, word for word on arbitrary
+    field elements with 0, 1 and p - 1 among them: the mixed add of (x2, y2)
+    equals the complete add of (x2, y2, 1) (the table's rows past 0, which
+    the kernel adds with Z2 = 1), and the complete add of O = (0 : 1 : 0)
+    (row 0, Z2 = 0) equals (X Y, Y^2, Y Z)."""
+    rng = np.random.default_rng(19)
+    n = 37
+    P1 = tuple(FQT.encode_ints(_elements(rng, FQ, n)) for _ in range(3))
+    A2 = tuple(FQT.encode_ints(_elements(rng, FQ, n)) for _ in range(2))
+    A2[1][A2[0].eq(0).all(-1) & A2[1].eq(0).all(-1)] = FQT.one  # no (0, 0): that is the mixed add's identity
+    one = FQT.one.expand(n, 12).contiguous()
+    madd = _host_op(lib, "proj_madd", (*P1, *A2), (n,))
+    add = _host_op(lib, "proj_add", (*P1, *A2, one), (n,))
+    for g, w, v in zip(madd, add, proj_add_plain(P1, (*A2, one))):
+        assert torch.equal(g, w) and torch.equal(g, v)
+    zero = torch.zeros((n, 12), dtype=torch.int32)
+    add = _host_op(lib, "proj_add", (*P1, zero, one, zero), (n,))
+    X, Y, Z = P1
+    for g, v in zip(add, (mont_mul_plain(FQ, X, Y), mont_mul_plain(FQ, Y, Y), mont_mul_plain(FQ, Y, Z))):
+        assert torch.equal(g, v)
 
 
 # Small tiles.  Fr: 2^4 elements, at least 2 columns, 4 threads a block, so
@@ -438,26 +493,37 @@ def test_host_fri_fold_matches_plain(n):
 
 
 # Kernels A and B (csrc/field_ops.cuh) through the port's own wrappers: the
-# host build takes the library's arguments, so field_kernel's pass logic runs
-# unchanged.  Two warps a block and small sizes make small inputs take
-# several tiles and the three-pass scan; the library's 256 threads once.
+# host build takes the library's arguments, so field_kernel's launch logic
+# (chunk, tiles, the status buffer's tickets and epochs) runs unchanged.  Two
+# warps a block and one row a thread make small inputs take many tiles (35
+# at 2200 rows: the look-back crosses a window of 32); two warps and chunks
+# of up to 6 rows take two load batches a thread, the second partial, and
+# scans of up to 256 rows one tile; the library's 256 threads once.
 SCAN_SHIM = os.path.join(HERE, "scan_host.cpp")
 SCAN_DESIGNS = {
-    "two_warps_multi_pass": (("-DZK_SCAN_THREADS=64",), {"SCAN_CHUNK": 2, "ONE_BLOCK_MAX_MUL": 96,
-                                                          "ONE_BLOCK_MAX_ADD": 64, "POWERS_CHUNK": 3}),
+    "two_warps_many_tiles": (("-DZK_SCAN_THREADS=64",), {"SCAN_GRID": 1 << 30, "SCAN_ONE_TILE": 0, "POWERS_CHUNK": 3}),
+    "two_warps_long_chunks": (("-DZK_SCAN_THREADS=64",), {"SCAN_GRID": 1, "SCAN_CHUNK_MAX": 6}),
     "library_threads": ((), {}),
 }
+# The host build's block schedules: whole blocks in ticket order (every
+# look-back meets an inclusive prefix at once), and every aggregate first:
+# phases 1-3 of every block, then all the look-backs at once, from the last
+# ticket, each publishing its aggregate before any reads it (the look-backs
+# combine aggregates back to tile 0).
+SCHEDULES = {"ticket_order": 0, "aggregates_first": 1}
 
 
 @pytest.fixture(scope="module", params=sorted(SCAN_DESIGNS))
 def scan_lib(request):
     flags, sizes = SCAN_DESIGNS[request.param]
     so = _build(SCAN_SHIM, "scan_host", flags)
-    for name in ("zk_field_scan", "zk_field_scan_threads", "zk_field_powers", "zk_field_batch_inv",
-                 "zk_field_addsub"):
+    for name in ("zk_field_scan", "zk_field_scan_threads", "zk_field_scan_status_words", "zk_field_powers",
+                 "zk_field_batch_inv", "zk_field_addsub"):
         fn = getattr(so, name)
         fn.argtypes = cuda_lib._SIGNATURES[name]
         fn.restype = ctypes.c_int
+    so.host_scan_schedule.argtypes = [ctypes.c_int]
+    so.host_scan_schedule.restype = None
     saved = {k: getattr(field_kernel, k) for k in sizes}
     for k, v in sizes.items():
         setattr(field_kernel, k, v)
@@ -474,54 +540,86 @@ def _field_rows(spec, n, seed, nonzero=False):
     return field(spec, "cpu").encode_ints(vals)
 
 
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
 @pytest.mark.parametrize("spec", [FR, FQ], ids=lambda s: s.name)
 @pytest.mark.parametrize("op", [field_kernel.OP_MUL, field_kernel.OP_ADD], ids=["cumprod", "cumsum"])
-def test_host_field_scan_matches_plain(scan_lib, spec, op):
-    """Forward and reverse scans of n = 1, 2, 3, 17, 64 and 300 rows (one
-    block up to one 128-row tile or the one-block limit, and three passes
-    over several tiles), one column and three
-    columns, along axis 0 and along the middle axis of (3, n, L)."""
-    design, so = scan_lib
+def test_host_field_scan_matches_plain(scan_lib, spec, op, schedule):
+    """Forward and reverse scans of n = 1, 2, 3, 17, 64, 65 and 300 rows
+    (one tile, a tile's edge, several tiles), one column and three columns,
+    along axis 0 and along the middle axis of (3, n, L); and one column of
+    2200 rows (35 tiles of 64 rows in the many-tiles design, 6 and 18 in the
+    others).  Each is one launch."""
+    _, so = scan_lib
+    so.host_scan_schedule(SCHEDULES[schedule])
     f = field(spec, "cpu")
-    for n in (1, 2, 3, 17, 64, 300):
+    for n in (1, 2, 3, 17, 64, 65, 300):
         x = _field_rows(spec, 3 * n, n).reshape(n, 3, -1)
         for a, axis in ((x[:, 0], 0), (x, 0), (x.permute(1, 0, 2).contiguous(), 1)):
             for reverse in (False, True):
                 got, k = field_kernel.scan_kernel(so, f, a, op, axis, reverse)
-                assert torch.equal(got, field_kernel.scan_plain(f, a, op, axis, reverse)), (n, axis, reverse)
-                if design == "two_warps_multi_pass":
-                    assert k == (1 if n <= (96 if op == field_kernel.OP_MUL else 128) else 3)
+                assert k == 1 and torch.equal(got, field_kernel.scan_plain(f, a, op, axis, reverse)), (n, axis, reverse)
+    a = _field_rows(spec, 2200, 2200)
+    for reverse in (False, True):
+        got, k = field_kernel.scan_kernel(so, f, a, op, 0, reverse)
+        assert k == 1 and torch.equal(got, field_kernel.scan_plain(f, a, op, 0, reverse)), reverse
 
 
 @pytest.mark.parametrize("spec", [FR, FQ], ids=lambda s: s.name)
 def test_host_field_sum_powers_batch_inv_match_plain(scan_lib, spec):
-    """The sum on axis 0 and 1 (one and two passes), powers (several rows a
-    thread, a count that is not a multiple of them), batch_inv (the forward
-    and the reverse scan in the same passes, the shifted reads at both ends)."""
+    """In both schedules: the sum on axis 0 and 1 (one launch; the last tile
+    writes the column's total), powers (several rows a thread, a count that
+    is not a multiple of them), batch_inv (the forward and the reverse scan
+    in one launch, the shifted reads at both ends; two launches)."""
     design, so = scan_lib
     f = field(spec, "cpu")
-    for n in (1, 3, 64, 200):
-        x = _field_rows(spec, 4 * n, 100 + n).reshape(4, n, -1)
-        for axis in (0, 1):
-            got, k = field_kernel.sum_kernel(so, f, x, axis)
-            assert torch.equal(got, field_kernel.sum_plain(f, x, axis)), (n, axis)
-        got, k = field_kernel.sum_kernel(so, f, x[0], 0)
-        assert torch.equal(got, field_kernel.sum_plain(f, x[0], 0))
-        if design == "two_warps_multi_pass":
-            assert k == (1 if n <= 128 else 2)
+    for schedule in SCHEDULES.values():
+        so.host_scan_schedule(schedule)
+        for n in (1, 3, 64, 200):
+            x = _field_rows(spec, 4 * n, 100 + n).reshape(4, n, -1)
+            for axis in (0, 1):
+                got, k = field_kernel.sum_kernel(so, f, x, axis)
+                assert k == 1 and torch.equal(got, field_kernel.sum_plain(f, x, axis)), (n, axis)
+            got, k = field_kernel.sum_kernel(so, f, x[0], 0)
+            assert k == 1 and torch.equal(got, field_kernel.sum_plain(f, x[0], 0))
+        for n in (1, 2, 17, 300):
+            a = _field_rows(spec, n, 200 + n, nonzero=True)
+            got, k = field_kernel.batch_inv_kernel(so, f, a, spec.inv)
+            assert k == 2 and torch.equal(got, field_kernel.batch_inv_plain(f, a, spec.inv)), n
     for count in (1, 2, 3, 17, 300):
         for z in (0, 1, 5, spec.modulus - 1):
             got, k = field_kernel.powers_kernel(so, f, z, count)
             assert k == 1 and torch.equal(got, field_kernel.powers_plain(f, z, count)), (count, z)
-    for n in (1, 2, 17, 300):
-        a = _field_rows(spec, n, 200 + n, nonzero=True)
-        got, k = field_kernel.batch_inv_kernel(so, f, a, spec.inv)
-        assert torch.equal(got, field_kernel.batch_inv_plain(f, a, spec.inv)), n
-        if design == "two_warps_multi_pass":
-            assert k == (2 if n <= 96 else 4)
     a = _field_rows(spec, 2 * 17, 7, nonzero=True).reshape(2, 17, -1)
     assert torch.equal(field_kernel.batch_inv_kernel(so, f, a, spec.inv)[0],
                        field_kernel.batch_inv_plain(f, a, spec.inv))
+
+
+@pytest.mark.parametrize("spec", [FR, FQ], ids=lambda s: s.name)
+def test_host_field_scans_match_zktpu_golden(scan_lib, spec):
+    """The host build, aggregates first (every look-back walks aggregates),
+    on tests/test_torch_field_ops.py's inputs against zktpu's words in
+    tests/goldens/field_ops.npz: cumprod and cumsum both ways, the sum on
+    axis 0 and 1 and batch_inv at n = 1, 2, 3, 17 and 64."""
+    from test_torch_field_ops import GOLDEN, SIZES, _inputs
+
+    _, so = scan_lib
+    so.host_scan_schedule(SCHEDULES["aggregates_first"])
+    f = field(spec, "cpu")
+    with np.load(GOLDEN) as g:
+        zk = {k.split("/", 1)[1]: g[k] for k in g.files if k.startswith(spec.name + "/")}
+    for n in SIZES:
+        a = f.encode_ints(_inputs(spec, n)[0]).reshape(n, 3, -1)
+        for reverse in (False, True):
+            way = "rev" if reverse else "fwd"
+            for op, name in ((field_kernel.OP_MUL, "cumprod"), (field_kernel.OP_ADD, "cumsum")):
+                np.testing.assert_array_equal(field_kernel.scan_kernel(so, f, a, op, 0, reverse)[0].numpy(),
+                                              zk[f"{name}_{way}_{n}"])
+        np.testing.assert_array_equal(field_kernel.sum_kernel(so, f, a, 0)[0].numpy(), zk[f"sum0_{n}"])
+        np.testing.assert_array_equal(field_kernel.sum_kernel(so, f, a.transpose(0, 1).contiguous(), 1)[0].numpy(),
+                                      zk[f"sum1_{n}"])
+        inv_in = f.encode_ints(_inputs(spec, n)[1]).reshape(3, n, -1)
+        np.testing.assert_array_equal(field_kernel.batch_inv_kernel(so, f, inv_in, spec.inv)[0].numpy(),
+                                      zk[f"batch_inv_{n}"])
 
 
 @pytest.mark.parametrize("spec", [FR, FQ, GOLDILOCKS], ids=lambda s: s.name)

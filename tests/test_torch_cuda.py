@@ -306,9 +306,8 @@ def test_pythagorean_proof_tensor_paths_gpu_equals_cpu(device):
 @pytest.mark.parametrize("n", [1, 3, 17, 4096, 4097, 1 << 14, (1 << 15) + 1])
 def test_field_scan_kernel_matches_plain(device, spec, n):
     """cumprod and cumsum forward and reverse, the sum on axis 0 and 1, powers
-    and batch_inv against their plain versions: one block (products up to
-    ONE_BLOCK_MAX_MUL rows, adds up to ONE_BLOCK_MAX_ADD) and three passes;
-    launches counted; 0 spills."""
+    and batch_inv against their plain versions, from one tile to many: one
+    launch a scan and a sum, two a batch inversion, counted; 0 spills."""
     from zktpu_torch.fields import field_kernel as fk
     from zktpu_torch.fields.fp import field
 
@@ -321,17 +320,18 @@ def test_field_scan_kernel_matches_plain(device, spec, n):
         for reverse in (False, True):
             before = fk.launches["field_scan"][spec.name]
             got = fk.scan(f, x, op, 0, reverse)
-            one_block = fk.ONE_BLOCK_MAX_MUL if op == fk.OP_MUL else fk.ONE_BLOCK_MAX_ADD
-            assert fk.launches["field_scan"][spec.name] == before + (1 if n <= one_block else 3)
+            assert fk.launches["field_scan"][spec.name] == before + 1
             assert torch.equal(got, fk.scan_plain(f, x, op, 0, reverse)), (op, reverse)
     for axis, a in ((0, x), (1, x.transpose(0, 1))):
+        before = fk.launches["field_scan"][spec.name]
         assert torch.equal(f.sum(a, axis=axis), fk.sum_plain(f, a, axis)), axis
+        assert fk.launches["field_scan"][spec.name] == before + 1
     assert torch.equal(f.powers(p - 1, n), fk.powers_plain(f, p - 1, n))
     assert torch.equal(f.powers(5, n), fk.powers_plain(f, 5, n))
     nz = f.encode_ints(vals[3 : 3 + n])
     before = fk.launches["field_scan"][spec.name]
     got = f.batch_inv(nz, host_inv=spec.inv)
-    assert fk.launches["field_scan"][spec.name] == before + (2 if n <= fk.ONE_BLOCK_MAX_MUL else 4)
+    assert fk.launches["field_scan"][spec.name] == before + 2
     assert torch.equal(got, fk.batch_inv_plain(f, nz, spec.inv))
     assert f.decode_ints(got[:4]) == [pow(v, -1, p) for v in vals[3:7]][: min(4, n)]
     assert fk.kernel_attrs("field_scan")["local_bytes"] == 0

@@ -2,57 +2,60 @@
 
 The plain proj_add / proj_double (the CPU side of kernels 2 and 3) are held
 word for word against zktpu's jnp group law on the complete-formula edge
-lanes: identity operands, P + P, P + (-P) and identity + identity.
+lanes: identity operands, P + P, P + (-P) and identity + identity.  zktpu's
+words are a committed golden (tests/goldens/g1.npz, written once by
+tests/goldens/make_goldens.py g1), so no JAX graph compiles here.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from zktpu.curves import g1 as zg1
-from zktpu.curves.host_curve import G1Affine
-from zktpu.fields import host
-from zktpu_torch.convert import digits_to_limbs, limbs_to_digits
 from zktpu_torch.curves import g1
 from zktpu_torch.curves.g1_kernel import proj_add, proj_add_plain, proj_double
+from zktpu_torch.curves.host_curve import G1Affine
+from zktpu_torch.fields.host import FR
 
 torch.set_num_threads(1)  # the suite runs one process per core: intra-op threads would oversubscribe it
 
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens", "g1.npz")
 G = G1Affine.generator()
 PTS1 = [G.mul(k) for k in (1, 2, 3, 7, 1)] + [G1Affine.identity()]
-PTS2 = [G1Affine.identity(), G.mul(5), G.mul(3), G.mul(host.FR_MODULUS - 7), G.mul(11), G1Affine.identity()]
-
-
-def _to_torch(P):
-    return tuple(torch.from_numpy(digits_to_limbs(np.asarray(a))) for a in P)
+PTS2 = [G1Affine.identity(), G.mul(5), G.mul(3), G.mul(FR.modulus - 7), G.mul(11), G1Affine.identity()]
 
 
 def _assert_words_equal(got, want):
     for a, b in zip(got, want):
-        np.testing.assert_array_equal(limbs_to_digits(a.numpy()), np.asarray(b))
+        np.testing.assert_array_equal(a.numpy(), b)
 
 
 @pytest.fixture(scope="module")
 def zktpu_points():
-    return zg1.host_points_to_device(PTS1), zg1.host_points_to_device(PTS2)
+    """zktpu's words (tests/goldens/g1.npz): {"P", "Q", "add", "double"} -> (X, Y, Z) as (6, 12) limbs."""
+    with np.load(GOLDEN) as z:
+        return {name: tuple(z[f"{name}/{k}"] for k in "XYZ") for name in ("P", "Q", "add", "double")}
+
+
+def _torch(triple):
+    return tuple(torch.from_numpy(a) for a in triple)
 
 
 def test_proj_add_matches_zktpu_words(zktpu_points):
-    P, Q = zktpu_points
-    got = proj_add(_to_torch(P), _to_torch(Q))
-    _assert_words_equal(got, zg1._proj_add_jnp(zg1.FQD, P, Q))
+    got = proj_add(_torch(zktpu_points["P"]), _torch(zktpu_points["Q"]))
+    _assert_words_equal(got, zktpu_points["add"])
     assert g1.proj_to_affine_host(got) == [a + b for a, b in zip(PTS1, PTS2)]
 
 
 def test_proj_double_matches_zktpu_words(zktpu_points):
-    P, _ = zktpu_points
-    got = proj_double(_to_torch(P))
-    _assert_words_equal(got, zg1._proj_double_jnp(zg1.FQD, P))
+    got = proj_double(_torch(zktpu_points["P"]))
+    _assert_words_equal(got, zktpu_points["double"])
     assert g1.proj_to_affine_host(got) == [p + p for p in PTS1]
 
 
 def test_host_points_to_device_matches_zktpu(zktpu_points):
-    P, _ = zktpu_points
-    _assert_words_equal(g1.host_points_to_device(PTS1, device="cpu"), P)
+    _assert_words_equal(g1.host_points_to_device(PTS1, device="cpu"), zktpu_points["P"])
+    _assert_words_equal(g1.host_points_to_device(PTS2, device="cpu"), zktpu_points["Q"])
     assert g1.proj_to_affine_host(g1.host_points_to_device(PTS1, device="cpu")) == PTS1
 
 
@@ -73,7 +76,7 @@ def test_proj_tree_sum_and_broadcast():
 
 
 def test_fixed_base_mul_matches_host():
-    r = host.FR_MODULUS
+    r = FR.modulus
     scalars = [0, 1, 5, r - 1, 2**200 + 3, 0xDEADBEEF << 96, (1 << 255) % r]
     got = g1.proj_to_affine_host(g1.fixed_base_mul_u32(G, g1.scalars_to_u32(scalars, device="cpu")))
     assert got == [G.mul(s) for s in scalars]

@@ -409,3 +409,24 @@ inline FieldConsts<L> make_consts(const uint32_t* p_host, uint32_t pinv) {
   f.pinv = pinv;
   return f;
 }
+
+// ---------------------------------------------------------------------------
+// Exchanges between the lanes of a warp, for the kernels whose lanes share
+// values (the Horner combine in g1.cuh, the scans' look-back in
+// field_ops.cuh): the intrinsics on the card, all 32 lanes taking part; in
+// a host build, functions of the test shim (tests/warp_host.h), which runs
+// a warp's lanes as fibers, each from one exchange to the next.
+// ---------------------------------------------------------------------------
+#if defined(__CUDA_ARCH__)
+ZK_FN uint32_t warp_shfl(uint32_t v, uint32_t src) { return __shfl_sync(0xffffffffu, v, src); }
+ZK_FN uint32_t warp_ballot(bool pred) { return __ballot_sync(0xffffffffu, pred); }
+ZK_FN uint32_t warp_shfl_down(uint32_t v, uint32_t d, uint32_t) { return __shfl_down_sync(0xffffffffu, v, d); }
+ZK_FN uint32_t lowest_lane(uint32_t mask) { return __ffs(mask) - 1; }  // mask != 0
+#else
+uint32_t warp_shfl(uint32_t v, uint32_t src);  // lane src's v (mod 32)
+uint32_t warp_ballot(bool pred);               // bit l set where lane l's pred is
+inline uint32_t warp_shfl_down(uint32_t v, uint32_t d, uint32_t lane) {  // lane + d's v, or its own past lane 31
+  return warp_shfl(v, lane + d < 32 ? lane + d : lane);
+}
+inline uint32_t lowest_lane(uint32_t mask) { return (uint32_t)__builtin_ctz(mask); }
+#endif

@@ -13,19 +13,26 @@
 // What bounds them on the H100.  A scan of n rows does about 2n products (or
 // adds): its bound is those products' 32-bit multiply-adds over the card's
 // integer rate, a few microseconds at 2^14 rows.  What holds it back is
-// latency: every product in a scan depends on the one before.  The design
-// (field_ops.cuh): each thread walks a chunk of C consecutive rows in
-// registers, the warps scan their threads' totals by __shfl_up_sync (one
-// shuffle per limb per step), warp 0 scans the warp totals from shared
-// memory, and each thread walks its chunk again to write; a dependent chain
-// of about 2C + 12 products.  One block per column covers n <= T C rows
-// (one launch); longer scans are reduce-then-scan in three launches, with
-// the forward and the reverse scan of batch_inv in the same launches
-// (blockIdx.z).  Rows are read and written as 16-byte words.  powers builds
-// each thread's first power from a table of z^(2^j) in the kernel's
-// parameters, so it is one launch with no input.  Kernel B is bound by its
-// bytes (two operands in, one out): one thread a row, 16-byte loads and
-// stores, operands broadcast by a modulo on the row index.
+// latency: every product in a scan depends on the one before, and a scan
+// that fits one wave of blocks waits on its longest chain.  The design
+// (field_ops.cuh): one launch at every n, a single-pass scan with decoupled
+// look-back, its tiles small enough that the grid spreads over the SMs; each
+// thread loads a few rows (SCAN_LOADS at a time, before their products),
+// the warps scan their threads' totals by __shfl_up_sync (one shuffle per
+// limb per step), warp 0 scans the warp totals from shared memory and looks
+// back over the earlier tiles' published aggregates and inclusive prefixes,
+// 32 at a time (one a lane, combined by __shfl_down_sync), and each thread
+// walks its rows again to write; a dependent chain of about 2C + 18
+// products and the look-back's windows.  A scan of at most SCAN_ONE_TILE rows a
+// thread takes one tile a lane, where a block's chain is shorter than a
+// look-back.  The forward and the reverse scan
+// of batch_inv share the launch, and the sum is the same launch with the
+// last tile's inclusive prefix written in place of the rows.  Rows are read
+// and written as 16-byte words.  powers builds each thread's first power
+// from a table of z^(2^j) in the kernel's parameters, so it is one launch
+// with no input.  Kernel B is bound by its bytes (two operands in, one
+// out): one thread a row, 16-byte loads and stores, operands broadcast by
+// a modulo on the row index.
 //
 // Plain C interface, loaded with ctypes; each entry point returns
 // cudaGetLastError() after its launch, or -1 for an unsupported width.
@@ -35,17 +42,26 @@
 
 #include "field_ops.cuh"
 
+constexpr uint32_t FULL_MASK = 0xffffffffu;
+
 template <int L>
 __device__ __forceinline__ void shfl_up(uint32_t* dst, const uint32_t* src, uint32_t d) {
 #pragma unroll
-  for (int j = 0; j < L; ++j) dst[j] = __shfl_up_sync(0xffffffffu, src[j], d);
+  for (int j = 0; j < L; ++j) dst[j] = __shfl_up_sync(FULL_MASK, src[j], d);
 }
 
 template <int L, int OP>
 __global__ void __launch_bounds__(SCAN_THREADS) field_scan_kernel(ScanArgs a, ScanConsts<L> c) {
   __shared__ uint32_t s_warp[SCAN_WARPS * L];
+  __shared__ int64_t s_id;
   const uint32_t t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const ScanBlock b = scan_block(a, blockIdx.x, blockIdx.y, blockIdx.z);
+  int64_t id = blockIdx.x;  // one tile a lane: no ticket
+  if (a.tiles > 1) {
+    if (t == 0) s_id = (int64_t)(atomicAdd(a.status.ticket, 1ull) - a.ticket_base);
+    __syncthreads();
+    id = s_id;
+  }
+  const ScanBlock b = scan_block(a, id);
   uint32_t v[L], x[L];
   scan_chunk_total<L, OP>(a, c, b, t, v);  // 1
 #pragma unroll 1
@@ -57,22 +73,27 @@ __global__ void __launch_bounds__(SCAN_THREADS) field_scan_kernel(ScanArgs a, Sc
   if (lane == 31) copy_limbs<L>(s_warp + warp * L, v);  // 3
   __syncthreads();
   if (warp == 0) {  // 4
-    uint32_t w[L], y[L];
+    uint32_t w[L], y[L], agg[L], pre[L];
     scan_warp0_load<L>(c, lane, s_warp, w);
 #pragma unroll 1
     for (uint32_t d = 1; d < 32; d <<= 1) {
       shfl_up<L>(y, w, d);
       scan_lane_step<L, OP>(w, y, lane >= d, c.f);
     }
-    if (a.mode == SCAN_MODE_REDUCE) {
-      if (lane == SCAN_WARPS - 1) store_elem<L>(scan_total_slot<L>(a, b), w);
+    shfl_up<L>(y, w, 1);
+    shfl_from_limbs<L>(agg, w, SCAN_WARPS - 1);
+    scan_look_back<L, OP>(a, c, b, lane, agg, pre);
+    if (a.mode == SCAN_MODE_SUM) {
+      if (lane == 0) {
+        scan_op<L, OP>(w, pre, agg, c.f);
+        scan_write_total<L>(a, b, w);
+      }
     } else {
-      shfl_up<L>(y, w, 1);
-      scan_warp_prefix<L, OP>(a, c, b, lane, y, w);
+      scan_warp_prefix<L, OP>(c, b, lane, pre, y, w);
       if (lane < SCAN_WARPS) copy_limbs<L>(s_warp + lane * L, w);
     }
   }
-  if (a.mode == SCAN_MODE_REDUCE) return;
+  if (a.mode == SCAN_MODE_SUM) return;
   __syncthreads();
   uint32_t pre[L];
   copy_limbs<L>(pre, s_warp + warp * L);
@@ -110,33 +131,39 @@ static ScanConsts<L> scan_consts(const uint32_t* p, uint32_t pinv, const uint32_
 
 template <int L>
 static int launch_scan(const uint32_t* p, uint32_t pinv, const uint32_t* ident, int op, const ScanArgs& a,
-                       int64_t tiles, cudaStream_t s) {
-  const dim3 grid((unsigned)tiles, (unsigned)a.B, (unsigned)scan_dirs_count(a.dirs));
+                       int64_t blocks, cudaStream_t s) {
   const ScanConsts<L> c = scan_consts<L>(p, pinv, ident);
   if (op == SCAN_OP_MUL) {
-    field_scan_kernel<L, SCAN_OP_MUL><<<grid, SCAN_THREADS, 0, s>>>(a, c);
+    field_scan_kernel<L, SCAN_OP_MUL><<<(unsigned)blocks, SCAN_THREADS, 0, s>>>(a, c);
   } else {
-    field_scan_kernel<L, SCAN_OP_ADD><<<grid, SCAN_THREADS, 0, s>>>(a, c);
+    field_scan_kernel<L, SCAN_OP_ADD><<<(unsigned)blocks, SCAN_THREADS, 0, s>>>(a, c);
   }
   return (int)cudaGetLastError();
 }
 
 static bool aligned16(const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) == 0; }
 
-// One pass of kernel A over an (n, B) grid: `mode` 0 scans (writing out_fwd
-// and/or out_rev, and starting tile k from carry[k - 1] when carry is not
-// null), 1 reduces each tile to totals[tile, z, column].  The grid is
-// (ceil(n / (threads chunk)), B, directions).  ident: the op's identity
-// (host).  Pointers of 8- and 12-limb rows must be 16-byte aligned.
+// One launch of kernel A over an (n, B) grid: `mode` 0 scans (writing
+// out_fwd and/or out_rev), 1 sums each column into total (B, L).  The grid
+// is tiles x directions x B blocks of SCAN_THREADS threads, tiles =
+// ceil(n / (threads chunk)).  status: a buffer of at least
+// zk_field_scan_status_words(tiles x directions x B) words, the ticket at
+// ticket_base (the blocks of every earlier launch on it of more than one
+// tile a lane, which alone take tickets) and no flag of epoch (1 <= epoch <
+// 2^30) in it.  ident: the op's identity (host).
+// Pointers of 8- and 12-limb rows must be 16-byte aligned.
 extern "C" int zk_field_scan(int device, int limbs, const uint32_t* p, uint32_t pinv, const uint32_t* ident, int op,
                              int mode, const void* in, int64_t in_rs, int64_t in_cs, int64_t n, int64_t B,
                              int64_t chunk, int dirs, void* out_fwd, void* out_rev, int64_t out_rs, int64_t out_cs,
-                             void* totals, const void* carry, void* stream) {
-  if (n < 1 || B < 1 || B > 65535 || chunk < 1 || dirs < 1 || dirs > 3) return -1;
+                             void* total, void* status, int64_t status_slots, uint64_t ticket_base, uint32_t epoch,
+                             void* stream) {
+  if (n < 1 || B < 1 || chunk < 1 || dirs < 1 || dirs > 3 || epoch < 1 || epoch >= (1u << 30)) return -1;
+  if (mode == SCAN_MODE_SUM ? total == nullptr || dirs != SCAN_FORWARD : mode != SCAN_MODE_SCAN) return -1;
   const int64_t tiles = (n + SCAN_THREADS * chunk - 1) / (SCAN_THREADS * chunk);
-  if (tiles > 0x7fffffff) return -1;
+  const int64_t blocks = tiles * scan_dirs_count(dirs) * B;
+  if (blocks > 0x7fffffff || blocks > status_slots || (reinterpret_cast<uintptr_t>(status) & 15)) return -1;
   if (limbs % 4 == 0) {
-    for (const void* q : {in, (const void*)out_fwd, (const void*)out_rev, (const void*)totals, carry})
+    for (const void* q : {in, (const void*)out_fwd, (const void*)out_rev, (const void*)total})
       if (!aligned16(q)) return -1;
   }
   cudaError_t e = cudaSetDevice(device);
@@ -149,21 +176,24 @@ extern "C" int zk_field_scan(int device, int limbs, const uint32_t* p, uint32_t 
   a.out_rev = static_cast<uint32_t*>(out_rev);
   a.out_rs = out_rs;
   a.out_cs = out_cs;
-  a.totals = static_cast<uint32_t*>(totals);
-  a.carry = static_cast<const uint32_t*>(carry);
+  a.total = static_cast<uint32_t*>(total);
+  a.status = scan_status(static_cast<uint32_t*>(status), status_slots);
+  a.ticket_base = ticket_base;
   a.n = n;
   a.B = B;
   a.chunk = chunk;
+  a.tiles = tiles;
+  a.epoch = epoch;
   a.dirs = dirs;
   a.mode = mode;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (limbs) {
     case 2:
-      return launch_scan<2>(p, pinv, ident, op, a, tiles, s);
+      return launch_scan<2>(p, pinv, ident, op, a, blocks, s);
     case 8:
-      return launch_scan<8>(p, pinv, ident, op, a, tiles, s);
+      return launch_scan<8>(p, pinv, ident, op, a, blocks, s);
     case 12:
-      return launch_scan<12>(p, pinv, ident, op, a, tiles, s);
+      return launch_scan<12>(p, pinv, ident, op, a, blocks, s);
     default:
       return -1;
   }
@@ -171,6 +201,12 @@ extern "C" int zk_field_scan(int device, int limbs, const uint32_t* p, uint32_t 
 
 // The threads of a block of field_scan_kernel (the wrapper sizes its tiles with it).
 extern "C" int zk_field_scan_threads() { return (int)SCAN_THREADS; }
+
+// out = the words of a status buffer of `slots` slots.
+extern "C" int zk_field_scan_status_words(int64_t slots, int64_t* out) {
+  *out = scan_status_words(slots);
+  return 0;
+}
 
 template <int L>
 static int launch_powers(const uint32_t* p, uint32_t pinv, const uint32_t* one, const uint32_t* table, void* out,

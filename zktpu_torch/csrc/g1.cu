@@ -28,7 +28,8 @@
 // The double (kernel 3) keeps canonical helpers and one block per SM.
 // The Horner combine runs the MSM's chain of doubles and adds in one launch,
 // one warp a point with lane-parallel products, and the fixed-base kernel an
-// SRS's scalar multiplications.
+// SRS's scalar multiplications, complete adds from a table staged in shared
+// memory.
 #include <cuda_runtime.h>
 
 #include "g1.cuh"
@@ -113,18 +114,43 @@ horner_mul_chain_kernel(const uint32_t* a, const uint32_t* b, uint32_t* out, uin
 // Replaces the fori_loop of zktpu/curves/g1.py:300-320 (fixed_base_mul_u32:
 // per window a gather of the table rows and one proj_add, pallas_g1.py:125),
 // which the port ran as 32 gathers and 32 proj_add launches over (N, 12)
-// planes, each add reading and writing 9 planes of device memory.  Here one
-// thread walks its scalar's windows with the accumulator in registers
-// (g1.cuh fixed_base_at) and writes its point once.  What bounds it: the
-// 32-bit multiply-adds of its 32 complete adds a point, as for the add.
-// The accumulator (36 words) stays live across each add beside the add's
-// own values, so the launch bound asks for only 2 blocks of 128 threads per
-// SM (up to 255 registers a thread).
-__global__ void __launch_bounds__(THREADS, 2)
+// planes.  What bounds it: the 32-bit multiply-adds of its 32 complete adds
+// a point.  What the design does about it (g1.cuh, "The fixed-base window
+// multiply"): each window's X and Y rows are staged in shared memory by
+// cp.async while the block adds the window before, so an add waits on no
+// load from device memory; the accumulators live in shared memory too, so
+// an add keeps only its temporaries in registers and the launch bound fits
+// ZK_FB_MIN_BLOCKS = 2 blocks of ZK_FB_THREADS = 192 threads a SM, 12 warps
+// (168 registers, 81 KB of shared memory a block at window 8; the carveout
+// is set to its largest so that both fit); every digit runs the same
+// straight-line add, Z2 chosen by a select and Z1 Z2 taken by one (11
+// products).  tools/fixed_base_tiles.py
+// builds copies of this file at other block sizes and budgets to time them.
+#ifndef ZK_FB_MIN_BLOCKS
+#define ZK_FB_MIN_BLOCKS 2
+#endif
+
+ZK_FN void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
+ZK_FN void cp_async_wait_all_but_one() { asm volatile("cp.async.wait_group 1;"); }
+
+__global__ void __launch_bounds__(FB_THREADS, ZK_FB_MIN_BLOCKS)
 fixed_base_kernel(FixedBaseArgs a, FqConsts f) {
-  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  fixed_base_at(a, i, f);
+  extern __shared__ __align__(16) uint32_t smem[];
+  const FbShared s = fb_shared(smem, a.window);
+  const uint32_t t = threadIdx.x, i = blockIdx.x * FB_THREADS + t;
+  fb_stage(a, s, 0, 0, t);
+  cp_async_commit();
+  fb_begin(a, s, i, t);
+#pragma unroll 1
+  for (uint32_t w = 0; w < a.windows; ++w) {
+    if (w + 1 < a.windows) fb_stage(a, s, w + 1, (w + 1) & 1, t);
+    cp_async_commit();  // empty after the last window: the wait below stays the same
+    cp_async_wait_all_but_one();  // this thread's copies of window w have landed
+    __syncthreads();              // and every thread's
+    if (i < a.n) fb_add(a, s, w, w & 1, t, f);
+    __syncthreads();  // buffer w & 1 is free for window w + 2
+  }
+  if (i < a.n) fb_end(a, s, i, t);
 }
 
 static const void* const KERNELS[] = {
@@ -209,32 +235,47 @@ extern "C" int zk_horner_design(int* out) {
   return 0;
 }
 
-// [s_i] B for n scalars: ptrs = X, Y, Z of the (windows, 2^window, 12)
-// table, the (n, 8) scalars, then X, Y, Z of the (n, 12) result, all
-// contiguous and 16-byte aligned; window divides 32.  Returns
-// cudaGetLastError() after the launch, or -1 for a bad size.
+// [s_i] B for n scalars: ptrs = X, Y of the (windows, 2^window, 12) table
+// (row 0 of each window O, the others affine), the (n, 8) scalars, then X,
+// Y, Z of the (n, 12) result, all contiguous and 16-byte aligned; window
+// divides 32 and is at most 8.  Returns cudaGetLastError() after the
+// launch, or -1 for a bad size.
 extern "C" int zk_fixed_base_mul(int device, const uint32_t* p, uint32_t pinv, const int64_t* ptrs, int64_t n,
                                  int window, void* stream) {
-  if (n < 1 || n >= (int64_t(1) << 31) || window < 1 || window > 16 || 32 % window) return -1;
+  if (n < 1 || n >= (int64_t(1) << 31) || window < 1 || window > (int)FB_MAX_WINDOW || 32 % window) return -1;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   FixedBaseArgs a;
-  for (int k = 0; k < 3; ++k) {
-    a.table[k] = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[k]));
-    a.out[k] = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(ptrs[4 + k]));
-  }
-  a.scalars = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[3]));
+  for (int k = 0; k < 2; ++k) a.table[k] = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[k]));
+  a.scalars = reinterpret_cast<const uint32_t*>(static_cast<uintptr_t>(ptrs[2]));
+  for (int k = 0; k < 3; ++k) a.out[k] = reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(ptrs[3 + k]));
   a.n = (uint32_t)n;
   a.window = (uint32_t)window;
   a.windows = 256u / (uint32_t)window;
+  const int smem = (int)(fb_shared_words(a.window) * sizeof(uint32_t));
+  e = cudaFuncSetAttribute(fixed_base_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fixed_base_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
   FqConsts f = make_consts<FQ_LIMBS>(p, pinv);
-  fixed_base_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, f);
+  fixed_base_kernel<<<(unsigned)((n + FB_THREADS - 1) / FB_THREADS), FB_THREADS, smem,
+                      static_cast<cudaStream_t>(stream)>>>(a, f);
   return (int)cudaGetLastError();
 }
 
-// Registers per thread, local memory (spills) and static shared memory of
-// one kernel: kind 0 add, 1 mixed add, 2 double, 3 Horner combine, 4 the
-// fixed-base multiply.  out = {registers, local bytes, shared bytes}.
+// The fixed-base kernel's design as built: out = {threads a block, minimum
+// blocks a SM of its launch bound}.
+extern "C" int zk_fixed_base_design(int* out) {
+  out[0] = (int)FB_THREADS;
+  out[1] = ZK_FB_MIN_BLOCKS;
+  return 0;
+}
+
+// Registers per thread, local memory (spills) and shared memory of one
+// kernel: kind 0 add, 1 mixed add, 2 double, 3 Horner combine, 4 the
+// fixed-base multiply (its dynamic shared memory at window 8 included).
+// out = {registers, local bytes, shared bytes}.
 extern "C" int zk_g1_kernel_attrs(int kind, int* out) {
   if (kind < 0 || kind > 4) return -1;
   cudaFuncAttributes a;
@@ -242,6 +283,6 @@ extern "C" int zk_g1_kernel_attrs(int kind, int* out) {
   if (e != cudaSuccess) return (int)e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
+  out[2] = (int)a.sharedSizeBytes + (kind == 4 ? (int)(fb_shared_words(8) * sizeof(uint32_t)) : 0);
   return 0;
 }

@@ -24,6 +24,13 @@
 #include "field.cuh"
 
 constexpr int FQ_LIMBS = 12;
+
+// Host and device: the launcher sizes its shared memory with these.
+#if defined(__CUDACC__)
+#define ZK_HD __host__ __device__ __forceinline__
+#else
+#define ZK_HD inline
+#endif
 using FqConsts = FieldConsts<FQ_LIMBS>;
 
 // One coordinate plane of a batch of points: row (o, j) of the flattened
@@ -84,18 +91,19 @@ ZK_FN void fq_mul(uint32_t* out, const uint32_t* a, const uint32_t* b, const FqC
   mont_mul_lazy<FQ_LIMBS>(out, a, b, f);
 }
 
-// Where the first operand and the result of an add live.  MemRows: rows of
-// device memory, read again at each use (the group-law kernels).  RegRows:
-// registers, the fixed-base multiply's accumulator; there the result may
-// overwrite P1, since the add reads P1 only before its first store.
+// Where an operand or a result of an add lives.  MemRows: rows of device
+// memory, read again at each use (the group-law kernels).  SharedRows:
+// rows of shared memory, the fixed-base multiply's staged table and its
+// accumulators.  The result may overwrite P1: the add reads P1 only before
+// its first store.
 struct MemRows {
   ZK_FN static void load(uint32_t* dst, const uint32_t* src) { load_row(dst, src); }
   ZK_FN static void store(uint32_t* dst, const uint32_t* src) { store_row(dst, src); }
 };
 
-struct RegRows {
-  ZK_FN static void load(uint32_t* dst, const uint32_t* src) { copy_limbs<FQ_LIMBS>(dst, src); }
-  ZK_FN static void store(uint32_t* dst, const uint32_t* src) { copy_limbs<FQ_LIMBS>(dst, src); }
+struct SharedRows {
+  ZK_FN static void load(uint32_t* dst, const uint32_t* src) { load_elem<FQ_LIMBS>(dst, src); }
+  ZK_FN static void store(uint32_t* dst, const uint32_t* src) { store_elem<FQ_LIMBS>(dst, src); }
 };
 
 // The three outputs of both adds,
@@ -133,42 +141,50 @@ ZK_FN void finish_adds(uint32_t* x3, uint32_t* y3, uint32_t* z3, uint32_t* t0, u
   Rows::store(z3, zc);
 }
 
-// RCB Alg. 7: (x3, y3, z3) = (x1, y1, z1) + (x2, y2, z2), P2 in device
-// memory, P1 and the result where Rows says.  The order (t0, t2, t5, t1, t4,
-// t3) lets each sum of inputs be formed from fresh loads and each t be
-// finished as soon as its two products exist.
-template <class Rows = MemRows>
+// RCB Alg. 7: (x3, y3, z3) = (x1, y1, z1) + (x2, y2, z2); P1 and the
+// result where Rows1 says, P2 where Rows2 says.
+// The order (t0, t2, t5, t1, t4, t3) lets each sum of inputs be formed
+// from fresh loads and each t be finished as soon as its two products
+// exist.  UNIT_Z2: z2 is 0 or the Montgomery one, so Z1 Z2 (Z1 or 0) is a
+// select and the add takes 11 products, the same field values.
+template <class Rows1 = MemRows, class Rows2 = MemRows, bool UNIT_Z2 = false>
 ZK_FN void proj_add_point(uint32_t* x3, uint32_t* y3, uint32_t* z3, const uint32_t* x1,
                           const uint32_t* y1, const uint32_t* z1, const uint32_t* x2,
                           const uint32_t* y2, const uint32_t* z2, const FqConsts& f) {
   constexpr int L = FQ_LIMBS;
   const uint32_t* p2 = f.p2;
   uint32_t t0[L], t1[L], t2[L], t3[L], t4[L], t5[L], a[L], b[L], c[L];
-  Rows::load(a, x1);
-  load_row(b, x2);
+  Rows1::load(a, x1);
+  Rows2::load(b, x2);
   fq_mul(t0, a, b, f);            // t0 = X1 X2
-  Rows::load(c, z1);
+  Rows1::load(c, z1);
   add_nr<L>(a, a, c);             // X1 + Z1 < 2p
-  load_row(t2, z2);
+  Rows2::load(t2, z2);
   add_nr<L>(b, b, t2);            // X2 + Z2 < 2p
-  fq_mul(t2, c, t2, f);           // t2 = Z1 Z2
+  if constexpr (UNIT_Z2) {        // Z2 is 0 or the Montgomery one: t2 = Z1 Z2 = 0 or Z1, a select
+    const uint32_t keep = is_zero<L>(t2) ? 0u : 0xffffffffu;
+#pragma unroll
+    for (int k = 0; k < L; ++k) t2[k] = c[k] & keep;
+  } else {
+    fq_mul(t2, c, t2, f);         // t2 = Z1 Z2
+  }
   fq_mul(t5, a, b, f);
   add_red<L>(a, t0, t2, p2);      // t5 = X1 Z2 + X2 Z1
   sub_red<L>(t5, t5, a, p2);
-  Rows::load(a, y1);
-  load_row(b, y2);
+  Rows1::load(a, y1);
+  Rows2::load(b, y2);
   fq_mul(t1, a, b, f);            // t1 = Y1 Y2
   add_nr<L>(a, a, c);             // Y1 + Z1 < 2p
-  load_row(c, z2);
+  Rows2::load(c, z2);
   add_nr<L>(b, b, c);             // Y2 + Z2 < 2p
   fq_mul(t4, a, b, f);
   add_red<L>(a, t1, t2, p2);      // t4 = Y1 Z2 + Y2 Z1
   sub_red<L>(t4, t4, a, p2);
-  Rows::load(a, x1);
-  Rows::load(c, y1);
+  Rows1::load(a, x1);
+  Rows1::load(c, y1);
   add_nr<L>(a, a, c);             // X1 + Y1 < 2p
-  load_row(b, x2);
-  load_row(c, y2);
+  Rows2::load(b, x2);
+  Rows2::load(c, y2);
   add_nr<L>(b, b, c);             // X2 + Y2 < 2p
   fq_mul(t3, a, b, f);
   add_red<L>(a, t0, t1, p2);      // t3 = X1 Y2 + X2 Y1
@@ -179,7 +195,7 @@ ZK_FN void proj_add_point(uint32_t* x3, uint32_t* y3, uint32_t* z3, const uint32
   add_red<L>(c, t1, t2, p2);      // c = Zc = Y1 Y2 + 3b Z1 Z2
   sub_red<L>(t1, t1, t2, p2);     // t1 = Y1 Y2 - 3b Z1 Z2
   fq_mul12_lazy(t5, t5, f);       // t5 = 3b (X1 Z2 + X2 Z1)
-  finish_adds<Rows>(x3, y3, z3, t0, t1, t3, t4, t5, c, false, x1, y1, z1, f);
+  finish_adds<Rows1>(x3, y3, z3, t0, t1, t3, t4, t5, c, false, x1, y1, z1, f);
 }
 
 // RCB Alg. 8 on rows of device memory: projective P1 plus affine (x2, y2)
@@ -288,41 +304,121 @@ ZK_FN void proj_double_at(const Planes<6>& pl, uint32_t o, uint32_t j, const FqC
 
 // ---------------------------------------------------------------------------
 // The fixed-base window multiply: [s] B for each 256-bit scalar s over
-// `windows` windows of `window` bits (window divides 32), with the table
-// T[w][j] = j 2^(window w) B precomputed (T[w][0] = O):
+// `windows` windows of `window` bits (window divides 32, at most 8), with
+// the table T[w][j] = j 2^(window w) B precomputed:
 //     acc = O;  acc += T[w][digit_w(s)]  for w = 0 .. windows - 1,
 // complete adds (Alg. 7) in the order of zktpu/curves/g1.py's fori_loop, so
-// the output words are the plain loop's.  One thread per scalar: the
-// accumulator stays in registers (RegRows), the table rows are read from
-// device memory (L2: the table is 1.2 MB at window 8) and the result is
-// written once.
+// the output words are the plain loop's.  Row 0 of each window is O = (0 :
+// 1 : 0) and every other row is affine (Z = 1: the table is built from
+// affine points), so the add takes the row's X and Y and, in place of its
+// Z, the Montgomery one or 0 by a select on the digit: the same operands,
+// and no read of the table's Z plane.  With Z2 one or 0, Z1 Z2 is Z1 or 0,
+// a select, so the add is 11 products.  Every digit takes the same
+// straight-line add: a branch for a digit of 0 (O added as (X Y, Y^2, Y Z),
+// 3 products, beside mixed adds of 11 for the others) made the loop slower
+// on the H100 than the parent's complete adds (PERF.md, row 7).
+//
+// A block of FB_THREADS threads walks the windows in step, one scalar a
+// thread.  Its dynamic shared memory (fb_shared_words) holds two staged
+// windows, each the 2^window rows of T's X plane then of its Y plane, each
+// thread's accumulator (X, Y, Z planes of FB_THREADS rows) and its scalar
+// (8 planes of FB_THREADS words).  While the block adds window w from one
+// buffer, cp.async copies window w + 1 into the other, so no add waits on
+// device memory, and an add keeps only its own temporaries in registers.
+// The per-thread steps below are what the kernel (csrc/g1.cu) runs between
+// its barriers, and what tests/g1_host.cpp runs thread by thread.
 // ---------------------------------------------------------------------------
+#ifndef ZK_FB_THREADS
+#define ZK_FB_THREADS 192
+#endif
+constexpr uint32_t FB_THREADS = ZK_FB_THREADS;
+constexpr uint32_t FB_MAX_WINDOW = 8;
+static_assert(FB_THREADS % 32 == 0, "whole warps a block");
+
 struct FixedBaseArgs {
-  const uint32_t* table[3];  // X, Y, Z of T: contiguous (windows, 2^window, 12)
+  const uint32_t* table[2];  // X, Y of T: contiguous (windows, 2^window, 12)
   const uint32_t* scalars;   // (n, 8) little-endian 32-bit limbs, contiguous
   uint32_t* out[3];          // X, Y, Z of the result: contiguous (n, 12)
   uint32_t n, window, windows;
 };
 
-ZK_FN void fixed_base_at(const FixedBaseArgs& a, uint32_t i, const FqConsts& f) {
-  uint32_t x[FQ_LIMBS], y[FQ_LIMBS], z[FQ_LIMBS];
-  load_row(x, a.table[0]);  // T[0][0] = O = (0 : 1 : 0)
-  load_row(y, a.table[1]);
-  load_row(z, a.table[2]);
-  const uint32_t* s = a.scalars + (uint64_t)i * 8;
-  const uint32_t mask = (1u << a.window) - 1, row0 = 1u << a.window;
+// Words of a block's dynamic shared memory at `window`.
+ZK_HD uint32_t fb_shared_words(uint32_t window) {
+  return 2 * 2 * (1u << window) * FQ_LIMBS + 3 * FB_THREADS * FQ_LIMBS + 8 * FB_THREADS;
+}
+
+struct FbShared {
+  uint32_t* stage;       // buffer b at stage + b stage_words: X rows, then Y rows
+  uint32_t stage_words;
+  uint32_t* acc;         // coordinate k of thread t's accumulator at (k FB_THREADS + t) 12
+  uint32_t* scalar;      // word k of thread t's scalar at k FB_THREADS + t
+};
+
+ZK_FN FbShared fb_shared(uint32_t* smem, uint32_t window) {
+  const uint32_t stage = 2 * (1u << window) * FQ_LIMBS;
+  return FbShared{smem, stage, smem + 2 * stage, smem + 2 * stage + 3 * FB_THREADS * FQ_LIMBS};
+}
+
+ZK_FN uint32_t* fb_acc(const FbShared& s, uint32_t k, uint32_t t) { return s.acc + (k * FB_THREADS + t) * FQ_LIMBS; }
+
+// 16 bytes from device memory into shared memory, asynchronously (cp.async
+// on the card; the host test copies at once).
+ZK_FN void fb_copy16(uint32_t* dst, const uint32_t* src) {
+#if defined(__CUDA_ARCH__)
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src));
+#else
+  std::memcpy(dst, src, 16);
+#endif
+}
+
+// Thread t's share of the copy of window w into buffer buf: 16-byte words
+// t, t + FB_THREADS, ... of the window's X rows, then of its Y rows.
+ZK_FN void fb_stage(const FixedBaseArgs& a, const FbShared& s, uint32_t w, uint32_t buf, uint32_t t) {
+  const uint32_t words = (1u << a.window) * FQ_LIMBS / 4;  // of one plane
+  const uint64_t base = (uint64_t)w * (1u << a.window) * FQ_LIMBS;
+  uint32_t* dst = s.stage + buf * s.stage_words;
 #pragma unroll 1
-  for (uint32_t w = 0; w < a.windows; ++w) {
-    const uint32_t bit = w * a.window;
-    // the limb is read again each window rather than indexed in registers,
-    // which would put the scalar in local memory
-    const uint32_t digit = (s[bit >> 5] >> (bit & 31)) & mask;
-    const uint64_t row = ((uint64_t)w * row0 + digit) * FQ_LIMBS;
-    proj_add_point<RegRows>(x, y, z, x, y, z, a.table[0] + row, a.table[1] + row, a.table[2] + row, f);
+  for (uint32_t k = t; k < 2 * words; k += FB_THREADS) {
+    const uint32_t plane = k >= words, q = k - plane * words;
+    fb_copy16(dst + k * 4, (plane ? a.table[1] : a.table[0]) + base + q * 4);
   }
-  store_row(a.out[0] + (uint64_t)i * FQ_LIMBS, x);
-  store_row(a.out[1] + (uint64_t)i * FQ_LIMBS, y);
-  store_row(a.out[2] + (uint64_t)i * FQ_LIMBS, z);
+}
+
+// Thread t (scalar i) starts: its scalar into shared memory, acc = O.
+ZK_FN void fb_begin(const FixedBaseArgs& a, const FbShared& s, uint32_t i, uint32_t t) {
+  uint32_t row[FQ_LIMBS];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s.scalar[k * FB_THREADS + t] = i < a.n ? a.scalars[(uint64_t)i * 8 + k] : 0;
+#pragma unroll
+  for (int k = 0; k < FQ_LIMBS; ++k) row[k] = 0;
+  SharedRows::store(fb_acc(s, 0, t), row);
+  SharedRows::store(fb_acc(s, 2, t), row);
+  load_row(row, a.table[1]);  // T[0][0] = O: its Y is the Montgomery one
+  SharedRows::store(fb_acc(s, 1, t), row);
+}
+
+// Thread t adds window w's row of its digit, staged in buffer buf: X and Y
+// from the stage, Z the Montgomery one (row 0's Y) or, for row 0, zero
+// (row 0's X), also from the stage.
+ZK_FN void fb_add(const FixedBaseArgs& a, const FbShared& s, uint32_t w, uint32_t buf, uint32_t t, const FqConsts& f) {
+  const uint32_t bit = w * a.window, rows = 1u << a.window;
+  const uint32_t digit = (s.scalar[(bit >> 5) * FB_THREADS + t] >> (bit & 31)) & (rows - 1);
+  const uint32_t* stage = s.stage + buf * s.stage_words;
+  const uint32_t* x2 = stage + digit * FQ_LIMBS;
+  uint32_t *x = fb_acc(s, 0, t), *y = fb_acc(s, 1, t), *z = fb_acc(s, 2, t);
+  proj_add_point<SharedRows, SharedRows, true>(x, y, z, x, y, z, x2, x2 + rows * FQ_LIMBS,
+                                               stage + (digit ? rows * FQ_LIMBS : 0), f);
+}
+
+// Thread t writes scalar i's point.
+ZK_FN void fb_end(const FixedBaseArgs& a, const FbShared& s, uint32_t i, uint32_t t) {
+  uint32_t row[FQ_LIMBS];
+#pragma unroll
+  for (uint32_t k = 0; k < 3; ++k) {
+    SharedRows::load(row, fb_acc(s, k, t));
+    store_row(a.out[k] + (uint64_t)i * FQ_LIMBS, row);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -373,12 +469,6 @@ constexpr int HORNER_N = FQ_LIMBS / HORNER_P;
 constexpr uint32_t HORNER_THREADS = 32;
 static_assert(FQ_LIMBS % HORNER_P == 0 && HORNER_P <= 6 && HORNER_G >= 4 && HORNER_G * HORNER_P <= 32,
               "a product's lanes split its 12 words, at least 2 a lane; the double's 4 products fit one warp");
-
-#if defined(__CUDA_ARCH__)
-ZK_FN uint32_t warp_shfl(uint32_t v, uint32_t src) { return __shfl_sync(0xffffffffu, v, src); }
-#else
-uint32_t warp_shfl(uint32_t v, uint32_t src);  // lane src's v (mod 32), from the test shim
-#endif
 
 struct HornerArgs {
   const uint32_t* parts[3];  // X, Y, Z of the window sums: contiguous (W, K, 12)

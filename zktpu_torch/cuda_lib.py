@@ -9,6 +9,7 @@ the loader raises and names what is missing.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -47,8 +48,10 @@ _SIGNATURES = {
     # kind (0 add, 1 mixed add, 2 double, 3 Horner combine, 4 fixed-base
     # multiply), out {registers, local bytes, shared bytes}
     "zk_g1_kernel_attrs": [ctypes.c_int, _P],
-    # device, p (host), pinv, ptrs (host: X, Y, Z table, scalars, X, Y, Z out), n, window, stream
+    # device, p (host), pinv, ptrs (host: X, Y table, scalars, X, Y, Z out), n, window, stream
     "zk_fixed_base_mul": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, ctypes.c_int, _P],
+    # out {threads a block, minimum blocks a SM}
+    "zk_fixed_base_design": [_P],
     # device, p (host), pinv, ptrs (host: X, Y, Z parts, X, Y, Z out), W, K, c, stream
     "zk_horner_combine": [ctypes.c_int, _P, ctypes.c_uint32, _P, _I64, _I64, _I64, _P],
     # device, p (host), pinv, ptrs (host: a, b, out), chain, stream
@@ -72,10 +75,13 @@ _SIGNATURES = {
     "zk_mont_mma_attrs": [ctypes.c_int, ctypes.c_int, _P],
     # device, limbs, p (host), pinv, identity (host), op, mode, in, its row and
     # column strides, n, B, chunk, dirs, out_fwd, out_rev, their row and column
-    # strides, totals, carry, stream
+    # strides, total, status buffer, its slots, ticket base, epoch, stream
     "zk_field_scan": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, ctypes.c_int, ctypes.c_int, _P, _I64, _I64,
-                      _I64, _I64, _I64, ctypes.c_int, _P, _P, _I64, _I64, _P, _P, _P],
+                      _I64, _I64, _I64, ctypes.c_int, _P, _P, _I64, _I64, _P, _P, _I64, ctypes.c_uint64,
+                      ctypes.c_uint32, _P],
     "zk_field_scan_threads": [],
+    # slots, out: the words of a status buffer of that many slots
+    "zk_field_scan_status_words": [_I64, _P],
     # device, limbs, p (host), pinv, one (host), z^(2^j) table (host), out, count, chunk, stream
     "zk_field_powers": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _P, _I64, _I64, _P],
     # device, limbs, p (host), pinv, one (host), inverse total (host), prefix, suffix, out, n, stream
@@ -114,7 +120,7 @@ def find_nvcc() -> str | None:
     return None
 
 
-def _source_hash() -> str:
+def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in HEADERS + SOURCES:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
@@ -123,7 +129,7 @@ def _source_hash() -> str:
 
 
 def library_path() -> str:
-    return os.path.join(BUILD_DIR, f"libzktpu_kernels-{_source_hash()}.so")
+    return os.path.join(BUILD_DIR, f"libzktpu_kernels-{source_hash()}.so")
 
 
 def build(verbose: bool = False) -> str:
@@ -172,6 +178,62 @@ def build(verbose: bool = False) -> str:
                 os.remove(obj)
     os.replace(tmp, path)
     return path
+
+
+def build_variants(source: str, variants: dict) -> dict:
+    """{key: path} of csrc/`source` built alone into a shared library once for
+    each {key: extra nvcc flags (-D designs)} of `variants`, every nvcc
+    started at once, each library named by a hash of the sources, the
+    headers and its flags (so rebuilt only when they change).  For the tools
+    that time a kernel's designs side by side; the port loads only build()'s
+    library."""
+    stem, base = os.path.splitext(source)[0], source_hash()
+    paths = {k: os.path.join(BUILD_DIR, "lib{}_{}.so".format(
+        stem, hashlib.sha256(" ".join((base, *flags)).encode()).hexdigest()[:16])) for k, flags in variants.items()}
+    todo = {k: path for k, path in paths.items() if not os.path.exists(path)}
+    if not todo:
+        return paths
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise KernelBuildError(f"building designs of {source} needs nvcc")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {k: subprocess.Popen([nvcc, *NVCC_FLAGS, *variants[k], "-shared", "-o", f"{path}.{os.getpid()}.tmp",
+                                  os.path.join(CSRC_DIR, source)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True)
+             for k, path in todo.items()}
+    for k, p in procs.items():
+        err = p.communicate()[1]
+        if p.returncode != 0:
+            raise KernelBuildError(f"nvcc for {source} with {' '.join(variants[k])} failed ({p.returncode}):\n{err}")
+        os.replace(f"{todo[k]}.{os.getpid()}.tmp", todo[k])
+    return paths
+
+
+def load_variant(path: str) -> ctypes.CDLL:
+    """A library of build_variants, its entry points' signatures set (those it has)."""
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+@contextlib.contextmanager
+def launching(lib: ctypes.CDLL | None):
+    """Inside this block the port's wrappers launch the kernels of `lib` (a
+    load_variant library; None: the port's own)."""
+    global load
+    if lib is None:
+        yield
+        return
+    saved = load
+    load = lambda: lib  # noqa: E731
+    try:
+        yield
+    finally:
+        load = saved
 
 
 @functools.lru_cache(maxsize=1)

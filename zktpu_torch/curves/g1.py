@@ -94,7 +94,12 @@ def proj_to_affine_dev(P):
 def fixed_base_tables(base: G1Affine, window: int, device: torch.device):
     """tables[k][j] = j * 2^(window k) * base, as (windows, 2^window, 12)
     projective planes on `device` (host affine adds, made once per base,
-    window and device)."""
+    window and device).  Row 0 of each window is O and every other row is
+    affine, Z the Montgomery one, as the fixed-base kernel needs (every
+    point but O has the odd prime order r, and no j 2^(window k) with
+    0 < j < 2^window is a multiple of r)."""
+    if base.infinity:
+        raise ValueError("fixed_base_tables: the base is the identity")
     num_windows = -(-256 // window)
     xs, ys, infs = [], [], []
     cur = base
@@ -107,6 +112,7 @@ def fixed_base_tables(base: G1Affine, window: int, device: torch.device):
         infs += [pt.infinity for pt in row]
         for _ in range(window):
             cur = cur + cur
+    assert infs == [j == 0 for _ in range(num_windows) for j in range(1 << window)], "a table row is O"
     fq = field(FQ, device)
     shape = (num_windows, 1 << window, LIMBS)
     inf = torch.tensor(infs, dtype=torch.bool, device=fq.device).reshape(shape[:2])

@@ -25,8 +25,8 @@ MSM's window sums (zktpu/curves/msm.py:139-148): one launch runs the whole
 serial chain, four lanes per point running each formula step's independent
 products at once (csrc/g1.cu says why).  ``fixed_base_mul`` replaces the
 loop of gathers and adds of zktpu/curves/g1.py:300-320 (fixed_base_mul_u32):
-one launch, one thread per scalar walking its windows with the accumulator
-in registers.
+one launch, one thread per scalar walking its windows in step with its
+block, each window's rows staged in shared memory.
 
 The wrappers take strided operands without copying them: any broadcast of
 the batch shape whose rows are 16-byte aligned, with limbs contiguous and
@@ -184,11 +184,19 @@ _KIND = {"proj_add": 0, "proj_madd": 1, "proj_double": 2, "horner_combine": 3, "
 
 
 def kernel_attrs(name: str) -> dict:
-    """Registers per thread, local-memory bytes (spills) and static shared
-    memory per block of a kernel."""
+    """Registers per thread, local-memory bytes (spills) and shared memory
+    per block of a kernel (the fixed-base kernel's dynamic shared memory at
+    window 8 included)."""
     out = (ctypes.c_int * 3)()
     cuda_lib.check(cuda_lib.load().zk_g1_kernel_attrs(_KIND[name], out), f"{name} attributes")
     return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2]}
+
+
+def fixed_base_design() -> dict:
+    """The fixed-base kernel as built: threads a block and its launch bound's minimum blocks a SM."""
+    out = (ctypes.c_int * 2)()
+    cuda_lib.check(cuda_lib.load().zk_fixed_base_design(out), "fixed_base design")
+    return {"threads": out[0], "min_blocks": out[1]}
 
 
 def _plane(t: torch.Tensor, shape):
@@ -359,7 +367,10 @@ def fixed_base_mul(tables, scalars_u32, window: int):
     """[s_i] B for (N, 8) canonical u32-limb scalars from B's window table
     (fixed_base_mul_plain's tables; window divides 32) -> (N, 12) x 3
     projective.  One launch of csrc/g1.cu's fixed_base_kernel for CUDA
-    tensors, the plain loop for CPU tensors."""
+    tensors, the plain loop for CPU tensors.  The kernel takes windows of at
+    most 8 bits and reads only the tables' X and Y planes: it needs each
+    window's row 0 to be O and every other row affine (Z the Montgomery
+    one), as fixed_base_tables builds them."""
     if 32 % window or window > 16 or tables[0].shape[:2] != (256 // window, 1 << window):
         raise ValueError(f"fixed_base_mul: window {window} with tables {tuple(tables[0].shape)}: the window must "
                          f"divide 32 and the tables be (256 / window, 2^window, 12)")
@@ -368,6 +379,8 @@ def fixed_base_mul(tables, scalars_u32, window: int):
     if scalars_u32.ndim != 2 or scalars_u32.shape[1] != 8 or scalars_u32.dtype != torch.int32:
         raise ValueError(f"fixed_base_mul: scalars must be (N, 8) int32 limbs, got {scalars_u32.dtype} "
                          f"{tuple(scalars_u32.shape)}")
+    if window > 8:
+        raise ValueError(f"fixed_base_mul: the kernel stages windows of at most 8 bits in shared memory, got {window}")
     sc = scalars_u32.contiguous()
     ins = [t.contiguous() for t in tables]
     cuda_lib.check_cuda_operands("fixed_base_mul", ins, LIMBS)
@@ -383,7 +396,7 @@ def fixed_base_mul(tables, scalars_u32, window: int):
         raise ValueError("fixed_base_mul: planes must be 16-byte aligned")
     lib = cuda_lib.load()
     p, pinv = cuda_lib.field_consts(FQ)
-    ptrs = np.array([t.data_ptr() for t in (*ins, sc, *out)], dtype=np.int64)
+    ptrs = np.array([t.data_ptr() for t in (*ins[:2], sc, *out)], dtype=np.int64)
     rc = lib.zk_fixed_base_mul(sc.device.index, p.ctypes.data, pinv, ptrs.ctypes.data, n, int(window),
                                cuda_lib.stream_of(out[0]))
     cuda_lib.check(rc, "fixed_base_mul")

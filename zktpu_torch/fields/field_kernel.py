@@ -18,18 +18,18 @@ Kernel B replaces the tensor add/sub of zktpu/fields/fp.py (:270-286):
 ``add`` and ``sub`` with operands that broadcast over leading axes.
 
 The CUDA kernels are csrc/field_ops.cu (per-thread code in
-csrc/field_ops.cuh, which says how a block scans).  A scan takes one launch
-when n <= ONE_BLOCK_MAX_MUL (products) or ONE_BLOCK_MAX_ADD (adds) or n fits
-one tile (one block per column) and three otherwise, up to
-(threads SCAN_CHUNK)^2 rows (tile
-totals, a scan of the totals, every tile again from its carry); ``field_sum`` is
-the first of those alone (one or two launches); ``powers`` is one launch;
-``batch_inv`` runs the forward and the reverse scan in the same launches,
-copies the 32- or 48-byte total to the host and ends with one launch.  An
-add or sub is one launch; an operand whose batch shape is a suffix of the
-output's is read in place by a modulo on the row index.  The module
-constants below are the design's sizes (``tools/scan_tiles.py`` sweeps them
-and the block's threads).
+csrc/field_ops.cuh, which says how a block scans).  Every scan and every
+``field_sum`` is one launch at every n: a single-pass scan with decoupled
+look-back, whose blocks publish their tiles' aggregates and inclusive
+prefixes in a status buffer (one per device, kept here: ``_Status``) and
+take their tiles from its atomic ticket; the sum is the same launch, the
+last tile's inclusive prefix its column's total.  ``powers`` is one launch;
+``batch_inv`` runs the forward and the reverse scan in one launch, copies
+the 32- or 48-byte total to the host and ends with one launch.  An add or
+sub is one launch; an operand whose batch shape is a suffix of the output's
+is read in place by a modulo on the row index.  The module constants below
+are the design's sizes (``tools/scan_tiles.py`` sweeps them and the block's
+threads).
 
 Every op is canonical, and both combining ops are associative and
 commutative, so the kernels give the plain versions' words whatever their
@@ -52,19 +52,23 @@ from .limbs import MASK32, narrow, resolve, widen
 from .mont_kernel import _broadcast_operand, mont_mul_plain
 
 OP_MUL, OP_ADD = 0, 1  # the scan's combining op
-_MODE_SCAN, _MODE_REDUCE = 0, 1
+_MODE_SCAN, _MODE_SUM = 0, 1
 _FORWARD, _REVERSE = 1, 2
 _ADD, _SUB = 0, 1
 
-# The design's sizes (tools/scan_tiles.py, on an H100): rows a thread takes
-# in a tile of the three-pass scan; the largest n that one block per column
-# scans by the product (its chain of dependent products grows as n / threads)
-# and by the add or sums (an add is short, so one launch wins up to 2^15);
-# rows a thread of powers takes.
-SCAN_CHUNK = 8
-ONE_BLOCK_MAX_MUL = 1 << 12
-ONE_BLOCK_MAX_ADD = 1 << 15
+# The design's sizes (tools/scan_tiles.py, on an H100).  A scan's tiles are
+# threads x chunk rows, the chunk the smallest that keeps the grid (tiles x
+# directions x columns) within SCAN_GRID blocks, and at most SCAN_CHUNK_MAX:
+# short scans spread over the SMs a few rows a thread, their chains short,
+# and long ones take longer chunks, so that the tiles' look-backs and
+# warp-0 steps stay a small share; but a scan of at most SCAN_ONE_TILE rows
+# a thread takes one tile a column, where a block's chain is shorter than a
+# look-back.  POWERS_CHUNK: rows a thread of powers takes.
+SCAN_GRID = 132
+SCAN_CHUNK_MAX = 32
+SCAN_ONE_TILE = 2
 POWERS_CHUNK = 8
+_EPOCHS = 1 << 30  # a status flag's epoch is below this
 
 # Launches of each kernel per field, counted where they are launched.
 launches = {
@@ -204,50 +208,80 @@ def _grid_view(a: torch.Tensor, axis: int):
     return g, n, g.shape[1], g.stride(0) // L, g.stride(1) // L
 
 
-def _pass(lib, spec, op, mode, src, n, B, chunk, dirs, out_fwd=None, out_rev=None, out_rs=0, out_cs=0,
-          totals=None, carry=None) -> int:
-    """One launch of kernel A (src: (tensor, row stride, column stride))."""
+class _Status:
+    """The look-back's status buffer of one device (csrc/field_ops.cuh): its
+    ticket counter's value before the next launch (the blocks of every launch
+    so far), the last launch's epoch, and the stream it ran on.  Launches on
+    one stream run one after another, so each finds the buffer as the last
+    left it: a fresh epoch marks every slot of earlier launches empty, so no
+    launch clears it.  A launch from a second stream while the first still
+    has work queued raises rather than share the buffer."""
+
+    def __init__(self):
+        self.buf, self.slots, self.ticket, self.epoch, self.stream = None, 0, 0, 0, None
+
+    def take(self, lib, device: torch.device, slots: int):
+        """(buffer, its slots, ticket base, epoch, the current stream's handle)
+        for a launch of `slots` blocks."""
+        handle = 0
+        if device.type == "cuda":
+            stream = torch.cuda.current_stream(device)
+            handle = stream.cuda_stream
+            if self.stream is not None and handle != self.stream.cuda_stream and not self.stream.query():
+                raise RuntimeError("field_scan: a launch from a second CUDA stream while the scans' status buffer "
+                                   "is in use on another; synchronize that stream first")
+            self.stream = stream
+        if slots > self.slots or self.epoch + 1 >= _EPOCHS:
+            self.slots = max(slots, 2 * self.slots, 1024)
+            words = ctypes.c_int64()
+            cuda_lib.check(lib.zk_field_scan_status_words(self.slots, ctypes.byref(words)), "field_scan status")
+            self.buf = torch.zeros(words.value, dtype=torch.int32, device=device)
+            self.ticket, self.epoch = 0, 0
+        self.epoch += 1
+        return self.buf, self.slots, self.ticket, self.epoch, handle
+
+
+_statuses: dict[torch.device, _Status] = {}
+
+
+def _chunk(n: int, lanes: int, threads: int) -> int:
+    """Rows a thread of a scan of n rows in each of `lanes` columns and
+    directions: the rule above."""
+    if n <= threads * SCAN_ONE_TILE:
+        return -(-n // threads)
+    return min(SCAN_CHUNK_MAX, max(1, -(-n * lanes // (threads * SCAN_GRID))))
+
+
+@functools.lru_cache(maxsize=None)
+def _threads(lib) -> int:
+    """The threads of a block of `lib`'s scan kernel."""
+    return lib.zk_field_scan_threads()
+
+
+def _pass(lib, spec, op, mode, src, n, B, dirs, out_fwd=None, out_rev=None, out_rs=0, out_cs=0,
+          total=None) -> int:
+    """The one launch of kernel A (src: (tensor, row stride, column stride)); returns 1."""
     t, rs, cs = src
+    threads = _threads(lib)
+    nd = 2 if dirs == _FORWARD | _REVERSE else 1
+    chunk = _chunk(n, B * nd, threads)
+    tiles = -(-n // (threads * chunk))
+    blocks = tiles * nd * B
+    status = _statuses.get(t.device)
+    if status is None:
+        status = _statuses[t.device] = _Status()
+    buf, slots, ticket, epoch, stream = status.take(lib, t.device, blocks)
     p, pinv = cuda_lib.field_consts(spec)
     ident = _identity(spec, op)
     rc = lib.zk_field_scan(
         t.device.index or 0, spec.num_digits // 2, p.ctypes.data, pinv, ident.ctypes.data, op, mode,
-        t.data_ptr(), rs, cs, n, B, chunk, dirs, _ptr(out_fwd), _ptr(out_rev), out_rs, out_cs, _ptr(totals),
-        _ptr(carry), _stream(t),
+        t.data_ptr(), rs, cs, n, B, chunk, dirs, _ptr(out_fwd), _ptr(out_rev), out_rs, out_cs, _ptr(total),
+        buf.data_ptr(), slots, ticket, epoch, stream,
     )
     cuda_lib.check(rc, "field_scan")
+    if tiles > 1:  # one tile a lane takes no ticket
+        status.ticket += blocks
     return 1
-
-
-def _scan_passes(lib, spec, op, src, n, B, dirs, out_fwd, out_rev, out_rs, out_cs) -> int:
-    """The scan of an (n, B) grid into out_fwd / out_rev; returns its launches."""
-    threads = lib.zk_field_scan_threads()
-    one_block_max = ONE_BLOCK_MAX_MUL if op == OP_MUL else ONE_BLOCK_MAX_ADD
-    if n <= max(one_block_max, threads * SCAN_CHUNK):  # one block per column (and direction)
-        return _pass(lib, spec, op, _MODE_SCAN, src, n, B, -(-n // threads), dirs, out_fwd, out_rev, out_rs, out_cs)
-    L = spec.num_digits // 2
-    nd = 2 if dirs == _FORWARD | _REVERSE else 1
-    tiles = -(-n // (threads * SCAN_CHUNK))
-    totals = torch.empty((tiles, nd * B, L), dtype=torch.int32, device=src[0].device)
-    k = _pass(lib, spec, op, _MODE_REDUCE, src, n, B, SCAN_CHUNK, dirs, totals=totals)
-    carry = torch.empty_like(totals)
-    k += _scan_passes(lib, spec, op, (totals, nd * B, 1), tiles, nd * B, _FORWARD, carry, None, nd * B, 1)
-    return k + _pass(lib, spec, op, _MODE_SCAN, src, n, B, SCAN_CHUNK, dirs, out_fwd, out_rev, out_rs, out_cs,
-                     carry=carry)
-
-
-def _sum_passes(lib, spec, src, n, B) -> tuple[torch.Tensor, int]:
-    """The field sum of each column of an (n, B) grid: ((1, B, L), launches)."""
-    threads = lib.zk_field_scan_threads()
-    L = spec.num_digits // 2
-    if n <= max(ONE_BLOCK_MAX_ADD, threads * SCAN_CHUNK):
-        out = torch.empty((1, B, L), dtype=torch.int32, device=src[0].device)
-        return out, _pass(lib, spec, OP_ADD, _MODE_REDUCE, src, n, B, -(-n // threads), _FORWARD, totals=out)
-    tiles = -(-n // (threads * SCAN_CHUNK))
-    totals = torch.empty((tiles, B, L), dtype=torch.int32, device=src[0].device)
-    k = _pass(lib, spec, OP_ADD, _MODE_REDUCE, src, n, B, SCAN_CHUNK, _FORWARD, totals=totals)
-    out, k2 = _sum_passes(lib, spec, (totals, B, 1), tiles, B)
-    return out, k + k2
 
 
 def scan_kernel(lib, f, a: torch.Tensor, op: int, axis: int = 0, reverse: bool = False) -> tuple[torch.Tensor, int]:
@@ -257,8 +291,8 @@ def scan_kernel(lib, f, a: torch.Tensor, op: int, axis: int = 0, reverse: bool =
     out = torch.empty((n, B, f.num_limbs), dtype=torch.int32, device=a.device)
     if out.numel() == 0:
         return torch.movedim(out.reshape(torch.movedim(a, axis, 0).shape), 0, axis), 0
-    k = _scan_passes(lib, f.spec, op, (g, rs, cs), n, B, _REVERSE if reverse else _FORWARD,
-                     None if reverse else out, out if reverse else None, B, 1)
+    k = _pass(lib, f.spec, op, _MODE_SCAN, (g, rs, cs), n, B, _REVERSE if reverse else _FORWARD,
+              None if reverse else out, out if reverse else None, B, 1)
     return torch.movedim(out.reshape(torch.movedim(a, axis, 0).shape), 0, axis), k
 
 
@@ -267,7 +301,8 @@ def sum_kernel(lib, f, a: torch.Tensor, axis: int = 0) -> tuple[torch.Tensor, in
     g, n, B, rs, cs = _grid_view(a, axis)
     if n == 0:
         raise IndexError("field sum over an empty axis")
-    out, k = _sum_passes(lib, f.spec, (g, rs, cs), n, B)
+    out = torch.empty((B, f.num_limbs), dtype=torch.int32, device=a.device)
+    k = _pass(lib, f.spec, OP_ADD, _MODE_SUM, (g, rs, cs), n, B, _FORWARD, total=out)
     return out.reshape(torch.movedim(a, axis, 0).shape[1:]), k
 
 
@@ -302,7 +337,7 @@ def batch_inv_kernel(lib, f, a: torch.Tensor, host_inv) -> tuple[torch.Tensor, i
     if n == 0:
         raise IndexError("batch_inv of no elements")
     prefix, suffix = torch.empty_like(flat), torch.empty_like(flat)
-    k = _scan_passes(lib, spec, OP_MUL, (flat, 1, 0), n, 1, _FORWARD | _REVERSE, prefix, suffix, 1, 0)
+    k = _pass(lib, spec, OP_MUL, _MODE_SCAN, (flat, 1, 0), n, 1, _FORWARD | _REVERSE, prefix, suffix, 1, 0)
     total = spec.from_mont(_limbs_to_int(prefix[n - 1].cpu()))  # the one copy to the host
     inv = _host_limbs([spec.to_mont(host_inv(total) % spec.modulus)], L)
     one = _identity(spec, OP_MUL)

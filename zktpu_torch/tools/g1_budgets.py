@@ -29,9 +29,6 @@ library as built (its g1.cu has no budget to set) and counts its SASS.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import ctypes
-import hashlib
 import json
 import os
 import re
@@ -93,43 +90,13 @@ def _has_budget() -> bool:
 
 def build_budgets(budgets, macro: str = BUDGET_MACRO, source: str = "g1.cu") -> dict:
     """{value: path} of `source` (csrc/) built once per value of `macro`, all nvcc at once."""
-    src = os.path.join(cuda_lib.CSRC_DIR, source)
-    h = hashlib.sha256(" ".join(cuda_lib.NVCC_FLAGS).encode())
-    for name in cuda_lib.HEADERS + (source,):
-        with open(os.path.join(cuda_lib.CSRC_DIR, name), "rb") as f:
-            h.update(f.read())
-    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
-    stem = os.path.splitext(source)[0]
-    paths = {b: os.path.join(cuda_lib.BUILD_DIR, f"lib{stem}_{macro}{b}-{h.hexdigest()[:16]}.so") for b in budgets}
-    nvcc = cuda_lib.find_nvcc()
-    procs = {b: subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, f"-D{macro}={b}", "-shared", "-o", path, src],
-                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for b, path in paths.items() if not os.path.exists(path)}
-    for b, p in procs.items():
-        err = p.communicate()[1]
-        if p.returncode != 0:
-            raise cuda_lib.KernelBuildError(f"nvcc at {macro}={b} failed ({p.returncode}):\n{err}")
-    return paths
+    return cuda_lib.build_variants(source, {b: (f"-D{macro}={b}",) for b in budgets})
 
 
-@contextlib.contextmanager
-def _library(path, names=("zk_proj_add", "zk_proj_madd", "zk_proj_double", "zk_g1_kernel_attrs")):
+def _library(path):
     """The wrappers launch the kernels of the library at `path` (None: the
-    port's own), entry points `names`, inside this block."""
-    if path is None:
-        yield
-        return
-    lib = ctypes.CDLL(path)
-    for name in names:
-        fn = getattr(lib, name)
-        fn.argtypes = cuda_lib._SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    saved = cuda_lib.load
-    cuda_lib.load = lambda: lib
-    try:
-        yield
-    finally:
-        cuda_lib.load = saved
+    port's own) inside this block."""
+    return cuda_lib.launching(None if path is None else cuda_lib.load_variant(path))
 
 
 def time_budgets(reps: int = 20, budgets=(1, 3, 4), device=None) -> list[dict]:

@@ -6,9 +6,9 @@ csrc/g1.cuh fixes the lanes that share one Montgomery product (ZK_HORNER_P)
 and the products a warp runs at once (ZK_HORNER_G); the library's design is
 (HORNER_P, HORNER_G) as built, which zk_horner_design reports.  This tool
 builds its own copy of g1.cu for each design in DESIGNS (one nvcc per design,
-all at once, into build/zktpu_torch/) and, with --parent, the g1.cu of
-another checkout (a `git archive` of an earlier commit unpacked under DIR,
-whose zk_horner_combine has the same signature).  At each shape of SHAPES,
+all at once, into build/zktpu_torch/) and, with --parent, loads another
+checkout's package (a `git archive` of an earlier commit unpacked under DIR;
+tools/parent.py) to time its horner_combine as it stands.  At each shape of SHAPES,
 (c, K, W) with K points of W windows of c bits, it makes the parts from
 multiples of G on the host, holds every build's words against the
 library's (and the library's against the plain loop at the path's shape,
@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
+import functools
 import json
 import os
 import random
@@ -48,7 +48,6 @@ DESIGNS = ((1, 6), (2, 6), (3, 6), (4, 6), (6, 4))
 # (c, K, W): the PLONK and Nova commits at 2^14 (c = 13, W = 20; K = 1 for
 # one commit, 3 and 8 for commit_many), and the MSM bench's at 2^20
 SHAPES = ((13, 1, 20), (13, 3, 20), (13, 8, 20), (16, 1, 16))
-_NAMES = ("zk_horner_combine", "zk_g1_kernel_attrs", "zk_horner_mul_chain", "zk_horner_design")
 
 
 def steps(c: int, W: int) -> int:
@@ -56,44 +55,9 @@ def steps(c: int, W: int) -> int:
     return (W - 1) * (2 * c + 2)
 
 
-def build_designs(designs=DESIGNS, parent: str | None = None) -> dict:
-    """{design: path} of g1.cu built once per design ("parent": the parent
-    checkout's g1.cu), all nvcc at once."""
-    h = hashlib.sha256(" ".join(cuda_lib.NVCC_FLAGS).encode())
-    for name in ("field.cuh", "g1.cuh", "g1.cu"):
-        with open(os.path.join(cuda_lib.CSRC_DIR, name), "rb") as f:
-            h.update(f.read())
-    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
-    jobs = {d: (os.path.join(cuda_lib.BUILD_DIR, "libg1_horner_p{}_g{}-{}.so".format(*d, h.hexdigest()[:16])),
-                [f"-DZK_HORNER_P={d[0]}", f"-DZK_HORNER_G={d[1]}"], os.path.join(cuda_lib.CSRC_DIR, "g1.cu"))
-            for d in designs}
-    if parent:
-        src = os.path.join(parent, "zktpu_torch", "csrc", "g1.cu")
-        with open(src, "rb") as f:
-            tag = hashlib.sha256(f.read()).hexdigest()[:16]
-        jobs["parent"] = (os.path.join(cuda_lib.BUILD_DIR, f"libg1_parent-{tag}.so"), [], src)
-    nvcc = cuda_lib.find_nvcc()
-    if nvcc is None:
-        raise cuda_lib.KernelBuildError("horner_lanes: no nvcc")
-    procs = {d: subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, *flags, "-shared", "-o", path, src],
-                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for d, (path, flags, src) in jobs.items() if not os.path.exists(path)}
-    for d, p in procs.items():
-        err = p.communicate()[1]
-        if p.returncode != 0:
-            raise cuda_lib.KernelBuildError(f"nvcc for the Horner design {d} failed ({p.returncode}):\n{err}")
-    return {d: path for d, (path, _, _) in jobs.items()}
-
-
-def load(path: str) -> ctypes.CDLL:
-    """A build's library; the parent's has only the first two entry points."""
-    lib = ctypes.CDLL(path)
-    for name in _NAMES:
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.argtypes = cuda_lib._SIGNATURES[name]
-            fn.restype = ctypes.c_int
-    return lib
+def build_designs(designs=DESIGNS) -> dict:
+    """{design: path} of g1.cu built once per design, all nvcc at once."""
+    return cuda_lib.build_variants("g1.cu", {d: (f"-DZK_HORNER_P={d[0]}", f"-DZK_HORNER_G={d[1]}") for d in designs})
 
 
 def design_of(lib) -> tuple[int, int]:
@@ -105,12 +69,8 @@ def design_of(lib) -> tuple[int, int]:
 def run_combine(lib, parts, c: int):
     """horner_combine through `lib`'s kernel (the port's wrapper, its
     library swapped for the call)."""
-    saved = cuda_lib.load
-    cuda_lib.load = lambda: lib
-    try:
+    with cuda_lib.launching(lib):
         return g1_kernel.horner_combine(parts, c)
-    finally:
-        cuda_lib.load = saved
 
 
 def attrs_of(lib) -> dict:
@@ -141,24 +101,30 @@ def parts_for(c: int, K: int, W: int, device, seed: int = 20261018):
 def time_designs(reps: int = 10, chain: int = 2000, designs=DESIGNS, parent: str | None = None,
                  shapes=SHAPES, device=None) -> list[dict]:
     device = torch.device("cuda", 0) if device is None else torch.device(device)
-    paths = build_designs(designs, parent)
-    libs = {"library": cuda_lib.load(), **{d: load(p) for d, p in paths.items()}}
+    libs = {"library": cuda_lib.load(), **{d: cuda_lib.load_variant(p) for d, p in build_designs(designs).items()}}
+    combine = {name: functools.partial(run_combine, lib) for name, lib in libs.items()}
+    if parent:
+        from zktpu_torch.tools.parent import load_parent
+
+        par = load_parent(parent)
+        libs["parent"] = par.cuda_lib.load()
+        combine["parent"] = par.curves.g1_kernel.horner_combine
     card = smi()
     lib_design = design_of(libs["library"])
     rows = []
     for c, K, W in shapes:
         parts = parts_for(c, K, W, device)
-        want = run_combine(libs["library"], parts, c)
+        want = combine["library"](parts, c)
         if (c, K, W) == shapes[0]:
             plain = g1_kernel.horner_combine_plain(parts, c)
             assert all(torch.equal(x, y) for x, y in zip(want, plain)), "the library differs from the plain loop"
-        for name, lib in libs.items():
-            got = run_combine(lib, parts, c)
+        for name in libs:
+            got = combine[name](parts, c)
             assert all(torch.equal(x, y) for x, y in zip(got, want)), f"Horner build {name} differs from the library"
         times = {name: [] for name in libs}
         for order in (list(libs), list(libs)[::-1]):  # in turns, then back
             for name in order:
-                times[name].append(_ms(lambda: run_combine(libs[name], parts, c), reps))
+                times[name].append(_ms(lambda: combine[name](parts, c), reps))
         for name, lib in libs.items():
             ms = sum(times[name]) / len(times[name])
             row = {"build": name if isinstance(name, str) else dict(zip(("P", "G"), name)), "c": c, "K": K, "W": W,
@@ -176,7 +142,7 @@ def time_designs(reps: int = 10, chain: int = 2000, designs=DESIGNS, parent: str
     b[..., 11] &= (1 << 28) - 1
     want = mont_mul_chain_plain(g1_kernel.FQ, a, b, 64)
     for name, lib in libs.items():
-        if name == "parent" or not hasattr(lib, "zk_horner_mul_chain"):
+        if name == "parent":
             continue
         assert torch.equal(mul_chain(lib, a, b, 64), want), f"the product chain of {name} differs from the plain"
         us = 1e3 * _ms(lambda: mul_chain(lib, a, b, chain), 3) / chain

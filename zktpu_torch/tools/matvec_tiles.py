@@ -19,10 +19,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
-import os
-import subprocess
 
 import torch
 
@@ -39,37 +36,8 @@ HBM_BYTES_PER_S = 3.35e12
 
 def build_designs(designs=DESIGNS) -> dict:
     """{design: path} of matvec.cu built once per design, all nvcc at once."""
-    h = hashlib.sha256(" ".join(cuda_lib.NVCC_FLAGS).encode())
-    for name in ("field.cuh", "matvec.cuh", "matvec.cu"):
-        with open(os.path.join(cuda_lib.CSRC_DIR, name), "rb") as f:
-            h.update(f.read())
-    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
-    paths = {d: os.path.join(cuda_lib.BUILD_DIR, "libmatvec_r{}_t{}_b{}-{}.so".format(*d, h.hexdigest()[:16]))
-             for d in designs}
-    nvcc = cuda_lib.find_nvcc()
-    if nvcc is None:
-        raise cuda_lib.KernelBuildError("matvec_tiles: no nvcc")
-    procs = {}
-    for d, path in paths.items():
-        if not os.path.exists(path):
-            flags = [f"-DZK_MATVEC_ROWS={d[0]}", f"-DZK_MATVEC_THREADS={d[1]}", f"-DZK_MATVEC_MIN_BLOCKS={d[2]}"]
-            procs[d] = subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, *flags, "-shared", "-o", path,
-                                         os.path.join(cuda_lib.CSRC_DIR, "matvec.cu")],
-                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    for d, p in procs.items():
-        err = p.communicate()[1]
-        if p.returncode != 0:
-            raise cuda_lib.KernelBuildError(f"nvcc for the matvec design {d} failed ({p.returncode}):\n{err}")
-    return paths
-
-
-def _load(path: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(path)
-    for name in ("zk_matvec", "zk_matvec_attrs"):
-        fn = getattr(lib, name)
-        fn.argtypes = cuda_lib._SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return lib
+    return cuda_lib.build_variants("matvec.cu", {d: (f"-DZK_MATVEC_ROWS={d[0]}", f"-DZK_MATVEC_THREADS={d[1]}",
+                                                     f"-DZK_MATVEC_MIN_BLOCKS={d[2]}") for d in designs})
 
 
 def _ms(fn, reps: int) -> float:
@@ -105,7 +73,7 @@ def time_designs(log_m: int = 14, reps: int = 5, designs=DESIGNS, device=None) -
     bound_ms = (m * n + n + m) * 32 / HBM_BYTES_PER_S * 1e3
     want = matvec_kernel.matvec(A, z)
     rows = []
-    for design, lib in [("library", cuda_lib.load())] + [(d, _load(p)) for d, p in libs.items()]:
+    for design, lib in [("library", cuda_lib.load())] + [(d, cuda_lib.load_variant(p)) for d, p in libs.items()]:
         got = matvec_kernel.run(lib, A, z)
         assert torch.equal(got, want), f"matvec design {design} differs from the library's"
         attrs = (ctypes.c_int * 5)()

@@ -45,7 +45,7 @@ def time_budgets(reps: int = 20, budgets=(1, 3, 4, 5), log_ns=(16, 20), device=N
             cases = [("base", None)] + [(v, budget) for v in ("mxu", "f32") for budget in (None, *libs)]
             for variant, budget in cases:
                 row = {"field": spec.name, "variant": variant, "n": n, "chain": CHAIN, "min_blocks": budget}
-                with _library(libs.get(budget), ("zk_mont_mma_chain", "zk_mont_mma_attrs")):
+                with _library(libs.get(budget)):
                     got = mont_mul_chain(spec, a[:4096], b[:4096], CHAIN, variant)
                     assert torch.equal(got, want), f"{variant} at {budget} blocks differs from the base plain chain"
                     if variant != "base":

@@ -20,8 +20,8 @@ words, and prints one JSON line per design and shape: registers, local
 bytes (spills), launches, ms per call with CUDA events (wrapper included),
 kernel-only ms per call (torch.profiler) and the share of the bound.
 
---parent DIR also builds DIR/zktpu_torch/csrc/ntt.cu, another checkout's NTT
-(a `git archive` of an earlier commit unpacked under build/), and times it
+--parent DIR also loads another checkout's package (a `git archive` of an
+earlier commit unpacked under build/; tools/parent.py) and times its NTT
 the same way (its design as that tree builds it), so that two designs are
 compared inside one run on one card.  --sass prints the SASS instructions
 per butterfly of one radix step of the Goldilocks design (butterfly_sass).
@@ -29,9 +29,8 @@ per butterfly of one radix step of the Goldilocks design (butterfly_sass).
 from __future__ import annotations
 
 import argparse
-import contextlib
-import ctypes
-import hashlib
+import functools
+import importlib
 import json
 import os
 import subprocess
@@ -85,64 +84,10 @@ def bound_ms(spec, log_n: int, batch: int) -> dict:
     return {"bound_ms": max(ops_s, bytes_s) * 1e3, "bound_by": "bytes" if bytes_s >= ops_s else "operations"}
 
 
-def _nvcc_all(jobs: dict) -> None:
-    """Run nvcc for every {key: (flags, source, include dir, output)} at once."""
-    nvcc = cuda_lib.find_nvcc()
-    if nvcc is None:
-        raise cuda_lib.KernelBuildError("ntt_tiles needs nvcc")
-    procs = {}
-    for key, (flags, src, inc, out) in jobs.items():
-        if not os.path.exists(out):
-            procs[key] = subprocess.Popen([nvcc, *cuda_lib.NVCC_FLAGS, *flags, "-I", inc, "-shared", "-o", out, src],
-                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    for key, p in procs.items():
-        err = p.communicate()[1]
-        if p.returncode != 0:
-            raise cuda_lib.KernelBuildError(f"nvcc for the NTT design {key} failed ({p.returncode}):\n{err}")
-
-
-def _tree_hash(csrc: str) -> str:
-    h = hashlib.sha256(" ".join(cuda_lib.NVCC_FLAGS).encode())
-    for name in sorted(os.listdir(csrc)):
-        if name.endswith((".cu", ".cuh")):
-            with open(os.path.join(csrc, name), "rb") as f:
-                h.update(name.encode() + f.read())
-    return h.hexdigest()[:16]
-
-
-def build_designs(designs, spec=FR, parent: str | None = None) -> dict:
-    """{design: path} of ntt.cu built once per design, all nvcc at once; with
-    `parent`, also {"parent": path} of that checkout's ntt.cu as it is."""
-    src = os.path.join(cuda_lib.CSRC_DIR, "ntt.cu")
-    gl = spec is GOLDILOCKS
-    names = GL_FLAGS if gl else FR_FLAGS
-    h = _tree_hash(cuda_lib.CSRC_DIR)
-    os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
-    tag = "gl" if gl else "fr"
-    jobs = {d: ([f"-D{k}={v}" for k, v in zip(names, d)], src, cuda_lib.CSRC_DIR,
-                os.path.join(cuda_lib.BUILD_DIR, f"libntt_{tag}_{'_'.join(map(str, d))}-{h}.so")) for d in designs}
-    if parent is not None:
-        csrc = os.path.join(parent, "zktpu_torch", "csrc")
-        jobs["parent"] = ([], os.path.join(csrc, "ntt.cu"), csrc,
-                          os.path.join(cuda_lib.BUILD_DIR, f"libntt_parent-{_tree_hash(csrc)}.so"))
-    _nvcc_all(jobs)
-    return {d: job[3] for d, job in jobs.items()}
-
-
-@contextlib.contextmanager
-def _library(path):
-    """The NTT wrapper launches the kernel of the library at `path` inside this block."""
-    lib = ctypes.CDLL(path)
-    for name in ("zk_ntt", "zk_ntt_attrs"):
-        fn = getattr(lib, name)
-        fn.argtypes = cuda_lib._SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    saved = cuda_lib.load
-    cuda_lib.load = lambda: lib
-    try:
-        yield
-    finally:
-        cuda_lib.load = saved
+def build_designs(designs, spec=FR) -> dict:
+    """{design: path} of ntt.cu built once per design, all nvcc at once."""
+    names = GL_FLAGS if spec is GOLDILOCKS else FR_FLAGS
+    return cuda_lib.build_variants("ntt.cu", {d: tuple(f"-D{k}={v}" for k, v in zip(names, d)) for d in designs})
 
 
 def _ms(fn, reps: int) -> float:
@@ -181,7 +126,15 @@ def time_designs(reps: int = 30, designs=None, device=None, spec=FR, parent: str
     device = torch.device("cuda", 0) if device is None else torch.device(device)
     gl = spec is GOLDILOCKS
     designs = designs or (GL_DESIGNS if gl else DESIGNS)
-    libs = build_designs(designs, spec, parent)
+    libs = {d: cuda_lib.load_variant(p) for d, p in build_designs(designs, spec).items()}
+    builds = {d: (ntt_kernel, spec, lib) for d, lib in libs.items()}
+    if parent is not None:
+        from zktpu_torch.tools.parent import load_parent
+
+        par = load_parent(parent)
+        par_ntt = importlib.import_module(par.__name__ + ".poly.ntt_kernel")
+        host = importlib.import_module(par.__name__ + ".fields.host")
+        builds["parent"] = (par_ntt, getattr(host, "GOLDILOCKS" if gl else "FR"), None)
     gen = torch.Generator(device=device)
     gen.manual_seed(20261016)
     L = spec.num_digits // 2
@@ -194,20 +147,21 @@ def time_designs(reps: int = 30, designs=None, device=None, spec=FR, parent: str
         x = x.to(torch.int32)
         fin = dom.offset_powers(spec.generator) if gl else None
 
-        def run():
-            return ntt_kernel.ntt(x, dom._fwd_tw, False, fin, None, spec)
+        def run(mod=ntt_kernel, sp=spec):
+            return mod.ntt(x, dom._fwd_tw, False, fin, None, sp)
 
         want = run()  # the library's design
-        for design, path in libs.items():
-            with _library(path):
-                before = ntt_kernel.ntt.launches[spec.name]
-                got = run()
-                passes = ntt_kernel.ntt.launches[spec.name] - before
+        for design, (mod, sp, lib) in builds.items():
+            call = functools.partial(run, mod, sp)
+            with cuda_lib.launching(lib):
+                before = mod.ntt.launches[sp.name]
+                got = call()
+                passes = mod.ntt.launches[sp.name] - before
                 assert torch.equal(got, want), f"the NTT design {design} disagrees with the library's"
-                k_ms, _ = kernel_only_ms(run, reps)
+                k_ms, _ = kernel_only_ms(call, reps)
                 row = {"field": spec.name, "design": design if design == "parent" else
                        dict(zip(GL_FLAGS if gl else FR_FLAGS, design)), "log_n": log_n, "batch": batch,
-                       "passes": passes, **ntt_kernel.kernel_attrs(spec), "ms": _ms(run, reps), "kernel_only_ms": k_ms,
+                       "passes": passes, **mod.kernel_attrs(sp), "ms": _ms(call, reps), "kernel_only_ms": k_ms,
                        **bound_ms(spec, log_n, batch)}
             row["bound_share"] = row["bound_ms"] / row["kernel_only_ms"]
             rows.append(row)
@@ -243,7 +197,7 @@ def butterfly_sass() -> dict:
     from zktpu_torch.tools.g1_budgets import sass_counts
 
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
-    h = _tree_hash(cuda_lib.CSRC_DIR)
+    h = cuda_lib.source_hash()
     src = os.path.join(cuda_lib.BUILD_DIR, f"ntt_gl_probe-{h}.cu")
     out = os.path.join(cuda_lib.BUILD_DIR, f"ntt_gl_probe-{h}.cubin")
     if not os.path.exists(out):

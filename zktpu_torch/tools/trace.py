@@ -19,8 +19,9 @@ def smi() -> str:
 
 def trace_summary(run, rows: int = 15) -> tuple[dict, str]:
     """run() under torch.profiler: (launch calls, device kernels, wall and
-    device seconds, idle share and the eight longest kernels' device
-    milliseconds; the profiler's table by device time)."""
+    device seconds, idle share, the eight longest kernels' device
+    milliseconds and every kernel's (device ms, launches) by name; the
+    profiler's table by device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -42,5 +43,44 @@ def trace_summary(run, rows: int = 15) -> tuple[dict, str]:
         "idle_share": max(0.0, 1 - dev_s / wall),
         "by_kernel_ms": {e.key[:60]: e.self_device_time_total / 1e3
                          for e in sorted(device, key=lambda e: -e.self_device_time_total)[:8]},
+        "by_name_ms": {},  # every kernel's device ms and launches, by its name without template arguments
     }
+    for e in device:
+        name = e.key.removeprefix("void ").split("<")[0].split("(")[0]
+        ms, count = summary["by_name_ms"].get(name, (0.0, 0))
+        summary["by_name_ms"][name] = (ms + e.self_device_time_total / 1e3, count + e.count)
     return summary, events.table(sort_by="self_device_time_total", row_limit=rows)
+
+
+def launch_device_ms(fn, name: str, reps: int = 3) -> list[float]:
+    """Device milliseconds of each launch, in order, of the kernels whose
+    name holds `name` in one call of fn: the mean over `reps` calls, each
+    traced on its own by torch.profiler (after one untraced call).  A trace
+    that saw another number of launches than most is taken again (the
+    profiler has dropped device events on the H100 machine), at most 3 reps
+    times in all; [] if no trace saw one (the caller reports "not
+    measured")."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3 * reps):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA and name in e.name),
+                        key=lambda e: e.time_range.start)
+        if events:
+            runs.append([e.time_range.elapsed_us() / 1e3 for e in events])
+        counts = Counter(len(r) for r in runs).most_common(1)
+        if counts and counts[0][1] >= reps:
+            break
+    if not runs:
+        return []
+    k = Counter(len(r) for r in runs).most_common(1)[0][0]
+    runs = [r for r in runs if len(r) == k]
+    return [sum(r[i] for r in runs) / len(runs) for i in range(k)]
