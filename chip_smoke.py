@@ -12,7 +12,8 @@ Phases:
      kernels, the Horner combine, the NTT (Fr and Goldilocks), the field
      scans, the field add/sub, the field hash, the FRI fold, the fixed-base
      multiply (its dynamic shared memory included), Nova's matrix-vector
-     product (and its rows and threads a block) and the tensor-core chained
+     product (and its rows and threads a block), the field linear
+     combination (field_lincomb) and the tensor-core chained
      products (mxu and f32, Fr and Fq) (fails if one spills); the designs of
      the fixed-base multiply (threads a block, launch bound) and of the field
      scans (threads a block, the tile rule's grid and longest chunk); with
@@ -43,12 +44,20 @@ Phases:
      (16, 1, 16) (the MSM bench's), parts holding the identity, with ms,
      microseconds a dependent product step, registers and the depth figure
      (steps x one lane-parallel product, timed alone as a chain in one
-     warp and held against the plain chain); mont_mul Fr's kernel-only time from torch.profiler beside its
-     time with the wrapper; the field scans (cumprod, cumsum both ways, sum
+     warp and held against the plain chain); the field scans (cumprod, cumsum both ways, sum
      on axis 0 and 1, powers, batch_inv) and the field add/sub against their
      plain versions at the shapes the paths give them, a scan of many tiles
      (2^20) and one of 5 rows, Fr and Fq, each with its launches a call and
-     its kernel-only ms (phase_field_ops);
+     its kernel-only ms (phase_field_ops); rows 1 Fr (2^17, 8), 1 Fq
+     (2^16 + 3, 12) and 1a Fr (2^17, 8) with their wrappers and kernel
+     only, and mont_mul Fr's kernel alone where an operand broadcasts
+     ((2^20, 8) x (1, 8), (2^14, 8, 8) x (8, 8)), each with --parent in
+     turns with the parent's (phase_field_turns); field_lincomb against its
+     plain chain at the sites' shapes: compute_t's K = 4 at 2^log_n,
+     fold_witness's two, w_ev_x's six unequal lengths with a row-0
+     constant, r(X)'s nine terms (two launches) and eight terms of 0, 1 and
+     p - 1 with both signs, each with its ms, kernel-only ms, bound, the
+     plain chain's ms and the launch chain it replaced (phase_lincomb);
      the Goldilocks NTT (fft, ifft, coset_fft, coset_ifft and coset_fft with
      the raw-1 output factor at 2^fri_log_n x 1, 2^13 x 3, n = 2 and 2^8 x 3,
      2^16 and 2^22, an all-zero row and a row of p - 1; its kernel-only time
@@ -140,7 +149,9 @@ Phases:
      line.
 Launches are set to 0 just before each path (phase 4, the bench, the tool,
 the FRI prove, the Nova run, the parser path, the dist functions at world
-size 1) and read just after.  Then one
+size 1) and read just after; phases 4, 7 and 8 print their field kernels'
+launches (mont_mul Fr and Fq, field_addsub Fr, field_lincomb), and
+field_lincomb must have launched on each of the three.  Then one
 JSON line with the kernels (launches summed over the seven paths; times and
 bounds at the shapes the paths give them:
 proj_madd at msm_affine's mixed add, proj_add at msm_proj's first scan step,
@@ -153,8 +164,8 @@ ran before the NTT took it, field_addsub_gl at the first fold's add it ran
 before the fold kernel, fri_fold at the first fold, field_scan_gl at its
 largest power table, fixed_base_mul at 2^msm_log_n scalars (an SRS of that
 size), matvec_fr at Nova's full (2^nova_log_m, 2^nova_log_m + 3, 8) shape
-with its plain_ms on A's first 64 rows (its "plain_shape"), the others at
-phase 2's shapes), the
+with its plain_ms on A's first 64 rows (its "plain_shape"), field_lincomb
+at compute_t's K = 4 over 2^log_n rows, the others at phase 2's shapes), the
 card's name and power limit, and the final {"ok": true, ...} line.  Any
 failure raises and exits non-zero.
 """
@@ -497,8 +508,8 @@ def phase_small_path_shapes(device, results: dict) -> None:
     before the NTT kernel (m = 2^9: 2^16 products of a strided odd half by a
     2^8-row twiddle table, the wrapper's copy included), and mont_mul over Fr
     at the coset division's (2^17, 8) pointwise product, which the path
-    still runs (the kernels line takes this one); each against its plain
-    version."""
+    still runs (the kernels line takes this one; phase_field_turns times its
+    kernel alone); each against its plain version."""
     from zktpu_torch.curves import g1
     from zktpu_torch.curves.g1_kernel import proj_double, proj_double_plain
     from zktpu_torch.curves.host_curve import G1Affine
@@ -536,10 +547,6 @@ def phase_small_path_shapes(device, results: dict) -> None:
     plain_ms = _cuda_ms(lambda: mont_mul_plain(FR, x, y), 5)
     _record(results, "mont_mul_fr", n, err, ms, plain_ms, 3 * n * 32, n * _mont_words(8),
             phase="phase 2: coset division's product (2^17, 8) x (2^17, 8):")
-    k_ms, count = _kernel_only_ms(lambda: mont_mul(FR, x, y), 50, "mont_mul_kernel")
-    print(f"phase 2: mont_mul Fr (2^17, 8) x (2^17, 8) kernel only (torch.profiler, {count} launches): "
-          f"{k_ms:.4f} ms per launch against {ms:.4f} ms with the wrapper", flush=True)
-    results["mont_mul_fr"]["kernel_only_ms"] = k_ms
 
 
 def _kernel_only_ms(fn, reps: int, name: str) -> tuple[float, int]:
@@ -878,6 +885,169 @@ def phase_field_ops(device, results: dict, log_n: int = 14, fq_log_n: int = 20, 
     torch.cuda.empty_cache()
 
 
+def _in_turns(fns: dict, measure) -> dict:
+    """{who: [ms, ...]}: measure(fn) of "this" and, when given, "parent", in
+    turns (this, parent, parent, this)."""
+    order = ("this", "parent", "parent", "this") if "parent" in fns else ("this",)
+    out = {who: [] for who in fns}
+    for who in order:
+        out[who].append(measure(fns[who]))
+    return out
+
+
+def _turns_text(turns: dict) -> str:
+    return "; ".join(f"{who} {statistics.fmean(v):.4f} ms {[round(x, 4) for x in v]}" for who, v in turns.items())
+
+
+def phase_field_turns(device, results: dict, parent=None) -> None:
+    """Rows 1 Fr, 1 Fq and 1a Fr with their wrappers (CUDA events) and kernel
+    only (torch.profiler), this checkout's and, with `parent`, the parent's,
+    in turns, their words equal: mont_mul Fr at the coset division's (2^17,
+    8) x (2^17, 8), mont_mul Fq at (2^16 + 3, 12), the Fr add at (2^17, 8).
+    Then mont_mul Fr's kernel alone at the shapes whose operand broadcasts,
+    in turns with the parent's: (2^20, 8) x (1, 8) (the MSM scalars'
+    from_mont: one row, read at 0) and (2^14, 8, 8) x (8, 8) (the coset
+    division's 1/Z_H in place: a period of 8, a mask), beside (2^17, 8) x
+    (2^17, 8); the parent reads every broadcast row by a 64-bit modulo."""
+    from zktpu_torch.fields import field_kernel as fk
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fields.host import FQ, FR
+    from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_plain
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 13)
+    rows = {}
+    for key, spec, n in (("mont_mul_fr", FR, 1 << 17), ("mont_mul_fq", FQ, (1 << 16) + 3), ("field_addsub_fr", FR,
+                                                                                             1 << 17)):
+        f = field(spec, device)
+        a, b = (_field_rows(f, gen, n)[:, 0] for _ in range(2))
+        rows[key] = (f, a, b)
+        if key.startswith("mont_mul"):
+            fns, kname = {"this": lambda: mont_mul(spec, a, b)}, "mont_mul_kernel"
+            if parent is not None:
+                fns["parent"] = lambda: parent.fields.mont_kernel.mont_mul(spec, a, b)
+        else:
+            fns, kname = {"this": lambda: fk.add(f, a, b)}, "field_addsub_kernel"
+            if parent is not None:
+                fns["parent"] = lambda: parent.fields.field_kernel.add(f, a, b)
+        got = {who: fn() for who, fn in fns.items()}
+        assert all(torch.equal(g, got["this"]) for g in got.values()), f"{key}: the parent's words differ"
+        turns = _in_turns(fns, lambda fn: _cuda_ms(fn, 200))
+        only = _in_turns(fns, lambda fn: _kernel_only_ms(fn, 50, kname)[0])
+        results[key]["ms"] = statistics.fmean(turns["this"])  # the kernels line takes the times in turns
+        results[key]["kernel_only_ms"] = statistics.fmean(only["this"])
+        print(f"phase 2: {key} ({n}, {f.num_limbs}) with the wrapper, in turns: {_turns_text(turns)}; kernel only "
+              f"{_turns_text(only)}; bound {results[key]['bound_ms']:.5f} ms"
+              f"{'' if parent is not None else '; parent not measured (no --parent)'}", flush=True)
+    f, x, y = rows["mont_mul_fr"]
+    big = _field_rows(f, gen, 1 << 20)[:, 0]
+    for label, a, b in (("(2^17, 8) x (2^17, 8)", x, y), ("(2^20, 8) x (1, 8)", big, f._one_raw),
+                        ("(2^14, 8, 8) x (8, 8)", x.reshape(1 << 14, 8, 8), y[:8])):
+        fns = {"this": lambda: mont_mul(FR, a, b)}
+        if parent is not None:
+            fns["parent"] = lambda: parent.fields.mont_kernel.mont_mul(FR, a, b)
+        _compare(f"mont_mul Fr {label}", [fns["this"]()], [mont_mul_plain(FR, a, b)])
+        only = _in_turns(fns, lambda fn: _kernel_only_ms(fn, 50, "mont_mul_kernel")[0])
+        print(f"phase 2: mont_mul Fr {label} kernel only, in turns: {_turns_text(only)}", flush=True)
+    del big
+
+
+def _field_launches(launches: dict) -> str:
+    """The field kernels' launches of a path: rows 1 Fr and Fq, 1a Fr, 1l."""
+    return "field launches " + json.dumps({k: launches[k] for k in ("mont_mul_fr", "mont_mul_fq", "field_addsub_fr",
+                                                                     "field_lincomb")})
+
+
+# word products of one row of field_lincomb: 64 a product (a b, schoolbook), then the reduction's nine
+# rounds of m_i = t_i (-p^{-1}) and m_i p (8 each) and its product by 2^32 R (a CIOS product)
+def _lincomb_words(rows: int, products: int) -> int:
+    return rows * (64 * products + 9 + 9 * 8 + _mont_words(8))
+
+
+def phase_lincomb(device, results: dict, log_n: int = 14) -> None:
+    """field_lincomb (fields/lincomb_kernel.py) against its plain chain on
+    the card, every word, at the sites' shapes: compute_t's K = 4 at 2^log_n
+    (the kernels line's row), fold_witness's two (E: two products by scalars
+    and E1; W: one and W1, 2^log_n + 1 rows), w_ev_x's six unequal lengths
+    with a row-0 constant, r(X)'s nine terms (two launches), and K + J = 8
+    terms of rows 0, 1 and p - 1 with both signs (the accumulator's largest
+    sums); each with its ms (CUDA events, the wrapper included), kernel-only
+    ms, bound and the plain chain's ms, and the launch chain it replaced
+    (row 1 and row 1a launches, as the port ran them before) timed beside."""
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fields.host import FR
+    from zktpu_torch.fields.lincomb_kernel import lincomb, lincomb_plain
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 14)
+    f = field(FR, device)
+    p, n = FR.modulus, 1 << log_n
+    rng = random.Random(SEED + 14)
+
+    def rows(k):
+        return _field_rows(f, gen, k)[:, 0]
+
+    def scalars(k):
+        enc = f.encode_ints([rng.randrange(p) for _ in range(k)])
+        return [enc[i] for i in range(k)]
+
+    def chain(products, addends):
+        """The launches the port ran before: each product, then an add or sub a term, operands padded to the
+        longest with zero rows (torch.cat) as Poly's ops pad them."""
+        m = max(t.reshape(-1, 8).shape[0] for t in [a for a, _, _ in products] + [c for c, _ in addends])
+
+        def pad(t):
+            t = t.reshape(-1, 8)
+            return t if t.shape[0] == m else torch.cat([t, zero[: m - t.shape[0]]])
+
+        out = f.zero
+        for x, sign in [(f.mont_mul(pad(a), b), sign) for a, b, sign in products] + [(pad(c), s) for c, s in addends]:
+            out = (f.add if sign > 0 else f.sub)(out, x)
+        return out
+
+    s = scalars(8)
+    top = f.encode_int(p - 1).expand(n, 8).contiguous()
+    zero = torch.zeros((n + 5, 8), dtype=torch.int32, device=device)
+    ev = (rows(n + 5), rows(n + 2), rows(n + 2), rows(n + 2), rows(n), rows(n))
+    cases = {
+        f"compute_t K=4 ({n}, 8)": ([(rows(n), rows(n), 1), (rows(n), rows(n), 1), (rows(n), s[0], -1),
+                                     (rows(n), s[1], -1)], []),
+        f"fold_witness E ({n}, 8)": ([(rows(n), s[2], 1), (rows(n), s[3], 1)], [(rows(n), 1)]),
+        f"fold_witness W ({n + 1}, 8)": ([(rows(n + 1), s[2], 1)], [(rows(n + 1), 1)]),
+        f"w_ev_x six lengths {[t.shape[0] for t in ev]}": ([(t, k, 1) for t, k in zip(ev[1:], s[3:8])],
+                                                           [(ev[0], 1), (s[0], -1)]),
+        "r(X) nine terms, two launches": ([(ev[k % 6], s[k], (-1) ** k) for k in range(7)], [(ev[2], 1), (s[7], 1)]),
+        "edges: 8 terms of 0, 1, p - 1, +": ([(top, top, 1), (top, top, 1), (top, s[0], 1), (zero[:n], top, 1),
+                                               (rows(n), top[:1], 1)], [(top, 1), (zero[:n], 1), (rows(n), 1)]),
+        "edges: 8 terms of 0, 1, p - 1, -": ([(top, top, -1), (top, top, -1), (top, s[0], -1), (zero[:n], top, -1),
+                                               (rows(n), top[:1], -1)], [(top, -1), (zero[:n], -1), (rows(n), -1)]),
+    }
+    err = 0
+    for name, (products, addends) in cases.items():
+        before = lincomb.launches
+        got = lincomb(f, products, addends)
+        launched = lincomb.launches - before
+        want, plain_ms = _timed_once(lambda: lincomb_plain(f, products, addends))
+        err = max(err, _compare(f"field_lincomb {name}", [got], [want]))
+        m = got.shape[0]
+        K = len(products)
+        nbytes = 32 * (sum(a.shape[0] + b.reshape(-1, 8).shape[0] for a, b, _ in products)
+                       + sum(c.reshape(-1, 8).shape[0] for c, _ in addends) + m)
+        b = _bound(nbytes, _lincomb_words(m, K))
+        ms = _cuda_ms(lambda: lincomb(f, products, addends), 200)
+        k_ms, _ = _kernel_only_ms(lambda: lincomb(f, products, addends), 50, "lincomb_kernel")
+        chain_ms = _cuda_ms(lambda: chain(products, addends), 50)
+        assert torch.equal(chain(products, addends), got), f"field_lincomb {name}: the launch chain's words differ"
+        if name.startswith("compute_t"):
+            results["field_lincomb"] = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "n": m, **b,
+                                        "kernel_only_ms": k_ms}
+        print(f"phase 2: field_lincomb {name}: mismatches=0 in {launched} launch(es), kernel_ms={ms:.4f} kernel only "
+              f"{_only(k_ms * launched, b['bound_ms'])}; the launch chain it replaced ({K} products, "
+              f"{len(products) + len(addends) - 1} adds/subs) {chain_ms:.4f} ms; plain_ms={plain_ms:.4f} "
+              f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']})", flush=True)
+    results["field_lincomb"]["max_abs_err"] = err
+
+
 def _pythagorean_circuit():
     from zktpu_torch.plonk.circuit import Circuit
 
@@ -947,7 +1117,7 @@ def phase_plonk(device, log_n: int) -> tuple[dict, dict]:
     plain_carries = resolve.cuda_calls
     launches = launch_counts.read()
     path = ("mont_mul_fr", "mont_mul_fq", "proj_add", "ntt_fr", "horner_combine", "field_scan_fr", "field_addsub_fr",
-            "fixed_base_mul")
+            "fixed_base_mul", "field_lincomb")
     assert all(launches[k] > 0 for k in path), f"a kernel of the PLONK path never launched: {launches}"
     assert launches["proj_double"] == 0, f"the PLONK path doubled outside the Horner combine: {launches}"
     # no plain version runs on the card: every carry scan of limbs.resolve on a CUDA tensor is one
@@ -972,6 +1142,7 @@ def phase_plonk(device, log_n: int) -> tuple[dict, dict]:
     print(f"phase 4: rounds {json.dumps(rounds)}", flush=True)
     print(f"phase 4: launches {json.dumps(launches)}; limbs.resolve on CUDA tensors during prove + verify: "
           f"{plain_carries}", flush=True)
+    print(f"phase 4: {_field_launches(launches)}", flush=True)
     print(f"phase 4: one traced prove (outside the count): {_traced_prove(circuit, srs)}", flush=True)
     return launches, {"circuit": circuit, "srs": srs, "proof": kept}
 
@@ -1542,7 +1713,7 @@ def phase_nova(device, log_m: int, steps: int) -> tuple[dict, dict]:
     peak = torch.cuda.max_memory_allocated()
     assert len(checks) == 3 or steps < 3, f"Nova checks missing: {checks}"
     assert run["states"][-1] == pn.host_final_state(log_m, inputs), "the final state differs from the host's"
-    path = ("mont_mul_fr", "field_scan_fr", "field_addsub_fr", "horner_combine", "proj_add", "matvec_fr")
+    path = ("mont_mul_fr", "field_scan_fr", "field_lincomb", "horner_combine", "proj_add", "matvec_fr")
     assert all(launches[k] > 0 for k in path), f"a kernel of the Nova path never launched: {launches}"
     # six products a fold (compute_t) over steps - 1 folds, and three in the first fold's satisfaction check
     products = 6 * (steps - 1) + 3 * (steps > 1)
@@ -1557,6 +1728,7 @@ def phase_nova(device, log_m: int, steps: int) -> tuple[dict, dict]:
     print(f"phase 7: prove_s {[round(v, 4) for v in t['prove_s']]}", flush=True)
     print(f"phase 7: verify_s {[round(v, 4) for v in t['verify_s']]}", flush=True)
     print(f"phase 7: launches {json.dumps(launches)}", flush=True)
+    print(f"phase 7: {_field_launches(launches)}", flush=True)
     del run
     split = pn.split_step(scheme, r1cs, inputs, log_m, device)
     print(f"phase 7: split of one fold step (s): {json.dumps({k: round(v, 4) for k, v in split.items()})}", flush=True)
@@ -1715,12 +1887,13 @@ def phase_parser(device, log_n: int) -> dict:
     for name, com in zip(names, scheme.commit_many(list(polys))):
         assert getattr(cpi, name) == com, f"CPI's {name} differs from the prover's commitment"
     assert (cpi.n, cpi.k1, cpi.k2) == (c3.size, cc.k1, cc.k2) and cpi.pi_x == gc.pi_x
-    path = ("mont_mul_fr", "proj_add", "ntt_fr", "horner_combine", "field_scan_fr", "field_addsub_fr")
+    path = ("mont_mul_fr", "proj_add", "ntt_fr", "horner_combine", "field_scan_fr", "field_addsub_fr", "field_lincomb")
     assert all(launches[k] > 0 for k in path), f"a kernel of the parser path never launched: {launches}"
     print(f"phase 8: parser + CPI, '{eq[:40]} ...' ({terms} products, {c3.size} gates): parse + compile of two "
           f"equations {t_parse:.2f} s, prove {t_prove:.3f} s, verify {t_verify:.3f} s, CPI {t_cpi:.2f} s; the proof "
           f"verifies, a proof of another equation is rejected, CPI's 8 commitments == the prover's", flush=True)
     print(f"phase 8: launches {json.dumps(launches)}", flush=True)
+    print(f"phase 8: {_field_launches(launches)}", flush=True)
     return launches
 
 
@@ -2247,6 +2420,9 @@ _SOURCES = {
     "fixed_base_mul": ("zktpu_torch/csrc/g1.cu", "zktpu/curves/g1.py:300"),
     # Nova's matrix_vector_product (zktpu/nova/utils.py:28): kernel 1 against z[None], then the axis-1 sum
     "matvec_fr": ("zktpu_torch/csrc/matvec.cu", "zktpu/fields/pallas_mont.py:363"),
+    # the chains of kernel 1 (pallas_mont.py:363) and the add/sub (fp.py:270) in zktpu/nova/nifs.py:31-52 and
+    # zktpu/plonk/prover.py:184-191 and :493-
+    "field_lincomb": ("zktpu_torch/csrc/lincomb.cu", "zktpu/fields/pallas_mont.py:363"),
 }
 
 
@@ -2279,7 +2455,7 @@ def main(argv=None) -> int:
           f"-> {os.path.relpath(cuda_lib.library_path())}", flush=True)
     print(f"phase 1: pairing backend {pairing_backend()}", flush=True)
     from zktpu_torch.curves import g1_kernel
-    from zktpu_torch.fields import field_kernel, mont_kernel
+    from zktpu_torch.fields import field_kernel, lincomb_kernel, mont_kernel
     from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
     from zktpu_torch.fri import fold_kernel
     from zktpu_torch.hash import sha256_kernel
@@ -2294,6 +2470,7 @@ def main(argv=None) -> int:
     attrs["fri_fold"] = fold_kernel.kernel_attrs()
     attrs["fixed_base_mul"] = g1_kernel.kernel_attrs("fixed_base_mul")
     attrs["matvec_fr"] = matvec_kernel.kernel_attrs()
+    attrs["field_lincomb"] = lincomb_kernel.kernel_attrs()
     for spec in (FR, FQ):
         for variant in ("mxu", "f32"):
             attrs[f"mont_mul_chain_{variant} {spec.name}"] = mont_kernel.mont_mma_attrs(spec, variant)
@@ -2324,6 +2501,8 @@ def main(argv=None) -> int:
     phase_small_path_shapes(device, kernels)
     phase_ntt_horner(device, kernels, ntt_sizes=((args.log_n + 3, 7), (20, 1), (1, 3), (8, 3)))
     phase_field_ops(device, kernels, args.log_n, args.msm_log_n, parent)
+    phase_field_turns(device, kernels, parent)
+    phase_lincomb(device, kernels, args.log_n)
     phase_fri_kernels(device, kernels, args.fri_log_n)
     phase_fixed_base(device, kernels, args.msm_log_n, args.log_n, parent)
     torch.cuda.empty_cache()

@@ -1,7 +1,7 @@
 """Write the goldens that the port's CPU tests compare against, from zktpu.
 
     JAX_PLATFORMS=cpu python tests/goldens/make_goldens.py [field_ops] [fri] [fri_cases] [mont_mma] [nova] [matvec]
-        [kzg_vector] [parser] [mont_mul_words] [plonk] [compat] [dist] [g1]
+        [kzg_vector] [parser] [mont_mul_words] [plonk] [compat] [dist] [g1] [lincomb]
 
 - field_ops.npz: zktpu's DeviceField (cumprod and cumsum both ways, sum on
   axis 0 and 1, powers, batch_inv, add, sub, neg, double) on the inputs of
@@ -64,7 +64,12 @@
   PTS2: host_points_to_device of both, and _proj_add_jnp of the pair and
   _proj_double_jnp of PTS1 (the complete formulas' edge lanes: identity
   operands, P + P, P + (-P), identity + identity), as the port's (N, 12)
-  int32 limbs.
+  int32 limbs;
+- lincomb.npz: zktpu's own chains of products and adds/subs on the operands
+  of tests/test_torch_lincomb.py's lincomb_operands(): NIFS.compute_t and
+  NIFS.fold_witness on its dense (M, N) R1CS of random entries, and PLONK
+  round 5's w_ev_x chain (_sub_para, scale, + on zktpu's Poly) over its six
+  polynomials of unequal lengths, as the port's (n, 8) int32 limbs.
 
 Run once; the tests need neither JAX nor zktpu for these comparisons.  Not
 collected by pytest.
@@ -648,9 +653,39 @@ def g1() -> None:
     np.savez_compressed(os.path.join(HERE, "g1.npz"), **arrays)
 
 
+def lincomb() -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import test_torch_lincomb as t
+    from zktpu.fields.host import FR
+    from zktpu.nova import utils as zu
+    from zktpu.nova.nifs import NIFS
+    from zktpu.nova.r1cs import FWitness, R1CS
+    from zktpu.plonk.prover import _sub_para
+    from zktpu.poly.poly import Poly
+    from zktpu_torch.convert import digits_to_limbs
+
+    ops = t.lincomb_operands()
+    r1cs = R1CS(zu.to_f_matrix(ops["a"]), zu.to_f_matrix(ops["b"]), zu.to_f_matrix(ops["c"]), num_io=1,
+                num_vars=t.N - 3)
+    tt = NIFS.compute_t(r1cs, ops["u1"], ops["u2"], zu.to_f_vec(ops["z1"]), zu.to_f_vec(ops["z2"]))
+    f1 = FWitness(e=zu.to_f_vec(ops["e1"]), w=zu.to_f_vec(ops["w1"]))
+    f2 = FWitness(e=zu.to_f_vec(ops["e2"]), w=zu.to_f_vec(ops["w2"]))
+    folded = NIFS.fold_witness(ops["r"], f1, f2, tt)
+    polys = [Poly.from_ints(FR, c) for c in ops["polys"]]
+    bars, v = ops["bars"], ops["v"]
+    w_ev_x = _sub_para(polys[0], bars[0])
+    for k in range(1, 6):
+        w_ev_x = w_ev_x + _sub_para(polys[k], bars[k]).scale(FR.pow(v, k))
+    arrays = {"t": tt, "fold_e": folded.e, "fold_w": folded.w, "w_ev_x": w_ev_x.coeffs}
+    np.savez_compressed(os.path.join(HERE, "lincomb.npz"),
+                        **{k: digits_to_limbs(np.asarray(a)) for k, a in arrays.items()})
+
+
 TARGETS = {"field_ops": field_ops, "fri": fri, "fri_cases": fri_cases, "mont_mma": mont_mma, "nova": nova,
            "matvec": matvec, "kzg_vector": kzg_vector, "parser": parser, "mont_mul_words": mont_mul_words,
-           "plonk": plonk, "compat": compat, "dist": dist, "g1": g1}
+           "plonk": plonk, "compat": compat, "dist": dist, "g1": g1, "lincomb": lincomb}
 
 if __name__ == "__main__":
     for name in sys.argv[1:] or list(TARGETS):

@@ -121,7 +121,7 @@ def _host_op(lib, name, ins, shape):
     planes = np.array(descs, dtype=np.int64)
     p, pinv = cuda_lib.field_consts(FQ)
     n = int(np.prod(shape))
-    getattr(lib, f"host_{name}")(p.ctypes.data, pinv, planes.ctypes.data, n, shape[-1])
+    getattr(lib, f"host_{name}")(p, pinv, planes.ctypes.data, n, shape[-1])
     return out
 
 
@@ -133,7 +133,7 @@ def test_host_mont_mul_matches_plain(lib, spec):
     a, b = (f.encode_ints(_elements(rng, spec, 64)) for _ in range(2))
     out = torch.zeros_like(a)
     p, pinv = cuda_lib.field_consts(spec)
-    lib.host_mont_mul(L, p.ctypes.data, pinv, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], 0)
+    lib.host_mont_mul(L, p, pinv, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], 0)
     assert torch.equal(out, mont_mul_plain(spec, a, b))
 
 
@@ -146,7 +146,7 @@ def test_host_lazy_product_bound(lib):
     A, B = (torch.from_numpy(ints_to_limbs(v, 12)) for v in (a, b))
     out = torch.zeros_like(A)
     pl, pinv = cuda_lib.field_consts(FQ)
-    lib.host_mont_mul(12, pl.ctypes.data, pinv, A.data_ptr(), B.data_ptr(), out.data_ptr(), len(a), 1)
+    lib.host_mont_mul(12, pl, pinv, A.data_ptr(), B.data_ptr(), out.data_ptr(), len(a), 1)
     got = [int.from_bytes(r.astype("<u4").tobytes(), "little") for r in out.numpy()]
     rinv = pow(R, -1, p)
     assert all(g < 2 * p and g % p == x * y * rinv % p for g, x, y in zip(got, a, b))
@@ -249,7 +249,7 @@ def test_host_horner_combine_matches_plain(horner_libs, design, W, K, c, fill):
     out = tuple(torch.zeros((K, 12), dtype=torch.int32) for _ in range(3))
     ptrs = np.array([t.data_ptr() for t in (*parts, *out)], dtype=np.int64)
     p, pinv = cuda_lib.field_consts(FQ)
-    assert horner_libs[design].host_horner_combine(p.ctypes.data, pinv, ptrs.ctypes.data, W, K, c) == 0
+    assert horner_libs[design].host_horner_combine(p, pinv, ptrs.ctypes.data, W, K, c) == 0
     for g, w in zip(out, horner_combine_plain(parts, c)):
         assert torch.equal(g, w)
 
@@ -267,7 +267,7 @@ def test_host_horner_mul_chain_matches_plain(horner_libs, design):
         a, b = FQT.encode_ints([x]), FQT.encode_ints([y])
         out = torch.zeros_like(a)
         ptrs = np.array([a.data_ptr(), b.data_ptr(), out.data_ptr()], dtype=np.int64)
-        assert horner_libs[design].host_horner_mul_chain(p.ctypes.data, pinv, ptrs.ctypes.data, 3) == 0
+        assert horner_libs[design].host_horner_mul_chain(p, pinv, ptrs.ctypes.data, 3) == 0
         assert torch.equal(out, mont_mul_chain_plain(FQ, a, b, 3)), (x, y)
 
 
@@ -276,7 +276,7 @@ def _host_fixed_base(lib, tables, sc, window):
     out = tuple(torch.zeros((sc.shape[0], 12), dtype=torch.int32) for _ in range(3))
     ptrs = np.array([t.data_ptr() for t in (*tables[:2], sc, *out)], dtype=np.int64)
     p, pinv = cuda_lib.field_consts(FQ)
-    assert lib.host_fixed_base_mul(p.ctypes.data, pinv, ptrs.ctypes.data, sc.shape[0], window) == 0
+    assert lib.host_fixed_base_mul(p, pinv, ptrs.ctypes.data, sc.shape[0], window) == 0
     return out
 
 
@@ -372,7 +372,7 @@ def _host_ntt(so, x, table, in_factor, out_factor, spec=FR):
         keep.append(rows)
         args += [0 if rows is None else rows.data_ptr(), int(rows is not None and rows.shape[0] == n and n > 1)]
     p, pinv = cuda_lib.field_consts(spec)
-    passes = so.host_ntt(L, p.ctypes.data, pinv, x.data_ptr(), out.data_ptr(), x.shape[0], n.bit_length() - 1,
+    passes = so.host_ntt(L, p, pinv, x.data_ptr(), out.data_ptr(), x.shape[0], n.bit_length() - 1,
                          table.data_ptr(), *args)
     return out, passes
 
@@ -463,7 +463,7 @@ def test_host_gl_mul_matches_fmul_wide_and_plain():
     outs = []
     for wide in (0, 1):
         out = np.zeros_like(A)
-        so.host_gl_mul(pl.ctypes.data, pinv, A.ctypes.data, B.ctypes.data, out.ctypes.data, len(a), wide)
+        so.host_gl_mul(pl, pinv, A.ctypes.data, B.ctypes.data, out.ctypes.data, len(a), wide)
         outs.append(out)
     np.testing.assert_array_equal(outs[0], outs[1])
     plain = mont_mul_plain(GOLDILOCKS, torch.from_numpy(A.view(np.int32).reshape(-1, 2)),
@@ -706,7 +706,7 @@ def test_host_mont_mma_chain_matches_plain(spec, variant):
     qmat, pmat = (np.ascontiguousarray(m).view(np.int32) for m in kernel_mats(spec))
     p, pinv = cuda_lib.field_consts(spec)
     out = torch.zeros_like(a)
-    rc = so.host_mont_mma_chain(spec.num_digits // 2, p.ctypes.data, pinv, int(variant == "f32"), qmat.ctypes.data,
+    rc = so.host_mont_mma_chain(spec.num_digits // 2, p, pinv, int(variant == "f32"), qmat.ctypes.data,
                                 pmat.ctypes.data, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], 3)
     assert rc == 0
     assert torch.equal(out, mont_mul_chain_plain(spec, a, b, 3))
@@ -787,3 +787,89 @@ def test_host_matvec_refuses_bad_operands():
     for a, b in ((A, z[:2]), (A[:, :, :4], z), (A.to(torch.int64), z), (A[:, ::2], z[:2]), (A[:0], z)):
         with pytest.raises(ValueError):
             matvec_kernel.run(so, a, b)
+
+
+# The field linear combination (csrc/lincomb.cuh): every row's code on the
+# CPU, through the port's own wrapper (fields/lincomb_kernel.py's run).
+LINCOMB_SHIM = os.path.join(HERE, "lincomb_host.cpp")
+
+
+@pytest.fixture(scope="module")
+def lincomb_lib():
+    so = _build(LINCOMB_SHIM, "lincomb_host")
+    for name in ("zk_lincomb", "zk_lincomb_attrs"):
+        fn = getattr(so, name)
+        fn.argtypes = cuda_lib._SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return so
+
+
+def _host_lincomb(so, products, addends):
+    from zktpu_torch.fields import lincomb_kernel
+
+    terms, n = lincomb_kernel._terms(field(FR, "cpu"), products, addends)
+    out = torch.zeros((n, 8), dtype=torch.int32)
+    lincomb_kernel.run(so, [(a.contiguous(), None if b is None else b.contiguous(), s) for a, b, s in terms], n, out)
+    return out
+
+
+# (rows of each product's a, its b's rows (0: one row, a scalar), rows of each addend), signs alternating
+LINCOMB_CASES = {
+    "compute_t": ([(37, 37), (37, 37), (37, 0), (37, 0)], []),
+    "fold_e": ([(37, 0), (37, 0)], [37]),
+    "w_ev_x": ([(35, 0), (35, 0), (35, 0), (33, 0), (33, 0)], [40, 1]),
+    "eight_unequal": ([(1, 1), (9, 9), (4, 0), (16, 16), (2, 0)], [17, 3, 1]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LINCOMB_CASES))
+def test_host_lincomb_matches_plain(lincomb_lib, case):
+    """Random canonical rows with the edge words 0, 1, p - 2 and p - 1, at
+    the sites' shapes (unequal lengths, scalars, a row-0 addend), both
+    signs: the kernel's row code == the plain chain, every word."""
+    from zktpu_torch.fields.lincomb_kernel import lincomb_plain
+
+    prods, adds = LINCOMB_CASES[case]
+    rng = np.random.default_rng(len(case) * 7919 + len(prods))
+    sign = [1 if k % 3 else -1 for k in range(len(prods) + len(adds))]
+    products = [(_fr_words(rng, (na,)), _fr_words(rng, (nb or 1,)), sign[k]) for k, (na, nb) in enumerate(prods)]
+    addends = [(_fr_words(rng, (nc,)), sign[len(prods) + j]) for j, nc in enumerate(adds)]
+    want = lincomb_plain(field(FR, "cpu"), products, addends)
+    assert torch.equal(_host_lincomb(lincomb_lib, products, addends), want), case
+
+
+@pytest.mark.parametrize("negate", [False, True])
+def test_host_lincomb_all_p_minus_one(lincomb_lib, negate):
+    """K + J = 8 terms of rows of p - 1 (and of 0, which a negative term
+    turns into p): the accumulator's largest sums."""
+    from zktpu_torch.fields.lincomb_kernel import lincomb_plain
+
+    n, p = 5, FR.modulus
+    top = torch.from_numpy(ints_to_limbs([p - 1], 8))[0].expand(n, 8).contiguous()
+    zero = torch.zeros((n, 8), dtype=torch.int32)
+    s = -1 if negate else 1
+    products = [(top, top, s), (top, top, s), (top, top[:1], s), (zero, top, s), (top, zero[:1], s)]
+    addends = [(top, s), (zero, s), (top[:1], s)]
+    got = _host_lincomb(lincomb_lib, products, addends)
+    assert torch.equal(got, lincomb_plain(field(FR, "cpu"), products, addends))
+    rinv = pow(FR.mont_r, -1, p)
+    row = 3 * (p - 1) ** 2 * rinv + (p - 1)
+    want = [s * (row + (p - 1 if i == 0 else 0)) % p for i in range(n)]
+    assert [int.from_bytes(r.numpy().astype("<u4").tobytes(), "little") for r in got] == want
+
+
+def test_host_lincomb_refuses_bad_terms(lincomb_lib):
+    from zktpu_torch.fields import lincomb_kernel
+
+    a = torch.zeros((3, 8), dtype=torch.int32)
+    out = torch.zeros((3, 8), dtype=torch.int32)
+    with pytest.raises(RuntimeError):  # nine terms in one launch
+        lincomb_kernel.run(lincomb_lib, [(a, None, 1)] * 9, 3, out)
+    with pytest.raises(RuntimeError):  # a term longer than the result
+        lincomb_kernel.run(lincomb_lib, [(a, None, 1)], 2, out)
+    with pytest.raises(ValueError):  # b neither one row nor as long as a
+        lincomb_kernel.lincomb(field(FR, "cpu"), [(a, a[:2], 1)])
+    with pytest.raises(ValueError):
+        lincomb_kernel.lincomb(field(FR, "cpu"), [(a, a, 2)])
+    with pytest.raises(ValueError):
+        lincomb_kernel.lincomb(field(FQ, "cpu"), [], [(torch.zeros((3, 12), dtype=torch.int32), 1)])

@@ -548,7 +548,8 @@ def test_matvec_kernel_all_p_minus_one(device):
 def test_nova_chain_gpu_equals_cpu(device):
     """A 2^5 squaring chain, 3 IVC steps with every tensor path forced
     (HOST_MSM_MAX = HOST_POLY_MAX = 0): the card's records, states and
-    folded witness equal the CPU's; the product, sum, add/sub and MSM
+    folded witness equal the CPU's; the product, sum, linear-combination
+    (compute_t and the fold, which no longer launch the add/sub) and MSM
     kernels launched."""
     import zktpu_torch.config as cfg
     from zktpu_torch.kzg import KzgScheme, Srs
@@ -569,7 +570,7 @@ def test_nova_chain_gpu_equals_cpu(device):
                                         steps, dev)
             if dev.type == "cuda":
                 counts = launches.read()
-                assert all(counts[k] > 0 for k in ("mont_mul_fr", "field_scan_fr", "field_addsub_fr",
+                assert all(counts[k] > 0 for k in ("mont_mul_fr", "field_scan_fr", "field_lincomb",
                                                    "horner_combine", "proj_add")), counts
     finally:
         cfg.HOST_MSM_MAX, cfg.HOST_POLY_MAX = saved
@@ -684,3 +685,48 @@ def test_dist_world_1_matches_single_device(device):
             assert blinded[i] == scheme.commit(f + vanish).point
     finally:
         tdist.destroy_process_group()
+
+
+@pytest.mark.parametrize("rows", [1, 8, 5, 1 << 10], ids=["one_row", "mask", "modulo", "mask_1024"])
+def test_mont_mul_kernel_broadcast_periods(device, rows):
+    """An operand of `rows` rows against (K, rows): one row read at 0, a
+    power-of-two period by a mask, another by the modulo."""
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_plain
+
+    f = field(FR, device)
+    rng = random.Random(rows)
+    p = FR.modulus
+    A = f.encode_ints([p - 1, 0, 1] + [rng.randrange(p) for _ in range(12 * rows - 3)]).reshape(12, rows, -1)
+    T = f.encode_ints([p - 1] + [rng.randrange(p) for _ in range(rows - 1)])
+    assert torch.equal(mont_mul(FR, A, T), mont_mul_plain(FR, A, T))
+    assert torch.equal(mont_mul(FR, T, A), mont_mul_plain(FR, T, A))
+
+
+@pytest.mark.parametrize("case", ["compute_t", "fold_e", "w_ev_x", "eleven_terms"])
+def test_lincomb_kernel_matches_plain(device, case):
+    """field_lincomb against the plain chain at the sites' shapes (unequal
+    lengths, scalars, a row-0 addend; past eight terms, two launches)."""
+    from zktpu_torch.fields.fp import field
+    from zktpu_torch.fields.lincomb_kernel import lincomb, lincomb_plain
+
+    f = field(FR, device)
+    rng = random.Random(len(case))
+    p = FR.modulus
+    shapes = {"compute_t": ([(1 << 14, 1 << 14)] * 2 + [(1 << 14, 1)] * 2, []),
+              "fold_e": ([(1 << 14, 1)] * 2, [1 << 14]),
+              "w_ev_x": ([((1 << 14) + 5, 1)] * 3 + [(1 << 14, 1)] * 2, [(1 << 14) + 3, 1]),
+              "eleven_terms": ([(100, 100), (7, 1), (300, 1)] * 3, [299, 1])}[case]
+
+    def rows(n):
+        return f.encode_ints([p - 1, 0, 1][:n] + [rng.randrange(p) for _ in range(n - 3)])
+
+    products = [(rows(na), rows(nb), 1 if k % 2 else -1) for k, (na, nb) in enumerate(shapes[0])]
+    addends = [(rows(nc), -1 if j else 1) for j, nc in enumerate(shapes[1])]
+    before = lincomb.launches
+    got = lincomb(f, products, addends)
+    assert lincomb.launches == before + (2 if len(products) + len(addends) > 8 else 1)
+    want = lincomb_plain(f, products, addends)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        lincomb(f, [(products[0][0].cpu(), products[0][1], 1)])

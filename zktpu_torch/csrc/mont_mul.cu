@@ -3,9 +3,11 @@
 // Replaces zktpu/fields/pallas_mont.py::_mont_mul_call (the Pallas kernel
 // behind mont_mul_pallas).  One thread per element runs CIOS over L u32 limbs
 // in registers (field.cuh::fmul), instantiated for L = 12 (Fq), 8 (Fr) and
-// 2 (Goldilocks).  Operands broadcast by a modulo on the row index, which
-// covers the shapes the port uses (a full batch times one constant, or a
-// (K, m) batch times an (m,) table).  Fr and Fq rows are read and written as
+// 2 (Goldilocks).  An operand of na < n rows broadcasts by its row index
+// modulo na, which covers the shapes the port uses (a full batch times one
+// constant, or a (K, m) batch times an (m,) table): one row is read at index
+// 0, a power-of-two period by a mask, any other by the 64-bit modulo (each
+// a branch that every thread takes alike).  Fr and Fq rows are read and written as
 // 16-byte words (2 and 3 a row) when every pointer is 16-byte aligned, which
 // the wrapper's contiguous operands are.  Plain C interface, loaded with
 // ctypes.
@@ -19,6 +21,14 @@
 
 #include "field.cuh"
 
+// Row i of an operand of `rows` rows, broadcast over n >= rows rows.
+__device__ __forceinline__ int64_t bcast_row(int64_t i, int64_t rows, int64_t n) {
+  if (rows == n) return i;
+  if (rows == 1) return 0;
+  if ((rows & (rows - 1)) == 0) return i & (rows - 1);
+  return i % rows;
+}
+
 // VEC: rows as 16-byte words (L = 8 or 12 and every pointer 16-byte aligned).
 template <int L, bool VEC>
 __global__ void __launch_bounds__(256)
@@ -26,8 +36,8 @@ mont_mul_kernel(const uint32_t* __restrict__ a, int64_t na, const uint32_t* __re
                 int64_t nb, uint32_t* __restrict__ out, int64_t n, FieldConsts<L> f) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int64_t ia = na == n ? i : i % na;
-  const int64_t ib = nb == n ? i : i % nb;
+  const int64_t ia = bcast_row(i, na, n);
+  const int64_t ib = bcast_row(i, nb, n);
   uint32_t x[L], y[L], r[L];
   if constexpr (VEC) {
     load_elem<L>(x, a + ia * L);

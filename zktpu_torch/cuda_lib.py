@@ -26,9 +26,10 @@ from .fields.host import FieldSpec
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "zktpu_torch")
-SOURCES = ("mont_mul.cu", "g1.cu", "ntt.cu", "field_ops.cu", "sha256.cu", "mont_mma.cu", "fri_fold.cu", "matvec.cu")
+SOURCES = ("mont_mul.cu", "g1.cu", "ntt.cu", "field_ops.cu", "sha256.cu", "mont_mma.cu", "fri_fold.cu", "matvec.cu",
+           "lincomb.cu")
 HEADERS = ("field.cuh", "g1.cuh", "ntt.cuh", "ntt_gl.cuh", "field_ops.cuh", "sha256.cuh", "mont_mma.cuh",
-           "fri_fold.cuh", "matvec.cuh")
+           "fri_fold.cuh", "matvec.cuh", "lincomb.cuh")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -103,6 +104,11 @@ _SIGNATURES = {
     "zk_matvec": [ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _P, _P, _I64, _I64, _P],
     # out {registers, local bytes, shared bytes, rows a block, threads a block}
     "zk_matvec_attrs": [_P],
+    # device, p (host), pinv, 2^32 R mod p (host), terms (host: 5 int64 each: a, its rows, b or 0, its rows,
+    # negate), their count, out, n, stream
+    "zk_lincomb": [ctypes.c_int, _P, ctypes.c_uint32, _P, _P, ctypes.c_int, _P, _I64, _P],
+    # out {registers, local bytes, shared bytes, threads a block}
+    "zk_lincomb_attrs": [_P],
 }
 
 
@@ -249,12 +255,40 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def field_consts(spec: FieldSpec) -> tuple[np.ndarray, int]:
-    """(p as little-endian u32 limbs, -p^{-1} mod 2^32) for a kernel launch."""
-    L = spec.num_digits // 2
-    p = np.frombuffer(spec.modulus.to_bytes(4 * L, "little"), dtype="<u4").copy()
-    return p, (-pow(spec.modulus, -1, 1 << 32)) % (1 << 32)
+_CONSTS: dict = {}  # field name -> (p's limbs, kept alive here, (their address, -p^{-1} mod 2^32))
+
+
+def field_consts(spec: FieldSpec) -> tuple[int, int]:
+    """(the host address of p as little-endian u32 limbs, -p^{-1} mod 2^32)
+    for a kernel launch: one pair per field, made on first use."""
+    hit = _CONSTS.get(spec.name)
+    if hit is None:
+        L = spec.num_digits // 2
+        p = np.frombuffer(spec.modulus.to_bytes(4 * L, "little"), dtype="<u4").copy()
+        hit = _CONSTS[spec.name] = (p, (p.ctypes.data, (-pow(spec.modulus, -1, 1 << 32)) % (1 << 32)))
+    return hit[1]
+
+
+def broadcast_shapes(*shapes) -> tuple:
+    """torch.broadcast_shapes on plain tuples of ints: the same result, and
+    the same error (RuntimeError, or ValueError for a negative length) where
+    it raises, without its Python reference path."""
+    out: list = []
+    for shape in shapes:
+        shape = tuple(shape)
+        if any(s < 0 for s in shape):
+            raise ValueError("Attempting to broadcast a dimension with negative length!")
+        if len(shape) > len(out):
+            out[:0] = [1] * (len(shape) - len(out))
+        for i in range(1, len(shape) + 1):
+            s, o = shape[-i], out[-i]
+            if s != o:
+                if o == 1:
+                    out[-i] = s
+                elif s != 1:
+                    raise RuntimeError(f"Attempting to broadcast a dimension of length {s} at {-i}! Mismatching "
+                                       f"shape {shape}; expected a shape broadcastable to {out}")
+    return tuple(out)
 
 
 def check(rc: int, name: str) -> None:
@@ -264,7 +298,8 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of t's device, as the address the kernels take."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check_cuda_operands(name: str, tensors, limbs: int, contiguous: bool = True) -> None:

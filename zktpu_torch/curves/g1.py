@@ -58,7 +58,10 @@ def proj_tree_sum(P, axis: int = 0):
 def proj_to_affine_host(P) -> list[G1Affine]:
     """Batch of projective points -> host affine points (one host inversion each)."""
     fq = field(FQ, P[0].device)
-    x_ints, y_ints, z_ints = (fq.decode_ints(a.reshape(-1, LIMBS)) for a in P)
+    # X, Y and Z decoded together: one from_mont and one copy to the host
+    ints = fq.decode_ints(torch.stack([a.reshape(-1, LIMBS) for a in P]))
+    n = len(ints) // 3
+    x_ints, y_ints, z_ints = ints[:n], ints[n:2 * n], ints[2 * n:]
     p = FQ.modulus
     out = []
     for x, y, z in zip(x_ints, y_ints, z_ints):

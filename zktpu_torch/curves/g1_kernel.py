@@ -255,7 +255,7 @@ def _run(name: str, plain, ins, out):
     are P1).  Returns (the three output planes, launched)."""
     full = tuple(ins[0].shape)
     if any(t.shape != full for t in ins):
-        full = tuple(torch.broadcast_shapes(*[t.shape for t in ins]))
+        full = cuda_lib.broadcast_shapes(*[t.shape for t in ins])
     shape = full[:-1]
     if out is not None:
         _check_out(name, out, full, ins)
@@ -292,7 +292,7 @@ def _run(name: str, plain, ins, out):
     p, pinv = cuda_lib.field_consts(FQ)
     planes = np.array(descs, dtype=np.int64)
     rc = getattr(lib, f"zk_{name}")(
-        ins[0].device.index, p.ctypes.data, pinv, planes.ctypes.data, n, shape[-1] if shape else 1,
+        ins[0].device.index, p, pinv, planes.ctypes.data, n, shape[-1] if shape else 1,
         cuda_lib.stream_of(out[0]),
     )
     cuda_lib.check(rc, name)
@@ -353,7 +353,7 @@ def horner_combine(parts, c: int):
     lib = cuda_lib.load()
     p, pinv = cuda_lib.field_consts(FQ)
     ptrs = np.array([t.data_ptr() for t in (*ins, *out)], dtype=np.int64)
-    rc = lib.zk_horner_combine(ins[0].device.index, p.ctypes.data, pinv, ptrs.ctypes.data, W, K, int(c),
+    rc = lib.zk_horner_combine(ins[0].device.index, p, pinv, ptrs.ctypes.data, W, K, int(c),
                                cuda_lib.stream_of(out[0]))
     cuda_lib.check(rc, "horner_combine")
     horner_combine.launches += 1
@@ -397,7 +397,7 @@ def fixed_base_mul(tables, scalars_u32, window: int):
     lib = cuda_lib.load()
     p, pinv = cuda_lib.field_consts(FQ)
     ptrs = np.array([t.data_ptr() for t in (*ins[:2], sc, *out)], dtype=np.int64)
-    rc = lib.zk_fixed_base_mul(sc.device.index, p.ctypes.data, pinv, ptrs.ctypes.data, n, int(window),
+    rc = lib.zk_fixed_base_mul(sc.device.index, p, pinv, ptrs.ctypes.data, n, int(window),
                                cuda_lib.stream_of(out[0]))
     cuda_lib.check(rc, "fixed_base_mul")
     fixed_base_mul.launches += 1

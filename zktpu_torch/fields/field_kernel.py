@@ -274,7 +274,7 @@ def _pass(lib, spec, op, mode, src, n, B, dirs, out_fwd=None, out_rev=None, out_
     p, pinv = cuda_lib.field_consts(spec)
     ident = _identity(spec, op)
     rc = lib.zk_field_scan(
-        t.device.index or 0, spec.num_digits // 2, p.ctypes.data, pinv, ident.ctypes.data, op, mode,
+        t.device.index or 0, spec.num_digits // 2, p, pinv, ident.ctypes.data, op, mode,
         t.data_ptr(), rs, cs, n, B, chunk, dirs, _ptr(out_fwd), _ptr(out_rev), out_rs, out_cs, _ptr(total),
         buf.data_ptr(), slots, ticket, epoch, stream,
     )
@@ -321,7 +321,7 @@ def powers_kernel(lib, f, base: int, count: int) -> tuple[torch.Tensor, int]:
     tab = _host_limbs(table, L)
     p, pinv = cuda_lib.field_consts(spec)
     one = _identity(spec, OP_MUL)
-    rc = lib.zk_field_powers(out.device.index or 0, L, p.ctypes.data, pinv, one.ctypes.data, tab.ctypes.data,
+    rc = lib.zk_field_powers(out.device.index or 0, L, p, pinv, one.ctypes.data, tab.ctypes.data,
                              out.data_ptr(), count, POWERS_CHUNK, _stream(out))
     cuda_lib.check(rc, "field_powers")
     return out, 1
@@ -343,7 +343,7 @@ def batch_inv_kernel(lib, f, a: torch.Tensor, host_inv) -> tuple[torch.Tensor, i
     one = _identity(spec, OP_MUL)
     p, pinv = cuda_lib.field_consts(spec)
     out = torch.empty_like(flat)
-    rc = lib.zk_field_batch_inv(flat.device.index or 0, L, p.ctypes.data, pinv, one.ctypes.data, inv.ctypes.data,
+    rc = lib.zk_field_batch_inv(flat.device.index or 0, L, p, pinv, one.ctypes.data, inv.ctypes.data,
                                 prefix.data_ptr(), suffix.data_ptr(), out.data_ptr(), n, _stream(out))
     cuda_lib.check(rc, "field_batch_inv")
     return out.reshape(a.shape), k + 1
@@ -352,17 +352,18 @@ def batch_inv_kernel(lib, f, a: torch.Tensor, host_inv) -> tuple[torch.Tensor, i
 def addsub_kernel(lib, f, a: torch.Tensor, b: torch.Tensor, op: int) -> tuple[torch.Tensor, int]:
     """``add`` (op 0) or ``sub`` (op 1) through `lib`: (result, launches)."""
     L = f.num_limbs
-    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    sa, sb = tuple(a.shape[:-1]), tuple(b.shape[:-1])
+    shape = sa if sa == sb else cuda_lib.broadcast_shapes(sa, sb)
     n = 1
     for s in shape:
         n *= s
     a, na = _aligned(*_broadcast_operand(a, shape))
     b, nb = _aligned(*_broadcast_operand(b, shape))
-    out = torch.empty(tuple(shape) + (L,), dtype=torch.int32, device=a.device)
+    out = torch.empty(shape + (L,), dtype=torch.int32, device=a.device)
     if n == 0:
         return out, 0
     p, pinv = cuda_lib.field_consts(f.spec)
-    rc = lib.zk_field_addsub(a.device.index or 0, L, p.ctypes.data, pinv, op, a.data_ptr(), na or n,
+    rc = lib.zk_field_addsub(a.device.index or 0, L, p, pinv, op, a.data_ptr(), na or n,
                              b.data_ptr(), nb or n, out.data_ptr(), n, _stream(out))
     cuda_lib.check(rc, "field_addsub")
     return out, 1

@@ -4,7 +4,9 @@ A field element is (..., L) little-endian 32-bit limbs in a torch.int32
 tensor, Montgomery form with R = 2^(32 L) (the same R as zktpu's 16-bit-digit
 layout), canonical (< p).  ``mont_mul`` is kernel 1 (fields/mont_kernel.py);
 add, sub, neg and double are kernel B and the scans (cumprod, cumsum, sum,
-powers, batch_inv) kernel A (fields/field_kernel.py).  Each runs its kernel
+powers, batch_inv) kernel A (fields/field_kernel.py); ``lincomb`` (a sum of
+products and addends in one pass, Fr) is field_lincomb
+(fields/lincomb_kernel.py).  Each runs its kernel
 for CUDA tensors and its plain version for CPU tensors.  Every op is
 shape-polymorphic over leading axes.
 """
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from . import field_kernel as _fk
+from . import lincomb_kernel as _lc
 from ..profiling import debug_enabled
 from .host import FieldSpec
 from .limbs import widen
@@ -86,6 +89,12 @@ class TorchField:
 
     def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return _fk.sub(self, a, b)
+
+    def lincomb(self, products, addends=()) -> torch.Tensor:
+        """sum (+-) a b over `products` (a, b, sign) plus sum (+-) c over
+        `addends` (c, sign), rows past an operand's length read as 0: one
+        launch of field_lincomb (Fr; fields/lincomb_kernel.py)."""
+        return _lc.lincomb(self, products, addends)
 
     def neg(self, a: torch.Tensor) -> torch.Tensor:
         return _fk.sub(self, self.zero, a)

@@ -45,19 +45,21 @@ from .limbs import MASK16, digits16_to_limbs, limbs_to_digits16, normalize16, re
 from .mont_mats import check_mxu_field, kernel_mats_on, mont_matmats
 
 
-def _broadcast_operand(t: torch.Tensor, shape: torch.Size):
-    """Contiguous operand plus its row count for the kernel's modulo indexing.
+def _broadcast_operand(t: torch.Tensor, shape: tuple):
+    """Contiguous operand plus its row count for the kernel's row indexing.
 
     An operand whose batch shape is a suffix of the output's (e.g. one
     constant, or a table repeated over a leading batch axis) is passed as is;
     any other broadcast is materialised."""
     limbs = t.shape[-1]
-    tb = list(t.shape[:-1])
+    tb = tuple(t.shape[:-1])
+    if tb == shape and t.is_contiguous():
+        return t, None
     while tb and tb[0] == 1:
-        tb.pop(0)
-    if tuple(tb) == tuple(shape[len(shape) - len(tb):]):
+        tb = tb[1:]
+    if tb == shape[len(shape) - len(tb):]:
         return t.contiguous(), max(t.numel() // limbs, 1)
-    return t.expand(tuple(shape) + (limbs,)).contiguous(), None
+    return t.expand(shape + (limbs,)).contiguous(), None
 
 
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -65,20 +67,19 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu" and b.device.type == "cpu":
         return mont_mul_plain(spec, a, b)
     limbs = spec.num_digits // 2
-    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    sa, sb = tuple(a.shape[:-1]), tuple(b.shape[:-1])
+    shape = sa if sa == sb else cuda_lib.broadcast_shapes(sa, sb)
     n = 1
     for s in shape:
         n *= s
     a, na = _broadcast_operand(a, shape)
     b, nb = _broadcast_operand(b, shape)
     cuda_lib.check_cuda_operands("mont_mul", (a, b), limbs)
-    out = torch.empty(tuple(shape) + (limbs,), dtype=torch.int32, device=a.device)
+    out = torch.empty(shape + (limbs,), dtype=torch.int32, device=a.device)
     if n:
-        lib = cuda_lib.load()
         p, pinv = cuda_lib.field_consts(spec)
-        rc = lib.zk_mont_mul(
-            a.device.index, limbs, p.ctypes.data, pinv,
-            a.data_ptr(), na or n, b.data_ptr(), nb or n, out.data_ptr(), n,
+        rc = cuda_lib.load().zk_mont_mul(
+            a.device.index, limbs, p, pinv, a.data_ptr(), na or n, b.data_ptr(), nb or n, out.data_ptr(), n,
             cuda_lib.stream_of(out),
         )
         cuda_lib.check(rc, "mont_mul")
@@ -166,11 +167,11 @@ def mont_mul_chain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, chain: int
         p, pinv = cuda_lib.field_consts(spec)
         stream = cuda_lib.stream_of(out)
         if variant == "base":
-            rc = lib.zk_mont_mul_chain(a.device.index, limbs, p.ctypes.data, pinv,
+            rc = lib.zk_mont_mul_chain(a.device.index, limbs, p, pinv,
                                        a.data_ptr(), b.data_ptr(), out.data_ptr(), n, int(chain), stream)
         else:
             qmat, pmat = kernel_mats_on(spec, a.device)
-            rc = lib.zk_mont_mma_chain(a.device.index, limbs, p.ctypes.data, pinv, int(variant == "f32"),
+            rc = lib.zk_mont_mma_chain(a.device.index, limbs, p, pinv, int(variant == "f32"),
                                        qmat.data_ptr(), pmat.data_ptr(), a.data_ptr(), b.data_ptr(),
                                        out.data_ptr(), n, int(chain), stream)
         cuda_lib.check(rc, f"mont_mul_chain ({variant})")

@@ -57,7 +57,7 @@ def run(lib, A: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, L), dtype=torch.int32, device=A.device)
     p, pinv = cuda_lib.field_consts(FR)
     stream = cuda_lib.stream_of(out) if out.is_cuda else 0
-    rc = lib.zk_matvec(A.device.index or 0, p.ctypes.data, pinv, _k().ctypes.data, A.data_ptr(), z.data_ptr(),
+    rc = lib.zk_matvec(A.device.index or 0, p, pinv, _k().ctypes.data, A.data_ptr(), z.data_ptr(),
                        out.data_ptr(), m, n, stream)
     cuda_lib.check(rc, "matvec")
     return out

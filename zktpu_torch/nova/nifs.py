@@ -1,7 +1,8 @@
 """The NIFS folding scheme (counterpart of zktpu/nova/nifs.py).
 
 compute_t: T = AZ1 o BZ2 + AZ2 o BZ1 - u1 CZ2 - u2 CZ1 (six matrix-vector
-products on the device); fold_witness: E <- E1 + r T + r^2 E2, W <- W1 + r W2;
+products on the device, then one field_lincomb); fold_witness: E <- E1 + r T
++ r^2 E2, W <- W1 + r W2 (one field_lincomb each);
 fold_instance: the same on the commitments (host G1 scalar multiplications),
 u and x.  prove opens the folded E and W at a transcript challenge; verify
 checks the challenge and both openings.
@@ -18,7 +19,7 @@ from ..kzg.scheme import KzgCommitment, KzgOpening, KzgScheme
 from ..poly.poly import Poly
 from ..transcript.transcripts import NovaTranscript
 from .r1cs import R1CS, FInstance, FWitness, NovaError, _trim, z_vector
-from .utils import hadamard_product, matrix_vector_product, to_f_matrix, vec_add, vec_sub, vector_elem_product
+from .utils import matrix_vector_product, to_f_matrix
 
 
 @dataclass
@@ -39,16 +40,22 @@ class NIFS:
         bz2 = matrix_vector_product(r1cs.matrix_b, z2)
         cz2 = matrix_vector_product(r1cs.matrix_c, z2)
 
-        t = vec_add(hadamard_product(az1, bz2), hadamard_product(az2, bz1))
-        t = vec_sub(t, vector_elem_product(cz2, u1))
-        return vec_sub(t, vector_elem_product(cz1, u2))
+        # t = az1 o bz2 + az2 o bz1 - u1 cz2 - u2 cz1: one field_lincomb in place of zktpu's chain of four
+        # products, an add and two subs (the same words: csrc/lincomb.cuh)
+        f = field(FR, az1.device)
+        u = f.encode_ints([u1, u2])
+        return f.lincomb([(az1, bz2, 1), (az2, bz1, 1), (cz2, u[:1], -1), (cz1, u[1:], -1)])
 
     @staticmethod
     def fold_witness(r: int, fw1: FWitness, fw2: FWitness, t: torch.Tensor) -> FWitness:
+        """E1 + r T + r^2 E2 and W1 + r W2, one field_lincomb each (zktpu's chain: three products, three adds)."""
+        for x, y in ((fw1.e, t), (fw1.e, fw2.e), (fw1.w, fw2.w)):
+            if x.shape != y.shape:  # the chain's adds broadcast nothing here
+                raise ValueError(f"fold_witness: operand shapes differ: {tuple(x.shape)} vs {tuple(y.shape)}")
         f = field(FR, t.device)
-        rd, r2d = f.encode_int(r), f.encode_int(FR.mul(r, r))
-        new_e = f.add(fw1.e, f.add(f.mont_mul(t, rd), f.mont_mul(fw2.e, r2d)))
-        new_w = f.add(fw1.w, f.mont_mul(fw2.w, rd))
+        rr = f.encode_ints([r, FR.mul(r, r)])
+        new_e = f.lincomb([(t, rr[:1], 1), (fw2.e, rr[1:], 1)], [(fw1.e, 1)])
+        new_w = f.lincomb([(fw2.w, rr[:1], 1)], [(fw1.w, 1)])
         return FWitness(e=new_e, w=new_w)
 
     @staticmethod

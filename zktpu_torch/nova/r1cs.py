@@ -14,7 +14,7 @@ from ..fields.fp import field
 from ..fields.host import FR
 from ..kzg.scheme import KzgCommitment, KzgScheme
 from ..poly.poly import Poly
-from .utils import hadamard_product, matrix_vector_product, vec_add, vec_equal, vector_elem_product
+from .utils import matrix_vector_product
 
 
 @dataclass
@@ -85,9 +85,11 @@ def is_r1cs_satisfied(r1cs: R1CS, f_instance: FInstance, f_witness: FWitness, sc
     az = matrix_vector_product(r1cs.matrix_a, z)
     bz = matrix_vector_product(r1cs.matrix_b, z)
     cz = matrix_vector_product(r1cs.matrix_c, z)
-    left = hadamard_product(az, bz)
-    right = vec_add(vector_elem_product(cz, f_instance.u), f_witness.e)
-    res_eq = vec_equal(left, right)
+    # (A Z) o (B Z) == u (C Z) + E, shapes first (as vec_equal compares them), then
+    # (A Z) o (B Z) - u (C Z) - E == 0 in one field_lincomb
+    f = field(FR, z.device)
+    res_eq = az.shape == bz.shape == cz.shape == f_witness.e.shape and not bool(
+        f.lincomb([(az, bz, 1), (cz, f.encode_int(f_instance.u), -1)], [(f_witness.e, -1)]).any())
 
     res_com = f_instance.com_w == scheme.commit_coeffs(_trim(f_witness.w)) and (
         f_instance.com_e == scheme.commit_coeffs(_trim(f_witness.e))

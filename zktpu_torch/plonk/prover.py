@@ -156,14 +156,15 @@ def generate_proof(
     _mark("round5.linearisation")
     bar_r = r_x.evaluate(zeta)
 
-    w_ev_x = (
-        _sub_para(r_x, bar_r)
-        + _sub_para(ax, bar_a).scale(v)
-        + _sub_para(bx, bar_b).scale(FR.pow(v, 2))
-        + _sub_para(cx, bar_c).scale(FR.pow(v, 3))
-        + _sub_para(cc.s_sigma_1, bar_s_sigma_1).scale(FR.pow(v, 4))
-        + _sub_para(cc.s_sigma_2, bar_s_sigma_2).scale(FR.pow(v, 5))
-    )
+    # w_ev_x = (r - bar_r) + sum_k v^k (P_k - bar_k) for P_k = a, b, c, s_sigma_1, s_sigma_2: one
+    # field_lincomb of five products by scalars, r, and the constant -(bar_r + sum_k v^k bar_k) at row 0
+    # (zktpu's chain: six subs, five scales, five adds; the same words, csrc/lincomb.cuh)
+    polys = (ax, bx, cx, cc.s_sigma_1, cc.s_sigma_2)
+    vk = [FR.pow(v, k) for k in range(1, 6)]
+    const = bar_r
+    for vi, bar in zip(vk, (bar_a, bar_b, bar_c, bar_s_sigma_1, bar_s_sigma_2)):
+        const = FR.add(const, FR.mul(vi, bar))
+    w_ev_x = _lincomb_poly(r_x.df, [(P, k, 1) for P, k in zip(polys, vk)], [(r_x, 1), (const, -1)])
     w_ev_x, rem = w_ev_x.divide_by_linear(zeta)
     assert rem == 0, "w_ev_x was computed incorrectly"
 
@@ -191,6 +192,24 @@ def generate_proof(
 
 def _sub_para(poly: Poly, para: int) -> Poly:
     return poly - Poly.constant(FR, para, poly.device)
+
+
+def _lincomb_poly(df, products, addends) -> Poly:
+    """sum (+-) k P over `products` (Poly P, int k, sign) plus sum (+-) Q
+    over `addends` (Poly Q or an int constant at X^0, sign): one
+    field_lincomb (two past eight terms), its scalars and constants sent to
+    the device in one copy, trimmed once as Poly.__add__ trims."""
+    ints = [k % FR.modulus for _, k, _ in products] + [q % FR.modulus for q, _ in addends if isinstance(q, int)]
+    enc = df.encode_ints(ints)
+    prods = [(P.coeffs, enc[i:i + 1], s) for i, (P, _, s) in enumerate(products)]
+    adds, j = [], len(products)
+    for q, s in addends:
+        if isinstance(q, int):
+            adds.append((enc[j:j + 1], s))
+            j += 1
+        else:
+            adds.append((q.coeffs, s))
+    return Poly(FR, df.lincomb(prods, adds))
 
 
 def compute_acc(beta: int, gamma: int, dom, compiled_circuit: CompiledCircuit):
@@ -310,7 +329,8 @@ def _coset_divide_zh(dom_big, evals: torch.Tensor, offset: int, n: int, max_deg:
         cur = FR.mul(cur, w_k)
     assert all(v != 0 for v in zh_vals), "coset offset hits the domain"
     zh_inv = dom_big.df.encode_ints([FR.inv(v) for v in zh_vals])  # (k, 8)
-    t_evals = dom_big.df.mont_mul(evals, zh_inv.repeat(m // k, 1))
+    # zh_inv against each block of k rows in place: the kernel reads its (k, 8) rows by a mask
+    t_evals = dom_big.df.mont_mul(evals.reshape(m // k, k, -1), zh_inv).reshape(m, -1)
     coeffs = dom_big.coset_ifft(t_evals, offset)
     if bool((coeffs[max_deg + 1 :] != 0).any()):
         raise AssertionError("has remainder")  # reference expect("No remainder")
@@ -402,16 +422,6 @@ def compute_linearisation_polynomial(
     identity asserted on the scalar evaluations."""
     cc = compiled_circuit.copy_constraints
     gc = compiled_circuit.gate_constraints
-    device = z_x.device
-
-    line1 = (
-        gc.q_mx.scale(FR.mul(bar_a, bar_b))
-        + gc.q_lx.scale(bar_a)
-        + gc.q_rx.scale(bar_b)
-        + gc.q_ox.scale(bar_c)
-        + gc.q_cx
-        + Poly.constant(FR, pi_e, device)
-    )
 
     l2s = alpha
     for t in (
@@ -420,7 +430,6 @@ def compute_linearisation_polynomial(
         FR.add(FR.add(bar_c, FR.mul(FR.mul(beta, cc.k2), zeta)), gamma),
     ):
         l2s = FR.mul(l2s, t)
-    line2 = z_x.scale(l2s)
 
     l3s = FR.mul(
         FR.mul(
@@ -429,8 +438,6 @@ def compute_linearisation_polynomial(
         ),
         FR.mul(bar_z_w, alpha),
     )
-    tmp2 = cc.s_sigma_3.scale(beta) + Poly.constant(FR, FR.add(bar_c, gamma), device)
-    line3 = tmp2.scale(l3s)
 
     # reference sanity check (prover.rs:514-553) on scalars
     line22 = FR.mul(
@@ -465,6 +472,16 @@ def compute_linearisation_polynomial(
         l1_e = FR.mul(z_h_e, FR.inv(FR.mul(dom.size % FR.modulus, FR.sub(zeta, 1))))
     else:  # pragma: no cover
         l1_e = l1_poly(dom).evaluate(zeta)
-    line4 = (z_x - Poly.constant(FR, 1, device)).scale(FR.mul(l1_e, FR.mul(alpha, alpha)))
-    line5 = tx_compact.scale(z_h_e)
-    return line1 + line2 - line3 + line4 - line5
+    # r = line1 + line2 - line3 + line4 - line5 with
+    #   line1 = q_m bar_a bar_b + q_l bar_a + q_r bar_b + q_o bar_c + q_c + pi_e,
+    #   line2 = z l2s, line3 = (s_sigma_3 beta + bar_c + gamma) l3s,
+    #   line4 = (z - 1) l1_e alpha^2, line5 = t_compact z_h(zeta):
+    # seven products by scalars, q_c and one constant at X^0: two field_lincomb launches for the nine terms,
+    # one when a polynomial among them is zero (zktpu's chain: about twenty scales, adds and subs; the same
+    # words, csrc/lincomb.cuh)
+    l4s = FR.mul(l1_e, FR.mul(alpha, alpha))
+    const = FR.sub(FR.sub(pi_e, FR.mul(FR.add(bar_c, gamma), l3s)), l4s)
+    return _lincomb_poly(z_x.df, [
+        (gc.q_mx, FR.mul(bar_a, bar_b), 1), (gc.q_lx, bar_a, 1), (gc.q_rx, bar_b, 1), (gc.q_ox, bar_c, 1),
+        (z_x, FR.add(l2s, l4s), 1), (cc.s_sigma_3, FR.mul(beta, l3s), -1), (tx_compact, z_h_e, -1),
+    ], [(gc.q_cx, 1), (const, 1)])

@@ -135,7 +135,7 @@ def ntt(values, table, inverse: bool, in_factor=None, out_factor=None, spec: Fie
     p, pinv = cuda_lib.field_consts(spec)
     launched = ctypes.c_int(0)
     rc = lib.zk_ntt(
-        x.device.index, limbs, p.ctypes.data, pinv, x.data_ptr(), out.data_ptr(), batch, log_n, tw.data_ptr(),
+        x.device.index, limbs, p, pinv, x.data_ptr(), out.data_ptr(), batch, log_n, tw.data_ptr(),
         0 if fin is None else fin.data_ptr(), fin_s, 0 if fout is None else fout.data_ptr(), fout_s,
         cuda_lib.stream_of(out), ctypes.byref(launched),
     )

@@ -84,7 +84,7 @@ def mul_chain(lib, a: torch.Tensor, b: torch.Tensor, chain: int) -> torch.Tensor
     out = torch.empty_like(a)
     p, pinv = cuda_lib.field_consts(g1_kernel.FQ)
     ptrs = np.array([a.data_ptr(), b.data_ptr(), out.data_ptr()], dtype=np.int64)
-    cuda_lib.check(lib.zk_horner_mul_chain(a.device.index, p.ctypes.data, pinv, ptrs.ctypes.data, chain,
+    cuda_lib.check(lib.zk_horner_mul_chain(a.device.index, p, pinv, ptrs.ctypes.data, chain,
                                            cuda_lib.stream_of(out)), "horner_mul_chain")
     return out
 
@@ -261,7 +261,7 @@ def probe(designs=DESIGNS, reps: int = 200, device=None) -> list[dict]:
         lib.zk_horner_probe.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p,
                                         ctypes.c_void_p, ctypes.c_uint32]
         for _ in range(2):  # the first run warms the instruction cache
-            cuda_lib.check(lib.zk_horner_probe(p.ctypes.data, pinv, inp.data_ptr(), out.data_ptr(),
+            cuda_lib.check(lib.zk_horner_probe(p, pinv, inp.data_ptr(), out.data_ptr(),
                                                cyc.data_ptr(), reps), "horner probe")
             torch.cuda.synchronize()
         row = {"build": dict(zip(("P", "G"), d)), "reps": reps,

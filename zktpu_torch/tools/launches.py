@@ -9,6 +9,7 @@ from __future__ import annotations
 
 def _wrappers():
     from zktpu_torch.curves.g1_kernel import fixed_base_mul, horner_combine, proj_add, proj_double, proj_madd
+    from zktpu_torch.fields.lincomb_kernel import lincomb
     from zktpu_torch.fields.mont_kernel import mont_mul, mont_mul_chain
     from zktpu_torch.fri.fold_kernel import fold
     from zktpu_torch.hash.sha256_kernel import hash_field
@@ -16,7 +17,7 @@ def _wrappers():
     from zktpu_torch.poly.ntt_kernel import ntt
 
     return (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field, fold,
-                                             fixed_base_mul, matvec)
+                                             fixed_base_mul, matvec, lincomb)
 
 
 def reset() -> None:
@@ -39,7 +40,7 @@ def read() -> dict:
     from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
 
     (mont_mul, ntt, mont_mul_chain), (proj_add, proj_double, proj_madd, horner_combine, hash_field, fold,
-                                      fixed_base_mul, matvec) = _wrappers()
+                                      fixed_base_mul, matvec, lincomb) = _wrappers()
     return {
         "mont_mul_fr": mont_mul.launches[FR.name],
         "mont_mul_fq": mont_mul.launches[FQ.name],
@@ -57,6 +58,7 @@ def read() -> dict:
         "fri_fold": fold.launches,
         "fixed_base_mul": fixed_base_mul.launches,
         "matvec_fr": matvec.launches,
+        "field_lincomb": lincomb.launches,
         **{f"{k}_{short}": field_kernel.launches[k][spec.name]
            for k in ("field_scan", "field_addsub") for short, spec in (("fr", FR), ("fq", FQ), ("gl", GOLDILOCKS))},
     }
