@@ -22,7 +22,9 @@ Phases:
      IMAD: cuobjdump), the mxu and f32 kernels must hold IMMA and the f32
      ones FFMA; the Goldilocks NTT's plan at 2^fri_log_n and 2^22 and its
      SASS per butterfly (IMAD, LDS/STS of one radix step; BAR per butterfly
-     from the plan);
+     from the plan); the Fr NTT's design, its plan at the paths' shapes
+     (a multi-pass block fills a warp) and the SASS per butterfly of one of its radix-4 steps, of its
+     product and of field.cuh's (the step must hold no LDG);
   2. kernels: holds each CUDA kernel against its plain PyTorch version on
      the card, bit for bit (mont_mul for Fr, Fq and Goldilocks and
      mont_mul_chain at N = 2^16 + 3 with the edge values 0, 1, p - 1, for
@@ -36,9 +38,12 @@ Phases:
      stage of the 2^17 coset NTT (the shapes their paths gave them before
      the NTT kernel and the one-launch combine) and at the coset division's
      (2^17, 8) pointwise product, which the path still gives it; the NTT
-     (ntt against ntt_plain) at the path's 2^17 x batch 7 for fft, ifft,
-     coset_fft and coset_ifft, at 2^20 x 1, n = 2 and n = 2^8 (below one tile),
-     with an all-zero row and a row of p - 1; the Horner combine against its
+     (ntt against ntt_plain) at the path's 2^17 x batch 7, 2^16 x 9, 2^14 x
+     3 and 2^17 x 1, at the four-step NTT's 2^11 x 2048 and at 2^20 x 1
+     for fft, ifft, coset_fft and coset_ifft, each timed beside its bound (the fft kernel only too, and
+     with --parent in turns with the parent's), and at n = 2 and n = 2^8
+     (one pass), with an all-zero row and a row of p - 1 where the batch has
+     three; the Horner combine against its
      plain loop and the launch loop it replaced at (c, K, W) = (13, 1, 20),
      (13, 3, 20), (13, 8, 20) (the PLONK and Nova commits at 2^14) and
      (16, 1, 16) (the MSM bench's), parts holding the identity, with ms,
@@ -351,6 +356,35 @@ def phase_ntt_gl_sass(log_n: int) -> None:
     assert step["IMAD.WIDE"] <= 4.0 and by.get("BAR", 0) == 0, f"the radix step is not what its design says: {step}"
 
 
+def phase_ntt_fr_design() -> None:
+    """The Fr NTT's design (the radix cut, tiles, blocks per SM, the thread
+    floor), its plan at the paths' shapes (passes, threads, shared memory,
+    radix steps, radix), and the SASS per butterfly of one of its radix-4
+    steps (tools/ntt_tiles.py's probe: the multiply-add families, IADD3.X,
+    LDS, STS, LDG, BAR) with the multiply-adds a word product of its
+    product and of field.cuh's, the parent design's and the other
+    kernels'.  A middle step must read no twiddle from device memory (no
+    LDG), and a block of a multi-pass plan must fill a warp."""
+    from zktpu_torch.poly.ntt_kernel import fr_design, fr_plan
+    from zktpu_torch.tools.ntt_tiles import fr_butterfly_sass
+
+    print(f"phase 1: ntt Fr design {json.dumps(fr_design())}", flush=True)
+    for lg, batch in ((14, 1), (14, 3), (17, 7), (20, 1), (11, 2048)):
+        plan = fr_plan(lg, batch)
+        print(f"phase 1: ntt Fr plan 2^{lg} x {batch}: {json.dumps(plan)}", flush=True)
+        assert len(plan) == 1 or min(p["threads"] for p in plan) >= 32, f"a block below a warp: {plan}"
+    c = fr_butterfly_sass()
+    fam = {k: round(v, 2) for k, v in c["per_butterfly"].items()}
+    prods = {who: f"{c[key]['instructions']} instructions, {c[key]['multiply_adds_per_word_product']:.3f} "
+                  f"multiply-adds a word product " + json.dumps({k: round(v, 3) for k, v in
+                                                                  c[key]["per_word_product"].items()})
+             for who, key in (("ntt_mul", "product"), ("field.cuh mont_mul_lazy", "field_product"))}
+    print(f"phase 1: SASS ntt Fr, per butterfly of a radix-4 step ({c['butterflies']} butterflies): "
+          f"{c['instructions']:.2f} instructions; {json.dumps(fam)}; the product: {prods['ntt_mul']}; "
+          f"field.cuh's: {prods['field.cuh mont_mul_lazy']}", flush=True)
+    assert fam["LDG"] == 0, f"the Fr radix step reads device memory: {fam}"
+
+
 def phase_kernels(device) -> dict:
     from zktpu_torch.curves import g1
     from zktpu_torch.curves.g1_kernel import (
@@ -578,13 +612,19 @@ def _ntt_products(n: int, batch: int, factors: int) -> int:
     return batch * ((n // 2) * (n.bit_length() - 1) + factors * n)
 
 
-def phase_ntt_horner(device, results: dict, ntt_sizes=((17, 7), (20, 1), (1, 3), (8, 3)),
-                     horner_shapes=((13, 1, 20), (13, 3, 20), (13, 8, 20), (16, 1, 16))) -> None:
+def phase_ntt_horner(device, results: dict, ntt_sizes=((17, 7), (20, 1), (16, 9), (14, 3), (17, 1), (1, 3), (8, 3)),
+                     horner_shapes=((13, 1, 20), (13, 3, 20), (13, 8, 20), (16, 1, 16)), parent=None) -> None:
     """The NTT kernel against ntt_plain and the one-launch Horner combine
     against its plain loop, 0 mismatching words on every lane.  ntt_sizes:
-    (log n, batch); the kernels line takes ntt_fr from the first one's fft
-    (the path's: _batched_coset_fft's 8n = 2^17 transform of 7 polynomials
-    at 2^14 gates).  horner_shapes: (c, K, W), the PLONK and Nova commits'
+    (log n, batch), rows 0 and 1 all zero and all p - 1 where the batch has
+    three rows or more; the kernels line takes ntt_fr from the first one's
+    fft (the path's: _batched_coset_fft's 8n = 2^17 transform of 7
+    polynomials at 2^14 gates).  At every call of 2^14 elements or more each
+    transform is timed beside its bound (the table's: (n/2) log n products
+    and n a factor) and the fft's kernel alone (torch.profiler) beside the
+    bound of the products the design issues (ntt_kernel.fr_products); with
+    `parent` the fft of the parent's design in turns (this, parent, parent,
+    this), its words equal.  horner_shapes: (c, K, W), the PLONK and Nova commits'
     at 2^14 (c = 13, W = 20; K = 1, 3, 8) and the MSM bench's at 2^20; the
     kernels line takes horner_combine from the last.  Each prints ms, the
     microseconds a dependent product step ((W - 1)(2c + 2) of them) and the
@@ -597,7 +637,7 @@ def phase_ntt_horner(device, results: dict, ntt_sizes=((17, 7), (20, 1), (1, 3),
     from zktpu_torch.fields.host import FR
     from zktpu_torch.curves.g1_kernel import proj_add, proj_double
     from zktpu_torch.poly.domain import Radix2Domain
-    from zktpu_torch.poly.ntt_kernel import ntt, ntt_plain, stage_loop
+    from zktpu_torch.poly.ntt_kernel import fr_plan, fr_products, ntt, ntt_plain, stage_loop
 
     fr = field(FR, device)
     gen = torch.Generator(device=device)
@@ -626,24 +666,48 @@ def phase_ntt_horner(device, results: dict, ntt_sizes=((17, 7), (20, 1), (1, 3),
             table = dom._inv_tw if inverse else dom._fwd_tw
             got = ntt(x, table, inverse, fin, fout)
             err = max(err, _compare(f"ntt {name} 2^{log_n} x {batch}", [got], [ntt_plain(x, table, inverse, fin, fout)]))
-            if (log_n, batch) == ntt_sizes[0] and name == "fft":
-                ms = _cuda_ms(lambda: ntt(x, table, inverse, fin, fout), 50)
+            if batch << log_n < 1 << 14:
+                continue
+            run = functools.partial(ntt, x, table, inverse, fin, fout)
+            nf = (fin is not None) + (fout is not None) + (inverse and fout is None)
+            b = _bound((2 * batch * n + n // 2 + nf * n) * 32, _ntt_products(n, batch, nf) * _mont_words(8))
+            if name != "fft":
+                print(f"phase 2: ntt {name} (2^{log_n}, 8) x batch {batch}: mismatches=0 "
+                      f"kernel_ms={_cuda_ms(run, 20):.4f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']})", flush=True)
+                continue
+            fns = {"this": run}
+            if parent is not None:
+                fns["parent"] = functools.partial(parent.poly.ntt_kernel.ntt, x, table, inverse, fin, fout)
+                assert torch.equal(fns["parent"](), got), f"ntt fft 2^{log_n} x {batch}: the parent's words differ"
+            passes = {"this": len(fr_plan(log_n, batch))}
+            if parent is not None:
+                before = parent.poly.ntt_kernel.ntt.launches[FR.name]
+                fns["parent"]()
+                passes["parent"] = parent.poly.ntt_kernel.ntt.launches[FR.name] - before
+            turns = _in_turns(fns, lambda fn: _cuda_ms(fn, 50))
+            # kernel only, a call: a launch's mean (torch.profiler) times the launches a call
+            only = _in_turns(fns, lambda fn: _kernel_only_ms(fn, 50, "ntt_pass_kernel")[0] * passes[
+                "this" if fn is run else "parent"])
+            issued = _bound(0, fr_products(log_n, batch, 0) * _mont_words(8))["bound_ms"]
+            k_only = statistics.fmean(only["this"])
+            print(f"phase 2: ntt fft (2^{log_n}, 8) x batch {batch}: mismatches=0, launches {json.dumps(passes)}; with "
+                  f"the wrapper, in turns: {_turns_text(turns)}; kernel only {_turns_text(only)}; bound "
+                  f"{b['bound_ms']:.5f} ms ({b['bound_by']}), {100 * b['bound_ms'] / k_only:.1f}% of it; the products "
+                  f"this design issues ({fr_products(log_n, batch, 0)} against {_ntt_products(n, batch, 0)}) "
+                  f"{issued:.5f} ms, {100 * issued / k_only:.1f}%"
+                  f"{'' if parent is not None else '; parent not measured (no --parent)'}", flush=True)
+            if (log_n, batch) == ntt_sizes[0]:
                 plain_ms = _cuda_ms(lambda: ntt_plain(x, table, inverse, fin, fout), 3)
-                _record(results, "ntt_fr", n * batch, err, ms, plain_ms, (2 * batch * n + n // 2) * 32,
-                        _ntt_products(n, batch, 0) * _mont_words(8),
+                _record(results, "ntt_fr", n * batch, err, statistics.fmean(turns["this"]), plain_ms,
+                        (2 * batch * n + n // 2) * 32, _ntt_products(n, batch, 0) * _mont_words(8),
                         phase=f"phase 2: ntt fft (2^{log_n}, 8) x batch {batch}:")
+                results["ntt_fr"]["kernel_only_ms"] = k_only
                 # what the kernel replaced: the stage loop over kernel 1 (the Goldilocks route)
                 err = max(err, _compare("stage loop over kernel 1", [stage_loop(FR, fr.mont_mul, x, table, inverse)],
                                         [got]))
                 loop_ms = _cuda_ms(lambda: stage_loop(FR, fr.mont_mul, x, table, inverse), 5)
                 print(f"phase 2: the stage loop over kernel 1 it replaced, same fft: mismatches=0 ms={loop_ms:.4f}",
                       flush=True)
-            elif batch * n >= 1 << 17:
-                ms = _cuda_ms(lambda: ntt(x, table, inverse, fin, fout), 20)
-                nf = (fin is not None) + (fout is not None) + (inverse and fout is None)
-                b = _bound((2 * batch * n + n // 2 + nf * n) * 32, _ntt_products(n, batch, nf) * _mont_words(8))
-                print(f"phase 2: ntt {name} (2^{log_n}, 8) x batch {batch}: mismatches=0 kernel_ms={ms:.4f} "
-                      f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']})", flush=True)
         print(f"phase 2: ntt 2^{log_n} x batch {batch}: fft, ifft, coset_fft, coset_ifft mismatches=0", flush=True)
         del x, dom
     results["ntt_fr"]["max_abs_err"] = err
@@ -2434,8 +2498,8 @@ def main(argv=None) -> int:
     ap.add_argument("--nova-log-m", type=int, default=14, help="log2 of the Nova path's R1CS constraints")
     ap.add_argument("--nova-steps", type=int, default=64, help="IVC steps of the Nova path")
     ap.add_argument("--parent", default=None,
-                    help="another checkout (a git archive unpacked) whose fixed-base multiply and field scans phase 2 "
-                         "times in turns with this one's")
+                    help="another checkout (a git archive unpacked) whose Fr NTT, fixed-base multiply and field "
+                         "scans phase 2 times in turns with this one's")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2464,6 +2528,7 @@ def main(argv=None) -> int:
 
     attrs = {k: g1_kernel.kernel_attrs(k) for k in ("proj_add", "proj_madd", "proj_double", "horner_combine")}
     attrs["ntt_fr"] = ntt_kernel.kernel_attrs(FR)
+    attrs["ntt_fr radix-2"] = ntt_kernel.kernel_attrs(FR, radix_log=1)
     attrs["ntt_gl"] = ntt_kernel.kernel_attrs(GOLDILOCKS)
     attrs.update({k: field_kernel.kernel_attrs(k) for k in ("field_scan", "field_addsub")})
     attrs["sha256_field"] = sha256_kernel.kernel_attrs()
@@ -2496,10 +2561,12 @@ def main(argv=None) -> int:
               flush=True)
     phase_chain_sass()
     phase_ntt_gl_sass(args.fri_log_n)
+    phase_ntt_fr_design()
 
     kernels = phase_kernels(device)
     phase_small_path_shapes(device, kernels)
-    phase_ntt_horner(device, kernels, ntt_sizes=((args.log_n + 3, 7), (20, 1), (1, 3), (8, 3)))
+    phase_ntt_horner(device, kernels, ntt_sizes=((args.log_n + 3, 7), (20, 1), (args.log_n + 2, 9), (args.log_n, 3),
+                                                 (args.log_n + 3, 1), (11, 2048), (1, 3), (8, 3)), parent=parent)
     phase_field_ops(device, kernels, args.log_n, args.msm_log_n, parent)
     phase_field_turns(device, kernels, parent)
     phase_lincomb(device, kernels, args.log_n)

@@ -344,13 +344,41 @@ def test_host_mixed_add_and_identity_add_match_complete_add(lib):
         assert torch.equal(g, v)
 
 
-# Small tiles.  Fr: 2^4 elements, at least 2 columns, 4 threads a block, so
-# 2^7-2^9 take 2-3 passes.  Goldilocks: radix-4 steps (2 elements... 4 a
-# thread), one pass up to 2^3, then tiles of at most 2^5 words with 2
-# columns, so 2^4-2^8 take 2 passes and 2^9-2^12 three, with partial steps.
-# And the library's own tiles (2^12 takes 2 passes in either field).
-SMALL_TILES = ("-DZK_NTT_LOG_TILE=4", "-DZK_NTT_LOG_MIN_COLS=1", "-DZK_NTT_THREADS=4", "-DZK_NTT_GL_RADIX=2",
-               "-DZK_NTT_GL_LOG_TILE=5", "-DZK_NTT_GL_LOG_COLS=1", "-DZK_NTT_GL_ONE_PASS=3")
+# Small tiles.  Fr: radix-4 steps, one pass up to 2^3, then tiles of at
+# most 2^4 elements with 2-4 columns (a block of at least 4 threads), so
+# 2^4-2^6 take 2 passes and 2^7-2^9 three, with partial (radix-2) steps.
+# Goldilocks: radix-4 steps (2 elements... 4 a thread), one pass up to 2^3,
+# then tiles of at most 2^5 words with 2 columns, so 2^4-2^8 take 2 passes
+# and 2^9-2^12 three, with partial steps.  And the library's own tiles
+# (2^12 takes 2 passes in either field).
+SMALL_TILES = ("-DZK_NTT_RADIX2_WORK=0", "-DZK_NTT_LOG_TILE=4", "-DZK_NTT_LOG_COLS=1", "-DZK_NTT_ONE_PASS=3",
+               "-DZK_NTT_LOG_MIN_THREADS=2", "-DZK_NTT_GL_RADIX=2", "-DZK_NTT_GL_LOG_TILE=5",
+               "-DZK_NTT_GL_LOG_COLS=1", "-DZK_NTT_GL_ONE_PASS=3")
+# Fr's other builds: the same tiles in radix-2 steps (the plan's choice for
+# small calls, here for every call); 4 columns (2^4-2^6 in 2 passes, 2^7-2^9
+# in 3); one column, each later tile staging the strided twiddles of its
+# own column (2^4-2^8 in 2 passes, 2^9 in 3); and the library's tiles in
+# radix-4 steps (its default takes radix 2 for every call of the tests'
+# size), a block of at least two warps: 2^11's passes take 4 and 8 columns.
+FR_RADIX2 = ("-DZK_NTT_RADIX2_WORK=30", "-DZK_NTT_LOG_TILE=4", "-DZK_NTT_LOG_COLS=1", "-DZK_NTT_ONE_PASS=3",
+             "-DZK_NTT_LOG_MIN_THREADS=2")
+FR_COLS4 = ("-DZK_NTT_RADIX2_WORK=0", "-DZK_NTT_LOG_TILE=5", "-DZK_NTT_LOG_COLS=2", "-DZK_NTT_ONE_PASS=3",
+            "-DZK_NTT_LOG_MIN_THREADS=2")
+FR_COLS1 = ("-DZK_NTT_RADIX2_WORK=0", "-DZK_NTT_LOG_TILE=4", "-DZK_NTT_LOG_COLS=0", "-DZK_NTT_ONE_PASS=3",
+            "-DZK_NTT_LOG_MIN_THREADS=0")
+FR_LIB_RADIX4 = ("-DZK_NTT_RADIX2_WORK=0",)
+# log2 of each Fr build's largest one-pass transform and of the stages a
+# multi-pass tile holds
+FR_PLANS = {SMALL_TILES: (3, 3), FR_RADIX2: (3, 3), FR_COLS4: (3, 3), FR_COLS1: (3, 4), FR_LIB_RADIX4: (10, 9),
+            (): (10, 9)}
+_FR_NAMES = {SMALL_TILES: "small_tiles", FR_RADIX2: "radix2", FR_COLS4: "cols4", FR_COLS1: "cols1",
+             FR_LIB_RADIX4: "library_tiles_radix4", (): "library_tiles"}
+
+
+def _fr_passes(flags, log_n: int) -> int:
+    """The passes of ntt.cuh's plan for a build's flags."""
+    one, per = FR_PLANS[flags]
+    return 1 if log_n <= one else max(2, -(-log_n // per))
 
 
 @pytest.fixture(scope="module")
@@ -377,17 +405,11 @@ def _host_ntt(so, x, table, in_factor, out_factor, spec=FR):
     return out, passes
 
 
-@pytest.mark.parametrize("ntt_lib,log_n", [(SMALL_TILES, k) for k in (1, 5, 7, 8, 9)] + [((), 5), ((), 12)],
-                         indirect=["ntt_lib"], ids=lambda v: ("small_tiles" if v else "library_tiles")
-                         if isinstance(v, tuple) else f"2^{v}")
-def test_host_ntt_matches_plain(ntt_lib, log_n):
-    """fft, ifft, coset_fft and coset_ifft over a batch of 2 rows (0, 1 and
-    p - 1 among them), with the factors as the domain passes them."""
-    flags, so = ntt_lib
+def _fr_transforms(so, flags, x, log_n):
+    """fft, ifft, coset_fft and coset_ifft of x through the host build,
+    each against ntt_plain with the factors as the domain passes them; the
+    pass count against the plan."""
     n = 1 << log_n
-    rng = np.random.default_rng(log_n)
-    f = field(FR, "cpu")
-    x = f.encode_ints(_elements(rng, FR, 2 * n) if n > 2 else [0, 1, FR.modulus - 1, 5]).reshape(2, n, 8)
     dom = get_domain(FR, n, device="cpu")
     g = FR.generator
     n_inv = ntt_kernel._n_inv(FR, n, x.device)
@@ -396,10 +418,86 @@ def test_host_ntt_matches_plain(ntt_lib, log_n):
         table = dom._inv_tw if inverse else dom._fwd_tw
         got, passes = _host_ntt(so, x, table, fin, fout)
         assert torch.equal(got, ntt_kernel.ntt_plain(x, table, inverse, fin, fout)), (inverse, fin is not None)
-    if flags and log_n >= 7:
-        assert passes >= 2
-    if not flags:
-        assert passes == (2 if log_n == 12 else 1)
+        assert passes == _fr_passes(flags, log_n)
+
+
+_FR_CASES = ([(SMALL_TILES, k) for k in (1, 2, 3, 4, 5, 6, 7, 8, 9)] + [(FR_RADIX2, k) for k in (3, 5, 7, 9)]
+             + [(FR_COLS4, k) for k in (4, 5, 7, 9)] + [(FR_COLS1, k) for k in (5, 9)] + [((), 5), ((), 12)]
+             + [(FR_LIB_RADIX4, k) for k in (11, 12)])
+
+
+@pytest.mark.parametrize("ntt_lib,log_n", _FR_CASES, indirect=["ntt_lib"],
+                         ids=lambda v: _FR_NAMES[v] if isinstance(v, tuple) else f"2^{v}")
+def test_host_ntt_matches_plain(ntt_lib, log_n):
+    """fft, ifft, coset_fft and coset_ifft over a batch of 2 rows (0, 1 and
+    p - 1 among them), with the factors as the domain passes them: one
+    pass, two and three, radix-2 and radix-4 steps, full and partial, one
+    column and several."""
+    flags, so = ntt_lib
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    f = field(FR, "cpu")
+    x = f.encode_ints(_elements(rng, FR, 2 * n) if n > 2 else [0, 1, FR.modulus - 1, 5]).reshape(2, n, 8)
+    _fr_transforms(so, flags, x, log_n)
+
+
+@pytest.mark.parametrize("ntt_lib,log_n", [(SMALL_TILES, 6), (FR_RADIX2, 7), (FR_COLS4, 7), (FR_COLS1, 7), ((), 11),
+                                            (FR_LIB_RADIX4, 11)],
+                         indirect=["ntt_lib"], ids=lambda v: _FR_NAMES[v] if isinstance(v, tuple) else f"2^{v}")
+def test_host_ntt_edge_rows(ntt_lib, log_n):
+    """A row of 0 and a row of p - 1: the lazy values' largest sums and
+    differences (u + w v up to 4p, u - w v down to -2p).  The all-(p - 1)
+    row's transform is (p - 1) n at 0 and 0 elsewhere, 0's is 0: a store
+    that skipped the last canonicalization would leave p in place of 0."""
+    flags, so = ntt_lib
+    n = 1 << log_n
+    f = field(FR, "cpu")
+    x = f.encode_ints([0] * n + [FR.modulus - 1] * n).reshape(2, n, 8)
+    _fr_transforms(so, flags, x, log_n)
+    dom = get_domain(FR, n, device="cpu")
+    got, _ = _host_ntt(so, x, dom._fwd_tw, None, None)
+    assert f.decode_ints(got.reshape(-1, 8)) == [0] * n + [(FR.modulus - 1) * n % FR.modulus] + [0] * (n - 1)
+
+
+def test_host_fr_lazy_ops():
+    """The Fr butterfly's lazy operations (ntt.cuh) against field
+    arithmetic on Python ints, on random words and the bounds' edges (0, 1,
+    p - 1, p, 2p - 1): the products (field.cuh's mont_mul_lazy and the
+    NTT's even/odd ntt_mul) of a canonical twiddle and a value below 2p
+    are below 1.91 p and equal w v R^-1 mod p, and equal each other word
+    for word; the sum and difference of two values below 2p are below 2p
+    and equal mod p; the last store's canonicalization of a value below 2p
+    is canonical."""
+    so = _build(NTT_SHIM, "ntt_host")
+    P = ctypes.c_void_p
+    so.host_fr_lazy.argtypes = [P, ctypes.c_uint32, P, P, P, ctypes.c_int64, ctypes.c_int]
+    so.host_fr_lazy.restype = None
+    p = FR.modulus
+    rng = np.random.default_rng(23)
+    rand = [int.from_bytes(rng.bytes(32), "little") % (2 * p) for _ in range(400)]
+    canon = [0, 1, p - 1, p - 2] + [v % p for v in rand[:96]]
+    lazy = [0, 1, p - 1, p, p + 1, 2 * p - 1, 2 * p - 2] + rand
+    pairs = {0: [(w, v) for w in canon for v in lazy[:60]], 1: [(u, v) for u in lazy[:70] for v in lazy[:70]],
+             3: [(v, 0) for v in lazy]}
+    pairs[2] = pairs[1]
+    pairs[4] = pairs[0]
+    pl, pinv = cuda_lib.field_consts(FR)
+    rinv = pow(1 << 256, -1, p)
+
+    def words(vals):
+        return np.array([[(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)] for v in vals], dtype=np.uint32)
+
+    outs = {}
+    for op, ab in pairs.items():
+        A, B = words([a for a, _ in ab]), words([b for _, b in ab])
+        out = outs[op] = np.zeros_like(A)
+        so.host_fr_lazy(pl, pinv, A.ctypes.data, B.ctypes.data, out.ctypes.data, len(ab), op)
+        got = [sum(int(w) << (32 * j) for j, w in enumerate(row)) for row in out]
+        for (a, b), r in zip(ab, got):
+            want, limit = {0: (a * b * rinv, 1.91 * p), 4: (a * b * rinv, 1.91 * p), 1: (a + b, 2 * p),
+                           2: (a - b, 2 * p), 3: (a, p)}[op]
+            assert r < limit and r % p == want % p, (op, a, b, r)
+    np.testing.assert_array_equal(outs[4], outs[0])
 
 
 @pytest.mark.parametrize("ntt_lib,log_n", [(SMALL_TILES, k) for k in (1, 2, 3, 4, 5, 6, 7, 9, 10, 11)]

@@ -220,8 +220,8 @@ def test_redesigned_adds_strided_broadcast_out(device, name):
 @pytest.mark.parametrize("log_n", [0, 1, 5, 9, 12, 15])
 def test_ntt_kernel_matches_plain(device, log_n):
     """fft, ifft, coset_fft and coset_ifft on a batch of 3 (an all-zero row,
-    a row of p - 1), one pass (n <= 2^9, one tile) and two; launches
-    counted; 0 spills."""
+    a row of p - 1), one pass (n <= 2^10, one tile) and two; launches
+    counted as the plan has them; 0 spills."""
     from zktpu_torch.fields.fp import field
     from zktpu_torch.poly import ntt_kernel
     from zktpu_torch.poly.domain import get_domain
@@ -239,9 +239,10 @@ def test_ntt_kernel_matches_plain(device, log_n):
         table = dom._inv_tw if inverse else dom._fwd_tw
         before = ntt_kernel.ntt.launches[FR.name]
         got = ntt_kernel.ntt(x, table, inverse, fin, fout)
-        assert ntt_kernel.ntt.launches[FR.name] == before + (1 if log_n <= 9 else 2)
+        assert ntt_kernel.ntt.launches[FR.name] == before + (1 if log_n <= 10 else 2) == before + len(
+            ntt_kernel.fr_plan(log_n, 3))
         assert torch.equal(got, ntt_kernel.ntt_plain(x, table, inverse, fin, fout)), (inverse, fin is not None)
-    assert ntt_kernel.kernel_attrs()["local_bytes"] == 0
+    assert ntt_kernel.kernel_attrs(FR, 1)["local_bytes"] == ntt_kernel.kernel_attrs(FR, 2)["local_bytes"] == 0
 
 
 @pytest.mark.parametrize("W,K,c", [(4, 1, 16), (3, 8, 13), (2, 9, 3), (1, 2, 4), (20, 1, 13), (20, 3, 13)])

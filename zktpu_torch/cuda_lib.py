@@ -63,10 +63,14 @@ _SIGNATURES = {
     # its row stride, out factor, its row stride, stream, out: launches
     "zk_ntt": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _I64, ctypes.c_int, _P, _P, _I64, _P, _I64,
                _P, _P],
-    # limbs, out {registers, local bytes, shared bytes of the largest tile}
-    "zk_ntt_attrs": [ctypes.c_int, _P],
+    # limbs, Fr's log2 radix, out {registers, local bytes, shared bytes of the largest tile}
+    "zk_ntt_attrs": [ctypes.c_int, ctypes.c_int, _P],
     # log_n, out: {s0, ns, cols, threads, shared bytes, radix steps} per Goldilocks pass
     "zk_ntt_gl_plan": [ctypes.c_int, _P],
+    # log_n, batch, out: the same and the log2 radix per Fr pass
+    "zk_ntt_fr_plan": [ctypes.c_int, _I64, _P],
+    # out {log2 radix-2 work, log2 tile, log2 columns, one-pass log n, minimum blocks per SM, log2 fewest threads}
+    "zk_ntt_fr_design": [_P],
     # device, limbs, p (host), pinv, a, b, out, n, chain, stream
     "zk_mont_mul_chain": [ctypes.c_int, ctypes.c_int, _P, ctypes.c_uint32, _P, _P, _P, _I64, ctypes.c_int, _P],
     # device, limbs, p (host), pinv, f32 (0 mxu, 1 f32), pinv matrix, p matrix, a, b, out, n, chain, stream

@@ -16,12 +16,16 @@ merges n^-1 into its own table, as coset_ifft does, passes that table).
 
 On the H100 the Fr transform is bound by 32-bit integer multiply-adds and
 the Goldilocks one by its bytes.  The kernels run the stages in 1-4 launches
-of shared-memory tiles (Fr: csrc/ntt.cuh, a stage per barrier; Goldilocks:
-csrc/ntt_gl.cuh, radix-8 steps in registers, two launches from 2^12 to
-2^20 points), with the permutation and both factors fused into the loads and
-stores (csrc/ntt.cu says how).  ``ntt`` launches them for CUDA tensors and
-runs ``ntt_plain`` for CPU tensors only (``KERNEL_FIELDS``); ``stage_loop``
-is the stage loop over any product, which Fq's two-point domains use.
+of shared-memory tiles, a thread running radix steps in registers on its
+elements between barriers, the twiddles staged once a block (Fr:
+csrc/ntt.cuh, radix-4 steps, radix-2 for calls of at most 2^16 elements,
+on lazy values in [0, 2p) with the transform's own even/odd Montgomery
+product, two launches from 2^11 to 2^18 points; Goldilocks:
+csrc/ntt_gl.cuh, radix-8 steps, two launches from 2^12 to 2^20 points),
+with the permutation and both factors fused into the loads and stores
+(csrc/ntt.cu says how).  ``ntt`` launches them for CUDA tensors and runs
+``ntt_plain`` for CPU tensors only (``KERNEL_FIELDS``); ``stage_loop`` is
+the stage loop over any product, which Fq's two-point domains use.
 """
 from __future__ import annotations
 
@@ -147,20 +151,59 @@ def ntt(values, table, inverse: bool, in_factor=None, out_factor=None, spec: Fie
 ntt.launches = {f.name: 0 for f in KERNEL_FIELDS}
 
 
+_PLAN_KEYS = ("s0", "ns", "cols", "threads", "shared_bytes", "steps")
+
+
+def _plan(entry: str, args: tuple, keys: tuple, name: str) -> list[dict]:
+    out = (ctypes.c_int * (len(keys) * 32))()
+    np_ = getattr(cuda_lib.load(), entry)(*args, out)
+    if np_ < 0:
+        raise ValueError(f"ntt: no {name} plan for 2^{args[0]}")
+    w = len(keys)
+    return [dict(zip(keys, out[w * k : w * k + w])) for k in range(np_)]
+
+
 def gl_plan(log_n: int) -> list[dict]:
     """The Goldilocks kernel's passes for a 2^log_n transform, as the library
     plans them: s0, ns, cols, threads, shared bytes and radix steps of each."""
-    out = (ctypes.c_int * (6 * 32))()
-    np_ = cuda_lib.load().zk_ntt_gl_plan(log_n, out)
-    if np_ < 0:
-        raise ValueError(f"ntt: no Goldilocks plan for 2^{log_n}")
-    keys = ("s0", "ns", "cols", "threads", "shared_bytes", "steps")
-    return [dict(zip(keys, out[6 * k : 6 * k + 6])) for k in range(np_)]
+    return _plan("zk_ntt_gl_plan", (log_n,), _PLAN_KEYS, "Goldilocks")
 
 
-def kernel_attrs(spec: FieldSpec = FR) -> dict:
+def fr_plan(log_n: int, batch: int = 1) -> list[dict]:
+    """The Fr kernel's passes for `batch` transforms of 2^log_n, the same
+    keys and the log2 radix of their steps (radix_log: 1 for calls of at
+    most 2^radix2_work elements in all, else 2)."""
+    return _plan("zk_ntt_fr_plan", (log_n, batch), (*_PLAN_KEYS, "radix_log"), "Fr")
+
+
+def fr_design() -> dict:
+    """The Fr kernel's build: the largest call (batch x n elements) in
+    radix-2 steps, its largest tile, the columns of a multi-pass tile, the
+    largest one-pass transform (log2 each), the blocks per SM its launch
+    bound asks for, and log2 of a multi-pass block's fewest threads."""
+    out = (ctypes.c_int * 6)()
+    cuda_lib.check(cuda_lib.load().zk_ntt_fr_design(out), "ntt design")
+    keys = ("radix2_work", "log_tile", "log_cols", "one_pass", "min_blocks", "log_min_threads")
+    return dict(zip(keys, out))
+
+
+def fr_products(log_n: int, batch: int, factors: int) -> int:
+    """The Montgomery products the Fr kernel issues for `batch` transforms of
+    2^log_n with `factors` fused factors: a product a butterfly, less those
+    by 1 that the first pass's first step skips ((n/2) (1 + 1/2 + ...) over
+    the step's stages), plus n a factor."""
+    n = 1 << log_n
+    plan = fr_plan(log_n, batch)
+    first = plan[0]
+    total = factors * n + (n // 2) * log_n
+    total -= sum((n // 2) >> s for s in range(min(first["ns"], first["radix_log"])))
+    return batch * total
+
+
+def kernel_attrs(spec: FieldSpec = FR, radix_log: int = 2) -> dict:
     """Registers per thread, local-memory bytes (spills) and the shared
-    memory per block of the largest tile, for the kernel of `spec`."""
+    memory per block of the largest tile, for the kernel of `spec` (Fr: the
+    one of radix-2^radix_log steps, 1 or 2)."""
     out = (ctypes.c_int * 3)()
-    cuda_lib.check(cuda_lib.load().zk_ntt_attrs(spec.num_digits // 2, out), "ntt attributes")
+    cuda_lib.check(cuda_lib.load().zk_ntt_attrs(spec.num_digits // 2, radix_log, out), "ntt attributes")
     return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2]}

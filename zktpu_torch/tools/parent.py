@@ -37,6 +37,7 @@ def load_parent(path: str) -> types.ModuleType:
     pkg = importlib.util.module_from_spec(spec)
     sys.modules[NAME] = pkg
     spec.loader.exec_module(pkg)
-    for sub in ("cuda_lib", "fields.fp", "fields.field_kernel", "curves.g1", "curves.g1_kernel", "kzg"):
+    for sub in ("cuda_lib", "fields.fp", "fields.field_kernel", "curves.g1", "curves.g1_kernel", "kzg",
+                "poly.ntt_kernel"):
         importlib.import_module(f"{NAME}.{sub}")
     return pkg
