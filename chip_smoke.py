@@ -18,9 +18,11 @@ Phases:
      the fixed-base multiply (threads a block, launch bound) and of the field
      scans (threads a block, the tile rule's grid and longest chunk); with
      --parent DIR, another checkout's library built beside this one
-     (tools/parent.py); the SASS of the chained product's three bodies (IMMA, FFMA,
-     IMAD: cuobjdump), the mxu and f32 kernels must hold IMMA and the f32
-     ones FFMA; the Goldilocks NTT's plan at 2^fri_log_n and 2^22 and its
+     (tools/parent.py); the design of the mxu and f32 kernels (csrc/mont_mma.cuh
+     MmaDesign) and the SASS of the chained product's three bodies (IGMMA, IMMA,
+     FFMA, IMAD: cuobjdump), the mxu and f32 kernels must hold the
+     warpgroup's tensor-core product (IGMMA) and no IMMA, the f32 ones
+     FFMA; the Goldilocks NTT's plan at 2^fri_log_n and 2^22 and its
      SASS per butterfly (IMAD, LDS/STS of one radix step; BAR per butterfly
      from the plan); the Fr NTT's design, its plan at the paths' shapes
      (a multi-pass block fills a warp) and the SASS per butterfly of one of its radix-4 steps, of its
@@ -29,7 +31,8 @@ Phases:
      the card, bit for bit (mont_mul for Fr, Fq and Goldilocks and
      mont_mul_chain at N = 2^16 + 3 with the edge values 0, 1, p - 1, for
      Fr and Fq in each body, base, mxu and f32, each also against the base
-     plain chain, timed with the wrapper and kernel only;
+     plain chain, timed with the wrapper and kernel only, with --parent the
+     parent's mxu and f32 kernel only in turns with this checkout's;
      proj_add, proj_double and proj_madd at N = 2^14 + 5 with identity,
      P + P, P + (-P), (0, 0) and padding lanes), with both times; proj_add
      and proj_madd also on strided slices of (3, n + 5, 12) planes (n = 2^14
@@ -68,8 +71,9 @@ Phases:
      2^16 and 2^22, an all-zero row and a row of p - 1; its kernel-only time
      at 2^16, 2^fri_log_n and 2^22), the field hash (single at 2^fri_log_n
      values, pairs at 2^(fri_log_n - 1), digit-length edges mixed in; the
-     first 64 of each against hashlib) and the FRI fold at the first fold's
-     (2^(fri_log_n - 1), 2) coefficients (phase_fri_kernels); the
+     first 64 of each against hashlib), the FRI fold at the first fold's
+     (2^(fri_log_n - 1), 2) coefficients and the Goldilocks powers kernel
+     alone at the same shape (phase_fri_kernels); the
      fixed-base kernel at 2^msm_log_n and 2^log_n + 3 scalars (the edge
      scalars 0, 1, r - 1, 2^256 - 1 and zero digits among random ones)
      against its plain loop (every projective word, every affine point), 64
@@ -259,12 +263,13 @@ def _record(results: dict, key: str, n: int, err: int, ms: float, plain_ms: floa
           f"bound_ms={results[key]['bound_ms']:.5f} ({results[key]['bound_by']})", flush=True)
 
 
-def _chain_variants(spec, f, a_ints, b_ints, A, B, results) -> None:
+def _chain_variants(spec, f, a_ints, b_ints, A, B, results, parent=None) -> None:
     """The three bodies of kernel 5 at one shape: each against its own plain
     version (every word) and the base plain chain, its time with the
     wrapper (CUDA events) and kernel only (torch.profiler), its bound
-    (prof_mulkernels.chain_bound: the busiest pipe).  The kernels line
-    takes the Fq rows."""
+    (prof_mulkernels.chain_bound: the busiest pipe); with `parent`, the
+    parent's mxu and f32 kernel only in turns (this, parent, parent, this),
+    its words equal to this checkout's.  The kernels line takes the Fq rows."""
     from zktpu_torch.fields.host import FQ
     from zktpu_torch.fields.mont_kernel import PLAIN_CHAINS, mont_mul_chain, mont_mul_chain_plain
     from zktpu_torch.tools.prof_mulkernels import chain_bound
@@ -285,10 +290,19 @@ def _chain_variants(spec, f, a_ints, b_ints, A, B, results) -> None:
         k_ms, count = _kernel_only_ms(lambda: mont_mul_chain(spec, A, B, CHAIN, variant), 50, kernel)
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "n": n, "kernel_only_ms": k_ms,
                **chain_bound(spec, variant, n, CHAIN)}
+        turns = ""
+        if parent is not None and variant != "base":
+            pmod = parent.fields.mont_kernel
+            assert torch.equal(pmod.mont_mul_chain(spec, A, B, CHAIN, variant), got), f"{key}: the parent differs"
+            fns = {"this": lambda: mont_mul_chain(spec, A, B, CHAIN, variant),
+                   "parent": lambda: pmod.mont_mul_chain(spec, A, B, CHAIN, variant)}
+            turns = "; kernel only in turns: " + _turns_text(
+                _in_turns(fns, lambda fn: _kernel_only_ms(fn, 50, kernel)[0]))
         print(f"phase 2: {key} {spec.name} n={n} chain={CHAIN} mismatches=0 (own plain and base plain) "
               f"kernel_ms={ms:.4f} kernel_only_ms={k_ms:.4f} ({count} launches) plain_ms={plain_ms:.4f} "
-              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}: {row['bound_pipe']}) "
-              f"Mmul/s={n * CHAIN / ms / 1e3:.1f} (kernel only {n * CHAIN / k_ms / 1e3:.1f})", flush=True)
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}: {row['bound_pipe']}; "
+              f"{100 * row['bound_ms'] / k_ms:.1f}% kernel only) "
+              f"Mmul/s={n * CHAIN / ms / 1e3:.1f} (kernel only {n * CHAIN / k_ms / 1e3:.1f}){turns}", flush=True)
         if spec is FQ:  # the microbench's field: its rows in the kernels line
             results[key] = row
 
@@ -301,12 +315,18 @@ def _edge_ints(rng, p: int, n: int):
 
 def phase_chain_sass() -> None:
     """The SASS of kernel 5's three bodies (cuobjdump, through
-    tools/g1_budgets.py's sass_counts): IMMA (tensor-core u8 products),
-    FFMA, IMAD and all instructions of each instance.  The mxu and f32
-    kernels must hold IMMA, the f32 ones FFMA."""
+    tools/g1_budgets.py's sass_counts): IGMMA (the warpgroup's u8
+    tensor-core products, wgmma), IMMA (mma.sync's), FFMA, IMAD and all
+    instructions of each instance.  The mxu and f32 kernels must hold IGMMA
+    (a product a tile and k-step of each constant convolution) and no IMMA,
+    the f32 ones FFMA."""
     from zktpu_torch.fields.host import FQ, FR
-    from zktpu_torch.fields.mont_mats import mma_products
+    from zktpu_torch.fields.mont_kernel import mont_mma_design
     from zktpu_torch.tools.g1_budgets import sass_counts
+
+    print("phase 1: mont_mma design " + "; ".join(
+        f"{v} {spec.name}: {json.dumps(mont_mma_design(spec, v))}" for spec in (FQ, FR) for v in ("mxu", "f32")),
+        flush=True)
 
     kernels = [("base<12>", r"21mont_mul_chain_kernelILi12E"), ("base<8>", r"21mont_mul_chain_kernelILi8E")]
     kernels += [(f"{v}<{L}>", rf"21mont_mma_chain_kernelILi{L}ELb{int(v == 'f32')}E")
@@ -315,12 +335,15 @@ def phase_chain_sass() -> None:
     for label, _ in kernels:
         c = counts[label]
         top = sorted(c["by_op"].items(), key=lambda kv: -kv[1])[:10]
-        print(f"phase 1: SASS {label}: {c['by_op'].get('IMMA', 0)} IMMA, {c['by_op'].get('FFMA', 0)} FFMA, "
-              f"{c.get('IMAD', 0)} IMAD, {c['total']} instructions; by opcode {dict(top)}", flush=True)
+        print(f"phase 1: SASS {label}: {c['by_op'].get('IGMMA', 0)} IGMMA, {c['by_op'].get('IMMA', 0)} IMMA, "
+              f"{c['by_op'].get('FFMA', 0)} FFMA, {c.get('IMAD', 0)} IMAD, {c['total']} instructions; "
+              f"by opcode {dict(top)}", flush=True)
     for L, spec in ((12, FQ), (8, FR)):
+        k_steps = -(-2 * spec.num_digits // 32)  # 32 of the element's 2D bytes each
         for v in ("mxu", "f32"):
             c = counts[f"{v}<{L}>"]["by_op"]
-            assert c.get("IMMA", 0) >= 2 * mma_products(spec), f"{v}<{L}>: no tensor-core products in its SASS: {c}"
+            assert c.get("IGMMA", 0) >= 2 * 2 * k_steps, f"{v}<{L}>: no warpgroup tensor-core products in its SASS: {c}"
+            assert c.get("IMMA", 0) == 0, f"{v}<{L}>: mma.sync products in its SASS: {c}"
         assert counts[f"f32<{L}>"]["by_op"].get("FFMA", 0) > 0, f"f32<{L}>: no FFMA in its SASS"
 
 
@@ -385,7 +408,7 @@ def phase_ntt_fr_design() -> None:
     assert fam["LDG"] == 0, f"the Fr radix step reads device memory: {fam}"
 
 
-def phase_kernels(device) -> dict:
+def phase_kernels(device, parent=None) -> dict:
     from zktpu_torch.curves import g1
     from zktpu_torch.curves.g1_kernel import (
         proj_add, proj_add_plain, proj_double, proj_double_plain, proj_madd, proj_madd_plain,
@@ -417,7 +440,7 @@ def phase_kernels(device) -> dict:
             assert f.decode_ints(got[:8]) == [x * pow(y, CHAIN, p) % p for x, y in zip(a[:8], b[:8])]
             print(f"phase 2: mont_mul_chain {spec.name} n={n} chain={CHAIN} mismatches=0", flush=True)
         else:
-            _chain_variants(spec, f, a, b, A, B, results)
+            _chain_variants(spec, f, a, b, A, B, results, parent)
 
     # points: a host chain (i + 1) G, lifted to general Z by one plain add
     n = (1 << 14) + 5
@@ -1487,6 +1510,18 @@ def phase_fri_kernels(device, results: dict, log_n: int = 20) -> None:
     results["fri_fold"]["kernel_only_ms"] = k_ms
     print(f"phase 2: fri fold kernel only (torch.profiler, {count} launches): {k_ms:.4f} ms", flush=True)
     del c, got, want
+
+    # row 1s Goldilocks: the powers kernel at the largest table the FRI path builds, (2^(log_n - 1), 2)
+    from zktpu_torch.fields import field_kernel as fk
+
+    z, count = GOLDILOCKS.root_of_unity(1 << log_n), 1 << (log_n - 1)
+    _compare("field_scan Goldilocks powers", [gl.powers(z, count)], [fk.powers_plain(gl, z, count)])
+    ms = _cuda_ms(lambda: gl.powers(z, count), 50)
+    k_ms, launches = _kernel_only_ms(lambda: gl.powers(z, count), 50, "field_powers_kernel")
+    b = _bound(count * 8, (count - 1) * GL_PRODUCT_WORDS)
+    print(f"phase 2: field_scan Goldilocks powers({count}) ({count}, 2): mismatches=0 kernel_ms={ms:.4f} "
+          f"field_powers_kernel only (torch.profiler, {launches} launches) {k_ms:.4f} ms, "
+          f"{100 * b['bound_ms'] / k_ms:.1f}% of the bound {b['bound_ms']:.5f} ({b['bound_by']})", flush=True)
 
     n = 1 << log_n
     x = _hash_edge_values(gen, n, device)
@@ -2563,7 +2598,7 @@ def main(argv=None) -> int:
     phase_ntt_gl_sass(args.fri_log_n)
     phase_ntt_fr_design()
 
-    kernels = phase_kernels(device)
+    kernels = phase_kernels(device, parent)
     phase_small_path_shapes(device, kernels)
     phase_ntt_horner(device, kernels, ntt_sizes=((args.log_n + 3, 7), (20, 1), (args.log_n + 2, 9), (args.log_n, 3),
                                                  (args.log_n + 3, 1), (11, 2048), (1, 3), (8, 3)), parent=parent)

@@ -9,8 +9,9 @@ of the add, mixed add and double runs as each CUDA thread runs it, strided
 planes and all, the Horner combine runs its lane schedule phase by phase,
 the NTT runs each pass block by block and each block's phases thread by
 thread, the matrix-vector product runs every block and thread with its warp
-shuffles emulated, and the tensor-core chain runs a warp as 32 threads with its u8
-mma.sync fragments emulated by the PTX ISA's layout tables.  So the carry chains, the lazy reduction bounds, the plane
+shuffles emulated, and the tensor-core chain runs a warpgroup as 128 threads
+with its u8 wgmma operands emulated by the PTX ISA's layouts (shared-memory
+descriptors, register fragments, accumulators).  So the carry chains, the lazy reduction bounds, the plane
 addressing, the lane exchange and the NTT's pass and tile index math are
 held word for word against the plain PyTorch versions here, though only the
 card can run the kernels.  Inputs are arbitrary field elements (the
@@ -781,33 +782,80 @@ def test_host_sha256_field_matches_plain_and_hashlib():
         assert got == want, mode
 
 
-# Kernels 5m and 5f (csrc/mont_mma.cuh): a simulated warp, 32 threads with
-# the m16n8k32 u8 fragments of the PTX ISA emulated, through the library's
-# entry point over host memory.
+# Kernels 5m and 5f (csrc/mont_mma.cuh): a simulated warpgroup, 128 threads
+# with the wgmma m64nNk32 u8 operands of the PTX ISA emulated (shared-memory
+# descriptors, register fragments, the s32 accumulator layout), through the
+# library's entry point over host memory.  MMA_DESIGNS: the library's design
+# and the others tools/mma_budgets.py times on the card.
 MMA_SHIM = os.path.join(HERE, "mont_mma_host.cpp")
+MMA_DESIGNS = {
+    "library": (),
+    "one_tile_one_part": ("-DZK_MMA_TILES=1", "-DZK_MMA_PSPLIT=1"),
+    "two_tiles_two_parts": ("-DZK_MMA_TILES=2", "-DZK_MMA_PSPLIT=2"),
+}
 
 
-@pytest.mark.parametrize("variant", ["mxu", "f32"])
-@pytest.mark.parametrize("spec", [FR, FQ], ids=lambda s: s.name)
-def test_host_mont_mma_chain_matches_plain(spec, variant):
-    """Three chained products over 35 elements (two warps, the second with
-    three live lanes) with 0, 1 and p - 1 among them, against the plain
-    chain."""
-    so = _build(MMA_SHIM, "mont_mma_host", ("-pthread",))
+def _host_mma_chain(spec, variant, flags=(), n=131, chain=3):
+    """(out, want): `chain` products over n elements (the last block ragged)
+    with 0, 1 and p - 1 among them, and the plain chain."""
+    so = _build(MMA_SHIM, "mont_mma_host", ("-pthread", *flags))
     P = ctypes.c_void_p
     so.host_mont_mma_chain.argtypes = [ctypes.c_int, P, ctypes.c_uint32, ctypes.c_int, P, P, P, P, P,
                                        ctypes.c_int64, ctypes.c_int]
     so.host_mont_mma_chain.restype = ctypes.c_int
     rng = np.random.default_rng(21)
     f = field(spec, "cpu")
-    a, b = (f.encode_ints(_elements(rng, spec, 35)) for _ in range(2))
-    qmat, pmat = (np.ascontiguousarray(m).view(np.int32) for m in kernel_mats(spec))
+    a, b = (f.encode_ints(_elements(rng, spec, n)) for _ in range(2))
+    qmat, pmat = kernel_mats(spec)
     p, pinv = cuda_lib.field_consts(spec)
     out = torch.zeros_like(a)
     rc = so.host_mont_mma_chain(spec.num_digits // 2, p, pinv, int(variant == "f32"), qmat.ctypes.data,
-                                pmat.ctypes.data, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], 3)
-    assert rc == 0
-    assert torch.equal(out, mont_mul_chain_plain(spec, a, b, 3))
+                                pmat.ctypes.data, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], chain)
+    assert rc == 0, "a descriptor held a swizzle or base offset, or a warpgroup's threads disagreed"
+    return out, mont_mul_chain_plain(spec, a, b, chain)
+
+
+@pytest.mark.parametrize("variant", ["mxu", "f32"])
+@pytest.mark.parametrize("spec", [FR, FQ], ids=lambda s: s.name)
+def test_host_mont_mma_chain_matches_plain(spec, variant):
+    """Three chained products over 131 elements (two warpgroups, the second
+    with three live threads) with 0, 1 and p - 1 among them, against the
+    plain chain, in the library's design."""
+    out, want = _host_mma_chain(spec, variant)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("kind", ["split", "f32"])
+@pytest.mark.parametrize("limbs", [8, 12])
+def test_host_mont_mma_products_match_ints(limbs, kind):
+    """The variable product t = x y of each body (conv_split, conv_f32)
+    against Python ints, on words that make the longest carry runs (all
+    ones, all ones but one word, alternating) and random ones."""
+    so = _build(MMA_SHIM, "mont_mma_host", ("-pthread",))
+    P = ctypes.c_void_p
+    so.host_mont_mma_product.argtypes = [ctypes.c_int, ctypes.c_int, P, P, P, ctypes.c_int64]
+    rng = np.random.default_rng(limbs)
+    full = (1 << (32 * limbs)) - 1
+    vals = [full, full - 1, full ^ (0xFFFFFFFF << 32 * (limbs // 2)), int("AAAAAAAA" * limbs, 16), 0, 1]
+    vals += [int.from_bytes(rng.bytes(4 * limbs), "little") for _ in range(26)]
+    xs = vals + [full] * len(vals)
+    ys = [full] * len(vals) + vals[::-1]
+    x = np.array([[(v >> 32 * k) & 0xFFFFFFFF for k in range(limbs)] for v in xs], dtype=np.uint32)
+    y = np.array([[(v >> 32 * k) & 0xFFFFFFFF for k in range(limbs)] for v in ys], dtype=np.uint32)
+    t = np.zeros((len(xs), 2 * limbs), dtype=np.uint32)
+    kinds = {"split": 0, "f32": 1}
+    assert so.host_mont_mma_product(limbs, kinds[kind], x.ctypes.data, y.ctypes.data, t.ctypes.data, len(xs)) == 0
+    got = [sum(int(w) << 32 * k for k, w in enumerate(row)) for row in t]
+    assert got == [a * b for a, b in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("design", sorted(set(MMA_DESIGNS) - {"library"}))
+@pytest.mark.parametrize("variant", ["mxu", "f32"])
+@pytest.mark.parametrize("spec", [FR, FQ], ids=lambda s: s.name)
+def test_host_mont_mma_designs_match_plain(spec, variant, design):
+    """The same in the sweep's other designs."""
+    out, want = _host_mma_chain(spec, variant, MMA_DESIGNS[design])
+    assert torch.equal(out, want)
 
 
 # Nova's matrix-vector product (csrc/matvec.cuh): every block and thread on

@@ -21,7 +21,10 @@ from zktpu_torch.fields.host import FQ, FR, GOLDILOCKS
 from zktpu_torch.fields.mont_kernel import (
     mont_mul_chain, mont_mul_chain_f32_plain, mont_mul_chain_mxu_plain, mont_mul_chain_plain, mont_mul_mxu_plain,
 )
-from zktpu_torch.fields.mont_mats import MXU_MIN_DIGITS, kernel_mats, mma_products, mont_matmats, used_blocks
+from zktpu_torch.fields.mont_mats import (
+    MXU_MIN_DIGITS, core_tiles, kernel_mats, kernel_rows, mma_issued, mma_products, mont_matmats, tile_rows,
+    used_blocks,
+)
 
 torch.set_num_threads(1)  # the suite runs one process per core: intra-op threads would oversubscribe it
 
@@ -104,32 +107,46 @@ def test_intermediates_match_zktpu(goldens, spec, variant):
 @pytest.mark.parametrize("spec", SPECS, ids=IDS)
 def test_constant_matrices_match_zktpu(goldens, spec):
     """mont_matmats entry for entry, and the kernel's layout is the same
-    matrices: natural byte order, weight-1 and weight-256 columns interleaved."""
+    matrices: natural byte order, weight-1 and weight-256 columns
+    interleaved, staged as wgmma's K-major core matrices (8 rows x 16 bytes,
+    128 contiguous bytes each: byte k of row n at [n // 8, k // 16, n % 8,
+    k % 16])."""
     mats = mont_matmats(spec)
     assert torch.equal(mats, _g(goldens, spec, "matmats"))
     D = spec.num_digits
+    kp = 32 * -(-2 * D // 32)
     r = np.arange(2 * D)
     block = np.where(r % 2 == 0, r // 2, D + r // 2)  # natural byte r -> block-order row
     qmat, pmat = kernel_mats(spec)
-    for km, (A, B), S in ((qmat, (mats[0], mats[1]), D), (pmat, (mats[2], mats[3]), 2 * D)):
-        assert km.shape == (2 * S, 32 * -(-2 * D // 32))
-        assert np.array_equal(km[0::2, : 2 * D], A[:S].numpy()[:, block])
-        assert np.array_equal(km[1::2, : 2 * D], B[:S].numpy()[:, block])
-        assert not km[:, 2 * D:].any()
+    for km, rows, (A, B), S in ((qmat, kernel_rows(spec)[0], (mats[0], mats[1]), D),
+                                (pmat, kernel_rows(spec)[1], (mats[2], mats[3]), 2 * D)):
+        assert km.shape == (2 * S // 8, kp // 16, 8, 16) and km.flags.c_contiguous
+        assert np.array_equal(tile_rows(km), rows)
+        flat = km.reshape(-1)
+        for n, k in ((0, 0), (2 * S - 1, 2 * D - 1), (9, 17), (2 * S - 3, 31)):
+            assert flat[(n // 8) * 128 * (kp // 16) + (k // 16) * 128 + (n % 8) * 16 + k % 16] == rows[n, k]
+        assert np.array_equal(core_tiles(rows), km)
+        assert np.array_equal(rows[0::2, : 2 * D], A[:S].numpy()[:, block])
+        assert np.array_equal(rows[1::2, : 2 * D], B[:S].numpy()[:, block])
+        assert not rows[:, 2 * D:].any()
 
 
 @pytest.mark.parametrize("spec", SPECS, ids=IDS)
 def test_skipped_blocks_are_zero(spec):
-    """The blocks the kernel skips (the band structure) hold only zeros, and
-    the products it issues per m-tile: Fq 26 of 36, Fr 12 of 12."""
+    """The blocks outside the band hold only zeros; the band's 16 x 8 x 32
+    blocks per 16 elements: Fq 26 of 36, Fr 12 of 12, and the u8
+    multiply-accumulates the kernel issues an element (whole N ranges): Fq
+    9,216 against the band's 6,656, Fr 3,072."""
     D = spec.num_digits
-    for km, S in zip(kernel_mats(spec), (D, 2 * D)):
+    for km, S in zip(map(tile_rows, kernel_mats(spec)), (D, 2 * D)):
         used = set(used_blocks(spec, S))
         for j in range(S // 4):
             for ks in range(km.shape[1] // 32):
                 if (j, ks) not in used:
                     assert not km[8 * j : 8 * j + 8, 32 * ks : 32 * ks + 32].any(), (S, j, ks)
     assert mma_products(spec) == {FQ.name: 26, FR.name: 12}[spec.name]
+    assert mma_issued(spec) == {FQ.name: 9216, FR.name: 3072}[spec.name]
+    assert mma_products(spec) * 256 <= mma_issued(spec)
 
 
 def test_goldilocks_raises():

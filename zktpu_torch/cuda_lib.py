@@ -78,6 +78,8 @@ _SIGNATURES = {
                           ctypes.c_int, _P],
     # limbs, f32, out {registers, local bytes, shared bytes}
     "zk_mont_mma_attrs": [ctypes.c_int, ctypes.c_int, _P],
+    # limbs, f32, out {tiles in flight, m p parts, minimum blocks}
+    "zk_mont_mma_design": [ctypes.c_int, ctypes.c_int, _P],
     # device, limbs, p (host), pinv, identity (host), op, mode, in, its row and
     # column strides, n, B, chunk, dirs, out_fwd, out_rev, their row and column
     # strides, total, status buffer, its slots, ticket base, epoch, stream

@@ -25,7 +25,8 @@ in one launch, so its time is the multiply body's alone
 (zktpu_torch/tools/prof_mulkernels.py).  Its three bodies, as the
 reference's: "base" (csrc/mont_mul.cu, the CIOS carry chain of every other
 kernel), "mxu" (csrc/mont_mma.cu: the two constant convolutions
-t * (-p^{-1}) mod R and m * p as u8 tensor-core products, the variable one
+t * (-p^{-1}) mod R and m * p as u8 wgmma products of a warpgroup, the
+constant matrices staged once a block in shared memory, the variable one
 on the integer pipe) and "f32" (the same, with the variable convolution as
 FP32 FMAs over 8-bit digits); "mxu" and "f32" for Fr and Fq only
 (fields/mont_mats.py: MXU_MIN_DIGITS).  Their plain versions follow
@@ -182,9 +183,24 @@ def mont_mul_chain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, chain: int
 mont_mul_chain.launches = {v: 0 for v in CHAIN_VARIANTS}
 
 
+MMA_DESIGN_KEYS = ("tiles", "psplit", "min_blocks")
+
+
+def mont_mma_design(spec: FieldSpec, variant: str) -> dict:
+    """The design of the mxu or f32 chain kernel for `spec` in the loaded
+    library (csrc/mont_mma.cuh MmaDesign: tiles in flight, parts of the m p
+    product; min_blocks 0: no launch bound)."""
+    check_mxu_field(spec)
+    out = (ctypes.c_int * len(MMA_DESIGN_KEYS))()
+    cuda_lib.check(cuda_lib.load().zk_mont_mma_design(spec.num_digits // 2, int(variant == "f32"), out),
+                   f"mont_mul_chain ({variant}) design")
+    return dict(zip(MMA_DESIGN_KEYS, out))
+
+
 def mont_mma_attrs(spec: FieldSpec, variant: str) -> dict:
-    """Registers per thread, local-memory bytes (spills) and static shared
-    memory per block of the mxu or f32 chain kernel for `spec`."""
+    """Registers per thread, local-memory bytes (spills) and shared memory
+    per block (the staged matrices, operand rows and column rows) of the mxu or
+    f32 chain kernel for `spec`."""
     check_mxu_field(spec)
     out = (ctypes.c_int * 3)()
     cuda_lib.check(cuda_lib.load().zk_mont_mma_attrs(spec.num_digits // 2, int(variant == "f32"), out),

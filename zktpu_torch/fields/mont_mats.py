@@ -16,11 +16,12 @@ at most 2D * 255^2 (3,121,200 for Fq): exact in s32, in f32, and in bf16
 products summed in f32.
 
 ``mont_matmats`` keeps the reference's layout: rows r of x8 in block order
-(the low bytes of the D digits, then the high bytes).  ``kernel_mats`` is
-the same matrices as the CUDA kernel reads them (csrc/mont_mma.cuh): x8 in
-natural byte order (byte r of the little-endian limbs, so one 32-bit limb
-is four consecutive k of an mma fragment), the weight-1 and weight-256
-columns interleaved (n = 2 s + w), one row of 32 KS bytes per n.
+(the low bytes of the D digits, then the high bytes).  ``kernel_rows`` is
+the same matrices as the CUDA kernel multiplies them (csrc/mont_mma.cuh):
+x8 in natural byte order (byte r of the little-endian limbs), the weight-1
+and weight-256 columns interleaved (n = 2 s + w), one row of 32 KS bytes
+per n; ``kernel_mats`` is those rows in the layout the kernel stages them
+in shared memory, wgmma's K-major core matrices of 8 rows x 16 bytes.
 """
 from __future__ import annotations
 
@@ -85,11 +86,11 @@ def mont_matmats(spec: FieldSpec, device="cpu") -> torch.Tensor:
     return torch.from_numpy(_matmats(spec).copy()).to(device)
 
 
-def kernel_mats(spec: FieldSpec) -> tuple[np.ndarray, np.ndarray]:
-    """The two matrices in the kernel's layout, as (2S, 32 KS) uint8: the
-    pinv matrix (S = D columns, the product mod R) and the p matrix (S = 2D).
-    Row n = 2 s + w holds column s of A (w = 0) or B (w = 1) over the bytes
-    of x in natural order, zero past byte 2D."""
+def kernel_rows(spec: FieldSpec) -> tuple[np.ndarray, np.ndarray]:
+    """The two matrices as the kernel multiplies them, (2S, 32 KS) uint8:
+    the pinv matrix (S = D columns, the product mod R) and the p matrix
+    (S = 2D).  Row n = 2 s + w holds column s of A (w = 0) or B (w = 1)
+    over the bytes of x in natural order, zero past byte 2D."""
     mats = _matmats(spec)
     D = spec.num_digits
     kpad = 32 * -(-2 * D // 32)
@@ -105,24 +106,54 @@ def kernel_mats(spec: FieldSpec) -> tuple[np.ndarray, np.ndarray]:
     return out[0], out[1]
 
 
+def core_tiles(rows: np.ndarray) -> np.ndarray:
+    """(N, KP) rows -> (N / 8, KP / 16, 8, 16): wgmma's K-major layout without
+    swizzle, as csrc/mont_mma.cuh's B descriptors read it (LBO 128 bytes,
+    SBO KP / 16 * 128): byte k of row n at [n // 8, k // 16, n % 8, k % 16],
+    each 8 x 16 core matrix 128 contiguous bytes."""
+    n, kp = rows.shape
+    return np.ascontiguousarray(rows.reshape(n // 8, 8, kp // 16, 16).transpose(0, 2, 1, 3))
+
+
+def tile_rows(tiles: np.ndarray) -> np.ndarray:
+    """core_tiles' inverse: (N / 8, KP / 16, 8, 16) -> (N, KP)."""
+    g, c, _, _ = tiles.shape
+    return tiles.transpose(0, 2, 1, 3).reshape(8 * g, 16 * c)
+
+
+def kernel_mats(spec: FieldSpec) -> tuple[np.ndarray, np.ndarray]:
+    """kernel_rows in the layout the kernel stages them in shared memory,
+    (2S / 8, KP / 16, 8, 16) uint8 each (core_tiles)."""
+    return tuple(core_tiles(m) for m in kernel_rows(spec))
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_mats_on(spec: FieldSpec, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """kernel_mats as int32 words (four bytes of k each) on `device`, cached."""
-    return tuple(torch.from_numpy(m.view(np.int32).copy()).to(device) for m in kernel_mats(spec))
+    """kernel_mats as flat uint8 tensors on `device`, cached."""
+    return tuple(torch.from_numpy(m.reshape(-1).copy()).to(device) for m in kernel_mats(spec))
 
 
 def used_blocks(spec: FieldSpec, S: int) -> list[tuple[int, int]]:
-    """The (n-tile, k-step) blocks of a kernel matrix with S columns that the
-    kernel multiplies (csrc/mont_mma.cuh ConstConv::used): tile j holds
-    columns 4j..4j+3, which meet only the bytes r in [8j - 2D + 1, 8j + 7];
-    the other blocks are all zero and skipped."""
+    """The (n-tile, k-step) blocks of a kernel matrix with S columns that are
+    not all zero (the band of a convolution): tile j holds columns
+    4j..4j+3, which meet only the bytes r in [8j - 2D + 1, 8j + 7].  The
+    bound counts these; wgmma multiplies whole N ranges (mma_issued)."""
     k8 = 2 * spec.num_digits
     return [(j, ks) for j in range(S // 4) for ks in range(-(-k8 // 32))
             if 32 * ks <= 8 * j + 7 and 32 * ks + 31 >= 8 * j - k8 + 1]
 
 
 def mma_products(spec: FieldSpec) -> int:
-    """m16n8k32 products per m-tile of 16 elements in one Montgomery product:
-    the used blocks of the pinv matrix (S = D) and the p matrix (S = 2D)."""
+    """The band's 16 x 8 x 32 blocks per 16 elements in one Montgomery
+    product: the used blocks of the pinv matrix (S = D) and the p matrix
+    (S = 2D), 256 u8 multiply-accumulates an element each."""
     D = spec.num_digits
     return len(used_blocks(spec, D)) + len(used_blocks(spec, 2 * D))
+
+
+def mma_issued(spec: FieldSpec) -> int:
+    """u8 multiply-accumulates an element and product that the kernel issues:
+    every k-step of both matrices over their whole N = 2S rows (Fq 9,216
+    against the band's 6,656; Fr 3,072, its band)."""
+    D = spec.num_digits
+    return (2 * D + 4 * D) * 32 * -(-2 * D // 32)

@@ -13,8 +13,8 @@ Variants (the original's three bodies):
   base  the CIOS carry-chain product of csrc/field.cuh, as every other
         kernel runs it (csrc/mont_mul.cu);
   mxu   the two constant convolutions, t * (-p^{-1}) mod R and m * p, as u8
-        tensor-core products (mma.sync m16n8k32), the variable one as
-        carry-chain rows (csrc/mont_mma.cu);
+        tensor-core products (a warpgroup's wgmma m64nNk32), the variable
+        one on the integer multiply-add pipe (csrc/mont_mma.cu);
   f32   the same, with the variable convolution as FP32 FMAs over 8-bit
         digits.
 mxu and f32 need a field of at least 16 digits (Fr, Fq); Goldilocks raises
@@ -40,7 +40,7 @@ import torch
 from ..fields.fp import field, norm_device
 from ..fields.host import FQ
 from ..fields.mont_kernel import CHAIN_VARIANTS, mont_mul_chain, mont_mul_chain_plain
-from ..fields.mont_mats import mma_products
+from ..fields.mont_mats import mma_issued, mma_products
 
 VARIANTS = CHAIN_VARIANTS
 
@@ -60,8 +60,10 @@ def chain_bound(spec, variant: str, n: int, chain: int) -> dict:
     bytes (a and b read, the result written once) over HBM, or the busiest
     pipe: "imad" (base: a CIOS product, 2 (2L^2 + L) multiply-adds; mxu: the
     L carry-chain rows of t = x y, 2 L^2), "ffma" (f32: 4 D^2 a product) or
-    "tensor" (mxu, f32: the u8 MACs of the m16n8k32 products the kernel
-    issues, fields/mont_mats.py's mma_products per m-tile of 16 elements)."""
+    "tensor" (mxu, f32: the u8 MACs of the band, fields/mont_mats.py's
+    mma_products per 16 elements).  For mxu and f32, "tensor_issued_ms" is
+    the tensor pipe's time for the MACs the kernel issues (mma_issued: wgmma
+    multiplies whole N ranges, the band's zero blocks too)."""
     L, D = spec.num_digits // 2, spec.num_digits
     t_bytes = 3 * n * 4 * L / HBM_BYTES_PER_S
     if variant == "base":
@@ -70,8 +72,11 @@ def chain_bound(spec, variant: str, n: int, chain: int) -> dict:
         pipes = {"tensor": mma_products(spec) * 16 * 8 * 32 / 16 / TENSOR_U8_MAC_PER_S}
         pipes.update({"imad": 2 * L * L / IMAD_PER_S} if variant == "mxu" else {"ffma": 4 * D * D / FFMA_PER_S})
     t_ops = max(pipes.values()) * n * chain
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_pipe": max(pipes, key=pipes.get)}
+    out = {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_pipe": max(pipes, key=pipes.get)}
+    if variant != "base":
+        out["tensor_issued_ms"] = mma_issued(spec) / TENSOR_U8_MAC_PER_S * n * chain * 1e3
+    return out
 
 
 def rand_elems(spec, n: int, device, seed: int = 0) -> torch.Tensor:
