@@ -1,0 +1,5 @@
+"""prove_s (host clock): the window's seconds over the proofs it finished."""
+
+
+def read(ctx):
+    return ctx.window_s / ctx.requests if ctx.requests else None
